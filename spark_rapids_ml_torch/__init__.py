@@ -1,0 +1,22 @@
+#
+# spark_rapids_ml_torch — the PyTorch/CUDA port of spark_rapids_ml_tpu, for
+# one NVIDIA Hopper GPU.  The same estimator and model names, Params, conf
+# keys and on-disk model format as the JAX package; plain tensor code is
+# PyTorch, and the JAX package's one Pallas kernel is a CUDA C++ kernel
+# written for sm_90a (ops/fused_knn.py, ops/csrc/fused_knn.cu).
+#
+# Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`).
+#
+# Entry points run on "cuda:0" unless the caller asks for the CPU with
+# `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without
+# a CUDA device and such a request they raise.
+#
+import sys as _sys
+
+__version__ = "0.1.0"
+
+from . import config  # noqa: F401
+from .models import knn  # noqa: F401
+from .parallel import get_default_device, set_default_device  # noqa: F401
+
+_sys.modules[__name__ + ".knn"] = knn

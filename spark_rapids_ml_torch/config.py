@@ -1,0 +1,75 @@
+#
+# Global configuration — the port of spark_rapids_ml_tpu/config.py for the
+# keys the exact-kNN slice reads.  The confs live in a process-global dict,
+# overridable from the environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or
+# `set_config()`.  Key names and defaults match the JAX package, except
+# where a comment says otherwise; later slices add their keys here.
+#
+# The compute device is NOT a conf key: it is chosen through
+# `spark_rapids_ml_torch.set_default_device` (parallel/context.py).
+#
+import os
+import threading
+from typing import Any, Dict, Optional
+
+_lock = threading.Lock()
+
+_DEFAULTS: Dict[str, Any] = {
+    # Hand-written fused distance + top-k kernel for exact kNN
+    # (ops/fused_knn.py, the port of the Pallas kernel).  The JAX package
+    # defaults to "off" because its Pallas kernel lost to XLA on a TPU;
+    # the port defaults to "on", so on the card the CUDA kernel IS the kNN
+    # path.  "auto" means "on" (no measured probe is ported); "off" is an
+    # explicit choice of the plain torch path (ops/knn.py
+    # knn_topk_blocked / knn_topk_coltiled).
+    "pallas_knn": "on",
+    # Matmul precision of the plain torch distance forms (ops/precision.py):
+    # "highest" = IEEE f32 (TF32 off), the default; see that module for
+    # the mapping of "high" and "default".
+    "distance_precision": "highest",
+}
+
+_ENV_PREFIX = "SPARK_RAPIDS_ML_TORCH_"
+
+_config: Dict[str, Any] = {}
+
+
+def _coerce(key: str, raw: str) -> Any:
+    ty = type(_DEFAULTS[key])
+    if ty is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    if ty is int:
+        return int(raw)
+    if ty is float:
+        return float(raw)
+    return raw
+
+
+def _effective_locked(key: str, default: Optional[Any] = None) -> Any:
+    """Effective (env-aware) value; caller must hold _lock (non-reentrant)."""
+    if key in _config:
+        return _config[key]
+    env = os.environ.get(_ENV_PREFIX + key.upper())
+    if env is not None and key in _DEFAULTS:
+        return _coerce(key, env)
+    return _DEFAULTS.get(key, default)
+
+
+def get_config(key: str, default: Optional[Any] = None) -> Any:
+    if key not in _DEFAULTS and default is None:
+        raise KeyError(f"Unknown config key: {key}")
+    with _lock:
+        return _effective_locked(key, default)
+
+
+def set_config(**kwargs: Any) -> None:
+    with _lock:
+        for k in kwargs:
+            if k not in _DEFAULTS:
+                raise KeyError(f"Unknown config key: {k}")
+        _config.update(kwargs)
+
+
+def reset_config() -> None:
+    with _lock:
+        _config.clear()

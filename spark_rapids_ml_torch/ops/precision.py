@@ -1,0 +1,57 @@
+#
+# Matmul precision for distance forms whose output is a ranking (kNN
+# neighbour ids): the port of spark_rapids_ml_tpu/ops/precision.py.
+#
+# The conf key `distance_precision` keeps the JAX package's names, mapped
+# onto what the card offers for a float32 matmul:
+#
+#   "highest"  IEEE float32 (TF32 off).  The default, and the only level
+#              at which neighbour ranks match the JAX package's.
+#   "high"     also IEEE float32.  On the TPU "high" is three bf16 passes
+#              (about 2^-14 relative error).  PyTorch's own "high" is TF32,
+#              a 10-bit mantissa (about 2^-11), which re-orders near ties
+#              that the TPU's "high" keeps; no cuBLAS mode reachable from
+#              PyTorch gives 2^-14, so the port takes the exact one.
+#   "default"  TF32: the fastest, and rank-unsafe, as the TPU's default
+#              single bf16 pass is.
+#
+# Only the plain torch forms read it (ops/distances.py `sqdist` and the
+# plain twin of the fused kernel).  The hand-written CUDA kernel always
+# accumulates with IEEE FMA in the input type.  float64 matmuls are never
+# affected.  The level is set around each matmul and restored after it,
+# never for the whole process.
+#
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator
+
+import torch
+
+from ..config import get_config
+
+_ALLOW_TF32 = {"highest": False, "high": False, "default": True}
+
+
+def distance_precision() -> str:
+    """The checked `distance_precision` level ("highest", "high" or
+    "default")."""
+    name = str(get_config("distance_precision")).lower()
+    if name not in _ALLOW_TF32:
+        raise ValueError(
+            f"distance_precision must be one of {sorted(_ALLOW_TF32)}, got {name!r}"
+        )
+    return name
+
+
+@contextlib.contextmanager
+def matmul_precision() -> Iterator[None]:
+    """Run the enclosed float32 matmuls at the `distance_precision` level."""
+    allow = _ALLOW_TF32[distance_precision()]
+    cuda_mm = torch.backends.cuda.matmul
+    before = cuda_mm.allow_tf32
+    cuda_mm.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        cuda_mm.allow_tf32 = before

@@ -239,6 +239,9 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: mark test as slow to run")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped without one"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

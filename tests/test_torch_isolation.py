@@ -1,0 +1,103 @@
+#
+# The port stands alone: no module of spark_rapids_ml_torch, nor
+# chip_smoke.py, imports JAX or the JAX package; the port runs with both
+# made unimportable; and chip_smoke.py refuses to run without a CUDA device
+# or without the rest of the repo.
+#
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "spark_rapids_ml_torch"
+FORBIDDEN = ("jax", "jaxlib", "spark_rapids_ml_tpu")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_no_port_module_imports_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _run(code: str, cwd=REPO, env_extra=None, timeout=240):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(env_extra or {})
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_port_runs_with_jax_unimportable():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['spark_rapids_ml_tpu'] = None\n"
+        "import numpy as np\n"
+        "import spark_rapids_ml_torch as p\n"
+        "from spark_rapids_ml_torch.knn import NearestNeighbors\n"
+        "import spark_rapids_ml_torch.convert, chip_smoke\n"
+        "p.set_default_device('cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.normal(size=(50, 4)).astype(np.float32)\n"
+        "_, _, df = NearestNeighbors(k=3).fit(X).kneighbors(X[:5])\n"
+        "idx = np.stack(df['indices'])\n"
+        "assert (idx[:, 0] == np.arange(5)).all(), idx\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_point_raises_for_cuda_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    code = (
+        "import numpy as np\n"
+        "from spark_rapids_ml_torch.knn import NearestNeighbors\n"
+        "X = np.zeros((5, 2), np.float32)\n"
+        "NearestNeighbors(k=2).fit(X).kneighbors(X)\n"
+    )
+    out = _run(code, env_extra={"SPARK_RAPIDS_ML_TORCH_DEVICE": "cuda"})
+    assert out.returncode != 0
+    assert "RuntimeError" in out.stderr and "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path, where):
+    if torch.cuda.is_available() and where == "repo":
+        pytest.skip("checks the behaviour without a CUDA device")
+    cwd = REPO
+    if where == "alone":
+        (tmp_path / "chip_smoke.py").write_text((REPO / "chip_smoke.py").read_text())
+        cwd = tmp_path
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                         text=True, timeout=240,
+                         env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
