@@ -8,23 +8,31 @@ Run from the root of a checkout:
 
 Phases, each of which makes the script exit non-zero when it fails:
 
-1. card: the GPU's name and power limit, the torch and CUDA versions, and
-   the build of every CUDA kernel of the port from the sources in the
-   checkout (nvcc, one process per source, all started together);
-2. kernel vs twin: the fused distance + top-k kernel against its plain
-   PyTorch twin, both on the card, at shapes with tails (k > valid
-   items), invalid rows, exact ties (duplicated integer rows), widths that
-   are no multiple of the kernel's chunk, float32 and float64, and
-   k = 1, 32 and 1000;
+1. card: the GPU's name and power limit, the torch and CUDA versions, the
+   build of every CUDA kernel of the port from the sources in the checkout
+   (nvcc, one process per source, all started together) and its time, each
+   kernel's registers, spills and shared memory (ptxas), and the tensor-core
+   instructions in the built library's SASS (cuobjdump): the float32 kernel
+   must hold HGMMA (wgmma);
+2. kernels vs their plain versions, on the card: the split pass and the
+   merge pass bit for bit; the fused distance + top-k against its plain
+   PyTorch twin at shapes with tails (k > valid items), invalid rows,
+   exact ties (duplicated integer rows, also across the item splits),
+   widths that are no multiple of the kernel's chunk, k larger than a
+   split's items, float32 and float64, and k = 1, 32 and 1000;
 3. the main path at full size: NearestNeighbors(k).setIdCol("id").fit(items)
    -> kneighbors(queries) -> exactNearestNeighborsJoin, through the public
-   entry points; the kernel's launch count is reset just before and read
+   entry points; every kernel's launch count is reset just before and read
    just after.  Then the result is held against the twin on the same
-   staged tensors and against a float64 host recomputation, and the
-   kernel, the twin and one library call computing the same function (a
-   blocked torch.matmul + torch.topk, the yardstick) are timed with CUDA
-   events;
-4. persistence: save, load, kneighbors again, identical results.
+   staged tensors and against a float64 host recomputation, and each
+   float32 kernel, its plain version and, where there is one, one library
+   call computing the same function (a blocked torch.matmul + torch.topk,
+   the yardstick) are timed with CUDA events, with the item sweep's split
+   count swept;
+4. the float64 path through the same entry points (float32_inputs=False) at
+   a fifth of the items and queries, its launch count reset before and read
+   after, held against the twin at float64 precision and timed the same way;
+5. persistence: save, load, kneighbors again, identical results.
 
 The last lines of standard output are a JSON object of the kernels'
 numbers, the card's name and power limit, and
@@ -36,17 +44,27 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
-# Published peaks of one H100 SXM at its full 700 W (NVIDIA's data sheet):
-# float32 outside the tensor cores, float64 outside the tensor cores, HBM.
-_PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# Published dense peaks of one H100 SXM at its full 700 W (NVIDIA's data
+# sheet): TF32 on the tensor cores, float32 outside them, float64 on the
+# tensor cores (DMMA), and HBM.
+_PEAK_TF32 = 495e12
+_PEAK_FP32 = 67e12
+_PEAK_FP64 = 67e12
 _PEAK_BYTES_PER_S = 3.35e12
+_SOURCE = "spark_rapids_ml_torch/ops/csrc/fused_knn.cu"
+_REPLACES = "spark_rapids_ml_tpu/ops/pallas_knn.py:148"
+# the kernels of fused_knn.cu, as their names appear in ptxas and SASS
+_KERNELS = ("tf32_split_kernel", "fused_knn_tf32_kernel", "merge_partials_kernel",
+            "fused_knn_kernel")
 
 
 def log(msg: str) -> None:
@@ -74,6 +92,44 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _kernel_of(symbol: str) -> str:
+    return next((k for k in _KERNELS if k in symbol), symbol)
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers, spill bytes and static shared memory of each kernel, from
+    nvcc's `-Xptxas -v` output."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = _kernel_of(m.group(1))
+            out[cur] = {}
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out[cur]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                out[cur]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_counts(lib_path: Path, nvcc: str) -> dict:
+    """Tensor-core instructions (HGMMA, HMMA, DMMA) in each kernel of a
+    built library, from `cuobjdump -sass`."""
+    exe = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(exe), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = _kernel_of(chunk.split(None, 1)[0])
+        out[name] = {op: len(re.findall(rf"\b{op}\.", chunk)) for op in ("HGMMA", "HMMA", "DMMA")}
+    return out
 
 
 # Relative d^2 tolerance of a kernel that sums in another order than its
@@ -108,34 +164,38 @@ def compare(name, kd, ki, td, ti, exact: bool) -> float:
     return err
 
 
-def phase_kernel_vs_twin(device, seed: int) -> None:
-    import torch
-
-    from spark_rapids_ml_torch.ops import fused_knn as fk
-
+def phase2_cases(seed: int) -> list:
+    """(name, items, valid, queries, k, dtype name, exact, splits) of phase
+    2, as numpy arrays; splits None lets the wrapper choose."""
     rng = np.random.default_rng(seed)
-    f32, f64 = torch.float32, torch.float64
-    cases = []  # (name, items, valid, queries, k, dtype, exact)
+    cases = []
     X = rng.normal(size=(3000, 40))
     v = np.ones(3000)
     v[-200:] = 0.0
     v[::7] = 0.0  # invalid rows inside the set, not only at the tail
-    cases.append(("padded/invalid rows f32 k=32", X, v, rng.normal(size=(130, 40)), 32, f32, False))
+    cases.append(("padded/invalid rows f32 k=32", X, v, rng.normal(size=(130, 40)), 32,
+                  "float32", False, None))
     v = np.zeros(300)
     v[:4] = 1.0
     cases.append(("tails k>valid f32 k=7", rng.normal(size=(300, 6)), v,
-                  rng.normal(size=(10, 6)), 7, f32, False))
+                  rng.normal(size=(10, 6)), 7, "float32", False, None))
     Xi = rng.integers(-3, 4, size=(1000, 17)).astype(np.float64)
     Xi[500:] = Xi[:500]  # every row twice: exact ties broken by position
     Qi = rng.integers(-3, 4, size=(70, 17)).astype(np.float64)
-    for dt, tag in ((f32, "f32"), (f64, "f64")):
-        cases.append((f"exact ties {tag} k=32", Xi, np.ones(1000), Qi, 32, dt, True))
+    for dt in ("float32", "float64"):
+        cases.append((f"exact ties {dt} k=32", Xi, np.ones(1000), Qi, 32, dt, True, None))
+    # 4 splits of 256 items, each holding the same 256 integer rows: every
+    # tie spans the split boundaries, and the lowest position must win
+    Xs = np.tile(rng.integers(-3, 4, size=(256, 17)).astype(np.float64), (4, 1))
+    cases.append(("exact ties across 4 item splits f32 k=32", Xs, np.ones(1024),
+                  rng.integers(-3, 4, size=(40, 17)).astype(np.float64), 32, "float32", True, 4))
     cases.append(("d=131 f32 k=1", rng.normal(size=(2000, 131)), np.ones(2000),
-                  rng.normal(size=(65, 131)), 1, f32, False))
+                  rng.normal(size=(65, 131)), 1, "float32", False, None))
     cases.append(("d=4100 f32 k=5", rng.normal(size=(300, 4100)), np.ones(300),
-                  rng.normal(size=(9, 4100)), 5, f32, False))
+                  rng.normal(size=(9, 4100)), 5, "float32", False, None))
     cases.append(("f64 d=40 k=32", rng.normal(size=(3000, 40)), np.ones(3000),
-                  rng.normal(size=(100, 40)), 32, f64, False))
+                  rng.normal(size=(100, 40)), 32, "float64", False, None))
+
     # small integers plus multiples of 2^-30 need 32 significant bits:
     # float32 rounds the offsets away, so a float32 body misses 1e-10
     def beyond_f32(rows, cols):
@@ -143,20 +203,117 @@ def phase_kernel_vs_twin(device, seed: int) -> None:
                 + rng.integers(1, 256, size=(rows, cols)) * 2.0**-30)
 
     cases.append(("f64 beyond f32 precision k=16", beyond_f32(2000, 33), np.ones(2000),
-                  beyond_f32(50, 33), 16, f64, False))
-    for dt, tag in ((f32, "f32"), (f64, "f64")):
-        cases.append((f"{tag} k=1000", rng.normal(size=(5000, 24)), np.ones(5000),
-                      rng.normal(size=(66, 24)), 1000, dt, False))
-    for name, X, v, Q, k, dt, exact in cases:
+                  beyond_f32(50, 33), 16, "float64", False, None))
+    X, Q = rng.normal(size=(5000, 24)), rng.normal(size=(66, 24))
+    for dt in ("float32", "float64"):
+        cases.append((f"{dt} k=1000", X, np.ones(5000), Q, 1000, dt, False, None))
+    # 7 splits of 768 items: k exceeds every split's item count
+    cases.append(("f32 k=1000 > a split's 768 items", X, np.ones(5000), Q, 1000, "float32",
+                  False, 7))
+    return cases
+
+
+def hold_main_kernel(name, X, v, Q, k, splits, part_d, part_i, bq=256, bn=512) -> float:
+    """Hold the float32 main kernel's (q, S, k) partial lists against its
+    plain version (3xTF32 emulated with float32 matmuls) on the same split
+    inputs at `compare`'s float32 tolerance, after merging each side's
+    lists: a split's list past the row's merged top-k depends on the order
+    the blocks ran."""
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    d_pad = fk.padded_width(X.shape[1])
+    pd, pi = fk.fused_knn_tf32_reference(
+        fk.tf32_split_reference(X, d_pad), fk.tf32_split_reference(Q, d_pad),
+        fk.padded_item_norms(X, v), X.shape[0], k, splits, bq=bq, bn=bn)
+    q2 = (Q * Q).sum(dim=1)
+    return compare(f"{name} vs its plain version (merged)",
+                   *fk.merge_partials_reference(part_d, part_i, q2, k),
+                   *fk.merge_partials_reference(pd, pi, q2, k), exact=False)
+
+
+def phase_kernels_vs_plain(device, seed: int) -> None:
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    rng = np.random.default_rng(seed + 2)
+    for d in (6, 17, 131):
+        X = torch.as_tensor(rng.normal(size=(777, d)), dtype=torch.float32, device=device)
+        d_pad = fk.padded_width(d)
+        same = torch.equal(fk.tf32_split(X, d_pad), fk.tf32_split_reference(X, d_pad))
+        log(f"  split pass d={d} (d_pad {d_pad}): bit-exact against its plain version: {same}")
+        if not same:
+            raise AssertionError(f"tf32_split differs from tf32_split_reference at d={d}")
+    v = torch.ones(3000, dtype=torch.float32, device=device)
+    X, Q = (torch.as_tensor(rng.normal(size=size), dtype=torch.float32, device=device)
+            for size in ((3000, 40), (130, 40)))
+    part_d, part_i = fk.topk_partials(X, v, Q, 32, splits=5)
+    hold_main_kernel("main kernel, 5 item splits", X, v, Q, 32, 5, part_d, part_i)
+    # the merge pass on lists with ties between the first and the last
+    # splits (exact in the kernel; another summation order may break
+    # them by an ulp, so the main kernel is held on the data above)
+    X[1500:] = X[:1500]
+    part_d, part_i = fk.topk_partials(X, v, Q, 32, splits=5)
+    q2 = (Q * Q).sum(dim=1)
+    kd, ki = fk.merge_partials(part_d, part_i, q2, 32)
+    td, ti = fk.merge_partials_reference(part_d, part_i, q2, 32)
+    same = torch.equal(kd, td) and torch.equal(ki, ti)
+    log(f"  merge pass of {part_d.shape[1]} partial lists: bit-exact against its plain "
+        f"version: {same}")
+    if not same:
+        raise AssertionError("merge_partials differs from merge_partials_reference")
+
+    f32_before, f64_before = fk.LAUNCHES, fk.LAUNCHES_F64
+    cases = phase2_cases(seed)
+    for name, X, v, Q, k, dt, exact, splits in cases:
+        dt = getattr(torch, dt)
         Xt = torch.as_tensor(X, dtype=dt, device=device).contiguous()
         vt = torch.as_tensor(v, dtype=dt, device=device)
         Qt = torch.as_tensor(Q, dtype=dt, device=device).contiguous()
-        kd, ki = fk.fused_topk_sqdist(Xt, vt, Qt, k)
+        kd, ki = fk.fused_topk_sqdist(Xt, vt, Qt, k, splits=splits)
         td, ti = fk.fused_topk_sqdist_reference(Xt, vt, Qt, k)
         torch.cuda.synchronize()
         compare(name, kd, ki, td, ti, exact)
-    if fk.LAUNCHES < len(cases):
-        raise AssertionError(f"kernel launched {fk.LAUNCHES} times for {len(cases)} cases")
+    n64 = sum(c[5] == "float64" for c in cases)
+    if (fk.LAUNCHES - f32_before, fk.LAUNCHES_F64 - f64_before) != (len(cases) - n64, n64):
+        raise AssertionError(f"{len(cases) - n64} float32 and {n64} float64 cases launched "
+                             f"{fk.LAUNCHES - f32_before} and {fk.LAUNCHES_F64 - f64_before} times")
+
+
+def reset_counts() -> None:
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    fk.LAUNCHES = fk.LAUNCHES_F64 = fk.SPLIT_LAUNCHES = fk.MERGE_LAUNCHES = 0
+
+
+def library_topk(items_t, queries_t, k: int):
+    """The yardstick: one blocked torch.matmul + torch.topk computing the
+    same function (1024 queries a block), IEEE arithmetic."""
+    import torch
+
+    x2 = (items_t * items_t).sum(1)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for q0 in range(0, queries_t.shape[0], 1024):
+            Qb = queries_t[q0 : q0 + 1024]
+            d2 = (Qb * Qb).sum(1, keepdim=True) - 2.0 * (Qb @ items_t.T) + x2
+            torch.topk(d2, k, dim=1, largest=False)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def bound(flops: float, peak_flops: float, nbytes: float):
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / _PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, shape):
+    return {"name": name, "route": "cuda", "source": _SOURCE, "replaces": _REPLACES,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "shape": shape}
 
 
 def phase_main_path(device, args) -> dict:
@@ -176,7 +333,7 @@ def phase_main_path(device, args) -> dict:
     log(f"  data: items {items.shape} queries {queries.shape} float32, seed {args.seed}, "
         f"{time.perf_counter() - t0:.2f} s")
 
-    fk.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     model = NearestNeighbors(k=k).setIdCol("id").fit({"features": items, "id": item_ids})
     t_fit = time.perf_counter() - t0
@@ -186,13 +343,13 @@ def phase_main_path(device, args) -> dict:
     t0 = time.perf_counter()
     join = model.exactNearestNeighborsJoin({"features": queries, "id": query_ids})
     t_join = time.perf_counter() - t0
-    launches = fk.LAUNCHES
+    launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
     decision = dict(LAST_KERNEL_DECISION)
     log(f"  fit {t_fit:.3f} s; kneighbors {t_kn:.3f} s (items staged, {q / t_kn:.1f} queries/s); "
         f"join {t_join:.3f} s (items resident, {q / t_join:.1f} queries/s)")
-    log(f"  kernel launches on the main path: {launches}; LAST_KERNEL_DECISION {decision}")
-    if decision["kernel"] != "fused_knn.cu" or launches < 1:
-        raise AssertionError("the main path did not run the CUDA kernel")
+    log(f"  launches on the main path: {launches}; LAST_KERNEL_DECISION {decision}")
+    if decision["kernel"] != "fused_knn_tf32" or min(launches.values()) < 1:
+        raise AssertionError("the main path did not run the float32 CUDA kernels")
 
     idx = np.stack(knn_df["indices"])
     dist = np.stack(knn_df["distances"])
@@ -232,52 +389,122 @@ def phase_main_path(device, args) -> dict:
     log(f"  staging {items.nbytes / 1e6:.0f} MB of items: {t_stage:.3f} s "
         f"({items.nbytes / t_stage / 1e9:.2f} GB/s)")
 
+    # ---- the whole float32 function: split, main kernel, merge -----------
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = fk.auto_splits(n, q, k, sms)
+    ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k), reps=5)
+    plain_ms = cuda_ms(
+        lambda: fk.fused_topk_sqdist_reference(items_t, valid_t, queries_t, k, bq=1024, bn=8192),
+        reps=1,
+    )
+    library_ms = cuda_ms(lambda: library_topk(items_t, queries_t, k), reps=2)
+    flops = 2.0 * q * n * d
+    nbytes = 4.0 * (n * d + q * d + 2 * n) + 8.0 * q * k  # inputs once, outputs once
+    bound_ms, bound_by = bound(3 * flops, _PEAK_TF32, nbytes)
+    fp32_ms, _ = bound(flops, _PEAK_FP32, nbytes)
+    log(f"  fused_topk_sqdist {ms:.3f} ms ({q / ms * 1e3:.1f} queries/s, "
+        f"{flops / ms / 1e9:.2f} TFLOP/s at 2qnd); twin {plain_ms:.3f} ms; "
+        f"library matmul+topk {library_ms:.3f} ms")
+    log(f"  bound at 3xTF32 (3 * 2qnd / {_PEAK_TF32 / 1e12:.0f} TFLOP/s): {bound_ms:.3f} ms "
+        f"({bound_by}), share {bound_ms / ms:.1%}; bound of the first design, FP32 outside the "
+        f"tensor cores (2qnd / {_PEAK_FP32 / 1e12:.0f} TFLOP/s): {fp32_ms:.3f} ms, the kernel "
+        f"taking {ms / fp32_ms:.2f}x of it")
+
+    # ---- its parts, each at the main path's shapes ------------------------
+    d_pad = fk.padded_width(d)
+    xsplit, qsplit = fk.tf32_split(items_t, d_pad), fk.tf32_split(queries_t, d_pad)
+    xs = fk.padded_item_norms(items_t, valid_t)
+    split_ms = cuda_ms(lambda: fk.tf32_split(items_t, d_pad), reps=5)
+    split_plain_ms = cuda_ms(lambda: fk.tf32_split_reference(items_t, d_pad), reps=2)
+    split_err = float((xsplit - fk.tf32_split_reference(items_t, d_pad)).abs().max())
+    qsplit_ms = cuda_ms(lambda: fk.tf32_split(queries_t, d_pad), reps=5)
+    main_ms = cuda_ms(lambda: fk.fused_knn_tf32(xsplit, qsplit, xs, n, k, splits), reps=5)
+    part_d, part_i = fk.fused_knn_tf32(xsplit, qsplit, xs, n, k, splits)
+    hold_main_kernel("main kernel at the main shape", items_t, valid_t, queries_t, k, splits,
+                     part_d, part_i, bq=1024, bn=8192)
+    q2 = (queries_t * queries_t).sum(dim=1)
+    merge_ms = cuda_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=5)
+    merge_plain_ms = cuda_ms(lambda: fk.merge_partials_reference(part_d, part_i, q2, k), reps=2)
+    md, mi = fk.merge_partials(part_d, part_i, q2, k)
+    rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
+    if not (torch.equal(mi, ri) and torch.equal(md, rd)):
+        raise AssertionError("merge pass differs from its plain version at the main shape")
+    norms_ms = cuda_ms(lambda: fk.padded_item_norms(items_t, valid_t), reps=5)
+    log(f"  parts (S = {splits} item splits): item norms {norms_ms:.3f} ms, split items "
+        f"{split_ms:.3f} ms (plain {split_plain_ms:.3f}), split queries {qsplit_ms:.3f} ms, "
+        f"main kernel {main_ms:.3f} ms, merge {merge_ms:.3f} ms (plain {merge_plain_ms:.3f})")
+    sweep = {}
+    for s in sorted({1, 2, 4, 6, 8, 12, 16, 24, splits}):
+        sweep[s] = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k, splits=s),
+                           reps=3)
+    log("  split sweep (fused_topk_sqdist ms by S): "
+        + ", ".join(f"{s}: {t:.3f}" for s, t in sweep.items()))
+    # one wave of 120 blocks (20 query blocks x 6 splits): a block's time
+    # beside a sixth of the 1-split time shows the cost every block pays
+    q1 = min(q, 2560)
+    qsplit1 = qsplit[:, :q1].contiguous()
+    per_k = {kk: (cuda_ms(lambda: fk.fused_knn_tf32(xsplit, qsplit1, xs, n, kk, 1), 2),
+                  cuda_ms(lambda: fk.fused_knn_tf32(xsplit, qsplit1, xs, n, kk, 6), 3))
+             for kk in (1, k, 128)}
+    log(f"  main kernel alone, {q1} queries, ms with 1 and 6 item splits by k: "
+        + ", ".join(f"k={kk}: {a:.3f} / {b:.3f}" for kk, (a, b) in per_k.items()))
+
+    split_bytes = 4.0 * n * d + 8.0 * n * d_pad
+    merge_bytes = 8.0 * part_d.numel() + 4.0 * q + 8.0 * q * k
+    shape = f"{n}x{d} float32 items, {q} queries, k={k}"
+    kernels = [
+        entry("fused_knn_tf32", launches["main"], err, ms, plain_ms, bound_ms, bound_by,
+              library_ms, shape + f", S={splits}; ms is the whole fused_topk_sqdist call"),
+        entry("tf32_split", launches["split"], split_err, split_ms, split_plain_ms,
+              *bound(0.0, _PEAK_FP32, split_bytes), None, f"{n}x{d} float32 items"),
+        entry("merge_partials", launches["merge"], 0.0, merge_ms, merge_plain_ms,
+              *bound(0.0, _PEAK_FP32, merge_bytes), None,
+              f"{q} rows x {part_d.shape[1]} lists x k={k}"),
+    ]
+    return {"model": model, "queries": queries, "query_ids": query_ids, "knn_df": knn_df,
+            "kernels": kernels}
+
+
+def phase_float64_path(device, args) -> dict:
+    import torch
+
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+    from spark_rapids_ml_torch.ops.knn import LAST_KERNEL_DECISION
+
+    n, q, d, k = max(1, args.items // 5), max(1, args.queries // 5), args.dim, args.k
+    rng = np.random.default_rng(args.seed + 3)
+    items, queries = rng.standard_normal(size=(n, d)), rng.standard_normal(size=(q, d))
+    reset_counts()
+    t0 = time.perf_counter()
+    model = NearestNeighbors(k=k, float32_inputs=False).fit(items)
+    _, _, knn_df = model.kneighbors(queries)
+    t_kn = time.perf_counter() - t0
+    launches = fk.LAUNCHES_F64
+    decision = dict(LAST_KERNEL_DECISION)
+    log(f"  fit + kneighbors {t_kn:.3f} s ({q / t_kn:.1f} queries/s); launches {launches}; "
+        f"LAST_KERNEL_DECISION {decision}")
+    if decision["kernel"] != "fused_knn_f64" or launches < 1:
+        raise AssertionError("the float64 path did not run the float64 CUDA kernel")
+    items_t, valid_t, _ = model._device_items[1]
+    queries_t = torch.as_tensor(queries, device=device)
+    kd, kp = fk.fused_topk_sqdist(items_t, valid_t, queries_t, k)
+    td, tp = fk.fused_topk_sqdist_reference(items_t, valid_t, queries_t, k, bq=1024, bn=8192)
+    err = compare("float64 path: kernel vs twin", kd, kp, td, tp, exact=False)
+    if not np.array_equal(np.stack(knn_df["indices"]), kp.cpu().numpy()):
+        raise AssertionError("float64 kneighbors differs from a direct kernel call")
     ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k), reps=3)
     plain_ms = cuda_ms(
         lambda: fk.fused_topk_sqdist_reference(items_t, valid_t, queries_t, k, bq=1024, bn=8192),
         reps=1,
     )
-
-    def library_call():
-        # one blocked torch.matmul + torch.topk over the same inputs, IEEE f32
-        x2 = (items_t * items_t).sum(1)
-        before = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            for q0 in range(0, q, 1024):
-                Qb = queries_t[q0 : q0 + 1024]
-                d2 = (Qb * Qb).sum(1, keepdim=True) - 2.0 * (Qb @ items_t.T) + x2
-                torch.topk(d2, k, dim=1, largest=False)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = before
-
-    library_ms = cuda_ms(library_call, reps=2)
-    flops = 2.0 * q * n * d
-    nbytes = 4.0 * (n * d + q * d + 2 * n) + 8.0 * q * k  # inputs once, outputs once
-    t_ops = flops / _PEAK_FLOPS["float32"] * 1e3
-    t_bytes = nbytes / _PEAK_BYTES_PER_S * 1e3
-    log(f"  kernel {ms:.3f} ms ({q / ms * 1e3:.1f} queries/s, {flops / ms / 1e9:.2f} TFLOP/s); "
-        f"twin {plain_ms:.3f} ms; library matmul+topk {library_ms:.3f} ms; "
-        f"bound {max(t_ops, t_bytes):.3f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
-    return {
-        "model": model,
-        "queries": queries,
-        "query_ids": query_ids,
-        "knn_df": knn_df,
-        "kernel": {
-            "name": "fused_knn",
-            "route": "cuda",
-            "source": "spark_rapids_ml_torch/ops/csrc/fused_knn.cu",
-            "replaces": "spark_rapids_ml_tpu/ops/pallas_knn.py:148",
-            "launches": launches,
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
-        },
-    }
+    library_ms = cuda_ms(lambda: library_topk(items_t, queries_t, k), reps=2)
+    bound_ms, bound_by = bound(2.0 * q * n * d, _PEAK_FP64,
+                               8.0 * (n * d + q * d + 2 * n) + 12.0 * q * k)
+    log(f"  fused_knn_f64 {ms:.3f} ms; twin {plain_ms:.3f} ms; library matmul+topk "
+        f"{library_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}, FP64 on the tensor cores)")
+    return entry("fused_knn_f64", launches, err, ms, plain_ms, bound_ms, bound_by,
+                 library_ms, f"{n}x{d} float64 items, {q} queries, k={k}")
 
 
 def phase_persistence(main: dict) -> None:
@@ -299,6 +526,31 @@ def phase_persistence(main: dict) -> None:
         raise AssertionError("the loaded model answers differently")
 
 
+def phase_build(args) -> None:
+    from spark_rapids_ml_torch.ops import _build
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    t0 = time.perf_counter()
+    sources = _build.all_sources()
+    _build.build(sources)
+    log(f"  built {sources} in {time.perf_counter() - t0:.2f} s")
+    for src in sources:
+        for kern, r in ptxas_report(_build.BUILD_LOG[src]).items():
+            log(f"    {src} {kern}: {r}")
+        for line in _build.BUILD_LOG[src].splitlines():
+            if "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
+                log(f"    {src}: {line.strip()}")
+    lib = fk._lib()
+    d_pad = fk.padded_width(args.dim)
+    log(f"    dynamic shared memory: fused_knn_tf32_kernel {lib.fused_knn_tf32_smem_bytes(d_pad)}"
+        f" B at d={args.dim} ({lib.fused_knn_tf32_stages(d_pad)} ring stages), "
+        f"fused_knn_kernel<double> {lib.fused_knn_f64_smem_bytes()} B")
+    counts = sass_counts(_build._target("fused_knn.cu"), _build._nvcc())
+    log(f"  tensor-core instructions in the SASS: {counts}")
+    if counts.get("fused_knn_tf32_kernel", {}).get("HGMMA", 0) < 1:
+        raise AssertionError("the float32 kernel's SASS holds no HGMMA (wgmma)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -316,7 +568,6 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from spark_rapids_ml_torch import set_default_device
-    from spark_rapids_ml_torch.ops import _build
 
     t_start = time.perf_counter()
     device = torch.device("cuda:0")
@@ -336,26 +587,22 @@ def main() -> int:
         log(f"  import pandas {pandas.__version__}: {time.perf_counter() - t0:.3f} s")
     except ImportError:
         log("  pandas is not installed: results are dicts of numpy columns")
-    t0 = time.perf_counter()
-    sources = _build.all_sources()
-    _build.build(sources)
-    log(f"  built {sources} in {time.perf_counter() - t0:.2f} s")
-    for src in sources:
-        for line in _build.BUILD_LOG[src].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"    {src}: {line.strip()}")
+    phase_build(args)
 
-    log("phase 2: kernel vs twin on the card")
-    phase_kernel_vs_twin(device, args.seed)
+    log("phase 2: kernels vs their plain versions on the card")
+    phase_kernels_vs_plain(device, args.seed)
 
     log(f"phase 3: main path, {args.items} x {args.dim} items, {args.queries} queries, k={args.k}")
     main_out = phase_main_path(device, args)
 
-    log("phase 4: persistence")
+    log("phase 4: float64 path, a fifth of the items and queries")
+    f64 = phase_float64_path(device, args)
+
+    log("phase 5: persistence")
     phase_persistence(main_out)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [main_out["kernel"]]}))
+    print(json.dumps({"kernels": main_out["kernels"] + [f64]}))
     print(card)
     print(json.dumps({
         "ok": True,

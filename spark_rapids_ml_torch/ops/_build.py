@@ -8,7 +8,8 @@
 # seconds.  Libraries land in `build/torch_ext/` at the root of a source
 # checkout (listed in .gitignore); an installed package (the sources ship
 # as package data) builds into a per-user cache instead, `_build_dir`.
-# Each library is named by a hash of the source and the flags, so a
+# Each library is named by a hash of every file under `csrc/` (so an edited
+# header rebuilds the sources that may include it) and the flags, so a
 # changed source rebuilds and an unchanged one loads at once.  All
 # sources start compiling together, one `nvcc` each.
 #
@@ -70,10 +71,13 @@ def _nvcc() -> str:
     return found
 
 
-def _target(source: str) -> Path:
-    src = (_CSRC / source).read_bytes()
-    tag = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"{Path(source).stem}_{tag}.so"
+def _target(source: str, csrc: Path = _CSRC) -> Path:
+    """The library built from `source`: named by a hash of the flags and
+    of every file under `csrc`, the source's own directory."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(csrc)).encode() + b"\0" + path.read_bytes())
+    return _BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def _start(source: str):

@@ -2,23 +2,34 @@
 # Fused distance + top-k for exact kNN: the port of
 # spark_rapids_ml_tpu/ops/pallas_knn.py.
 #
-#   fused_topk_sqdist            the kernel's wrapper.  On a CUDA tensor it
-#                                launches the hand-written kernel
+#   fused_topk_sqdist            the kernels' wrapper.  On a CUDA tensor it
+#                                launches the hand-written kernels
 #                                (csrc/fused_knn.cu) or raises; on a CPU
 #                                tensor it runs the plain twin below.
 #   fused_topk_sqdist_reference  the plain PyTorch twin: the TPU kernel's
-#                                tile and merge semantics in torch ops.
+#                                tile and merge semantics in torch ops, in
+#                                IEEE float32 under `matmul_precision()`.
+#   tf32_split, fused_knn_tf32,  the float32 path's three kernels (split
+#   merge_partials               pass, main kernel, merge pass), each with
+#                                its plain version beside it, which CPU
+#                                tensors run; `topk_partials` chains the
+#                                first two.
 #   knn_topk_fused               the wrapper plus the position -> id map.
 #
-# The kernel has no width bound and no dtype branch: it stages rows through
-# shared memory in chunks along d, and it is templated on float32 and
-# float64, so `float32_inputs=False` keeps float64 inside the kernel (the
-# JAX package sends float64 to XLA instead, and bounds d at 4096).
+# float32 on the card runs three kernels: the split pass (x -> TF32 hi and
+# lo, padded to whole 32-float rows), the main kernel (3xTF32 products on
+# the tensor cores, the item sweep split S ways across blocks, selection on
+# the accumulators, one sorted partial list per row and split) and the merge
+# pass (the S lists by (score, position), then the ||q||^2 epilogue).
+# float64 keeps the first design's CUDA-core kernel, so
+# `float32_inputs=False` keeps float64 inside the kernel (the JAX package
+# sends float64 to XLA instead, and bounds d at 4096).  Neither has a width
+# bound.
 #
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,15 +39,167 @@ _SOURCE = "fused_knn.cu"
 # stand-in for +inf inside the twin's running state, as in the TPU kernel
 _BIG = 3.0e38
 _INT32_MAX = 2**31 - 1
+# tile sizes of the float32 kernel (csrc/fused_knn.cu BN, BQ, BK)
+_BN = 64
+_BQ = 128
+_BK = 32
+# the item sweep is split into at most this many ranges (`auto_splits`),
+# each of at least _MIN_SPLIT_TILES tiles, with the (q, S, k) scratch under
+# _SPLIT_SCRATCH_BYTES.  _BLOCK_COST is what every block pays besides its
+# share of the sweep, as a fraction of one whole sweep (fitted to the split
+# sweep that chip_smoke.py prints: 1M x 128 items, k = 32, on an H100)
+_MAX_SPLITS = 32
+_MIN_SPLIT_TILES = 16
+_BLOCK_COST = 0.03
+_SPLIT_SCRATCH_BYTES = 256 << 20
 
-# Launches of the CUDA kernel since the last reset (chip_smoke.py resets it
-# before the main path and reads it after).  The twin never counts.
+# Launches since the last reset (chip_smoke.py resets them before the main
+# path and reads them after), each counted by the wrapper that launches the
+# kernel: the float32 main kernel (one per fused_topk_sqdist call), the
+# float64 kernel, the split pass and the merge pass.  The plain versions
+# never count.
 LAUNCHES = 0
+LAUNCHES_F64 = 0
+SPLIT_LAUNCHES = 0
+MERGE_LAUNCHES = 0
 
 
 def item_norms(items: torch.Tensor, item_valid: torch.Tensor) -> torch.Tensor:
     """||x||^2 per item, zeroed where the item is invalid."""
     return (items * items).sum(dim=1) * (item_valid > 0).to(items.dtype)
+
+
+def padded_width(d: int) -> int:
+    """d rounded up to whole 32-float (128-byte) rows, at least one."""
+    return max(_BK, -(-d // _BK) * _BK)
+
+
+def split_plan(n: int, splits: int) -> Tuple[int, int]:
+    """(tiles per split, number of splits) for an item sweep of n items in
+    tiles of 64 cut into at most `splits` ranges.  Split s covers items
+    [s * tps * 64, min((s + 1) * tps * 64, n)); no split is empty."""
+    tiles = max(1, -(-n // _BN))
+    tps = -(-tiles // max(1, min(splits, tiles)))
+    return tps, -(-tiles // tps)
+
+
+def split_bounds(n: int, splits: int):
+    """The item ranges [lo, hi) of `split_plan(n, splits)`."""
+    tps, s = split_plan(n, splits)
+    return [(i * tps * _BN, min((i + 1) * tps * _BN, n)) for i in range(s)]
+
+
+def auto_splits(n: int, q: int, k: int, sms: int) -> int:
+    """Splits of the item sweep for a card with `sms` SMs, one block per SM
+    at a time: the S of least waves(S) * (1 / S + _BLOCK_COST), the time of
+    whole waves of blocks that each sweep 1/S of the items and pay a fixed
+    cost besides (ties to the fewer splits).  Each split keeps at least
+    _MIN_SPLIT_TILES tiles and the (q, S, k) scratch stays under
+    _SPLIT_SCRATCH_BYTES."""
+    qblocks = -(-q // _BQ)
+    by_items = max(1, -(-n // _BN) // _MIN_SPLIT_TILES)
+    by_bytes = max(1, _SPLIT_SCRATCH_BYTES // max(1, q * k * 8))
+    top = max(1, min(_MAX_SPLITS, by_items, by_bytes))
+
+    def cost(s: int) -> float:
+        return -(-qblocks * s // sms) * (1.0 / s + _BLOCK_COST)
+
+    return min(range(1, top + 1), key=cost)
+
+
+def tf32_split_reference(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """Plain version of the split pass: (2, rows, d_pad) float32 with
+    hi = tf32(x) and lo = tf32(x - hi), zeros in the pad.  tf32() rounds to
+    10 mantissa bits, to nearest with ties away from zero (cvt.rna), on the
+    bits: add half a unit of the 13 dropped bits, then clear them
+    (non-finite values pass unchanged)."""
+    rows, d = x.shape
+    xp = torch.zeros((rows, d_pad), dtype=torch.float32, device=x.device)
+    xp[:, :d] = x
+
+    def rna(v):
+        b = v.view(torch.int32)
+        r = torch.where(torch.isfinite(v), (b + 0x1000) & -0x2000, b)
+        return r.view(torch.float32)
+
+    hi = rna(xp)
+    return torch.stack([hi, rna(xp - hi)])
+
+
+def merge_partials_reference(
+    part_d: torch.Tensor,  # (q, S, k) sorted partial scores, +inf where empty
+    part_i: torch.Tensor,  # (q, S, k) int32 positions, -1 where empty
+    q2: torch.Tensor,  # (q,) ||q||^2
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the merge pass: the k least (score, position) of
+    each row's S lists, then d^2 = max(score + ||q||^2, 0), +inf and -1 past
+    the valid count.  Split s holds lower positions than split s + 1 and
+    each list is in (score, position) order, so a stable sort by score over
+    the lists laid end to end orders ties by position."""
+    rows, s, kk = part_d.shape
+    cat_d = part_d.reshape(rows, s * kk)
+    cat_i = part_i.reshape(rows, s * kk)
+    srt, order = torch.sort(cat_d, dim=1, stable=True)
+    top_d, top_i = srt[:, :k], torch.gather(cat_i, 1, order[:, :k])
+    empty = top_i < 0
+    out_d = torch.where(empty, float("inf"), torch.clamp_min(top_d + q2[:, None], 0.0))
+    return out_d, torch.where(empty, -1, top_i)
+
+
+def _split_topk(score_tile, n: int, q: int, k: int, splits: int, bq: int, bn: int, dt, dev):
+    """Each row's sorted (score, position) list of every item range of
+    `split_bounds(n, splits)`: (q, S, k) scores, +inf where empty, and int32
+    positions, -1 where empty.  Query rows go in blocks of `bq`, a range's
+    items in tiles of `bn`; `score_tile(q0, q1, n0, n1)` gives a tile's
+    scores, >= _BIG where the item is invalid.  Each tile joins the running
+    (rows, k) state of its range, and a stable sort keeps the k least, so
+    ties go to the lowest position exactly as the TPU kernel's first-argmin
+    does."""
+    bounds = split_bounds(n, splits)
+    part_d = torch.empty((q, len(bounds), k), dtype=dt, device=dev)
+    part_i = torch.empty((q, len(bounds), k), dtype=torch.int32, device=dev)
+    bq = min(bq, max(8, q))
+    for q0 in range(0, q, bq):
+        q1 = min(q0 + bq, q)
+        for s, (lo, hi) in enumerate(bounds):
+            run_d = torch.full((q1 - q0, k), _BIG, dtype=dt, device=dev)
+            run_i = torch.full((q1 - q0, k), -1, dtype=torch.int32, device=dev)
+            for n0 in range(lo, hi, bn):
+                n1 = min(n0 + bn, hi)
+                pos = torch.arange(n0, n1, dtype=torch.int32, device=dev).expand(q1 - q0, -1)
+                cat_d = torch.cat([run_d, score_tile(q0, q1, n0, n1)], dim=1)
+                cat_i = torch.cat([run_i, pos], dim=1)
+                srt, order = torch.sort(cat_d, dim=1, stable=True)
+                run_d = srt[:, :k]
+                run_i = torch.gather(cat_i, 1, order[:, :k])
+            exhausted = run_d >= _BIG
+            part_d[q0:q1, s] = torch.where(exhausted, float("inf"), run_d)
+            part_i[q0:q1, s] = torch.where(exhausted, -1, run_i)
+    return part_d, part_i
+
+
+def fused_knn_tf32_reference(xsplit, qsplit, xs, n: int, k: int, splits: int,
+                             bq: int = 256, bn: int = 512):
+    """Plain version of the float32 main kernel, on its inputs: 3xTF32
+    scores xs - 2 (q_hi.x_lo + q_lo.x_hi + q_hi.x_hi), each product a
+    float32 matmul (a product of two TF32 values is exact in float32, as
+    in the tensor cores, and the sums are float32), then the (q, S, k)
+    sorted partial lists of `_split_topk`."""
+    (xh, xl), (qh, ql) = xsplit, qsplit
+    inf = torch.isinf(xs)
+
+    def score_tile(q0, q1, n0, n1):
+        a_hi, a_lo, b_hi, b_lo = qh[q0:q1], ql[q0:q1], xh[n0:n1], xl[n0:n1]
+        before = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            acc = a_hi @ b_lo.T + a_lo @ b_hi.T + a_hi @ b_hi.T
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
+        return torch.where(inf[n0:n1], _BIG, xs[n0:n1] - 2.0 * acc)
+
+    return _split_topk(score_tile, n, qh.shape[0], k, splits, bq, bn, xs.dtype, xs.device)
 
 
 def fused_topk_sqdist_reference(
@@ -46,48 +209,28 @@ def fused_topk_sqdist_reference(
     k: int,
     bq: int = 256,
     bn: int = 512,
+    splits: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of the fused kernel: (squared distances (q, k),
+    """Plain twin of the fused kernels: (squared distances (q, k),
     int32 item POSITIONS (q, k)), best first.
 
-    Query rows go in blocks of `bq`; items in tiles of `bn`.  Each tile's
-    score ||x||^2 - 2 q.x (+BIG where invalid) joins the running (bq, k)
-    state, and a stable sort keeps the k least, so ties go to the lowest
-    position exactly as the TPU kernel's first-argmin does.  Then
-    d^2 = max(score + ||q||^2, 0), with +inf and -1 past the valid count."""
-    q, _ = queries.shape
-    n = items.shape[0]
-    dev, dt = queries.device, queries.dtype
+    Scores ||x||^2 - 2 q.x (+BIG where invalid), in IEEE arithmetic under
+    `matmul_precision()`, go through `_split_topk` (query blocks of `bq`,
+    item tiles of `bn`, the item ranges of `split_bounds(n, splits)`), and
+    `merge_partials_reference` joins the ranges' lists, adds ||q||^2 and
+    clamps at 0, with +inf and -1 past the valid count.  Every `splits`
+    gives the same result."""
     x2 = item_norms(items, item_valid)
     valid = item_valid > 0
-    out_d = torch.empty((q, k), dtype=dt, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    bq = min(bq, max(8, q))
-    for q0 in range(0, q, bq):
-        Qb = queries[q0 : q0 + bq]
-        rows = Qb.shape[0]
-        run_d = torch.full((rows, k), _BIG, dtype=dt, device=dev)
-        run_i = torch.full((rows, k), -1, dtype=torch.int32, device=dev)
-        for n0 in range(0, n, bn):
-            Xt = items[n0 : n0 + bn]
-            with matmul_precision():
-                qx = Qb @ Xt.T
-            score = torch.where(valid[n0 : n0 + bn], x2[n0 : n0 + bn] - 2.0 * qx, _BIG)
-            pos = torch.arange(
-                n0, n0 + Xt.shape[0], dtype=torch.int32, device=dev
-            ).expand(rows, -1)
-            cat_d = torch.cat([run_d, score], dim=1)
-            cat_i = torch.cat([run_i, pos], dim=1)
-            srt, order = torch.sort(cat_d, dim=1, stable=True)
-            run_d = srt[:, :k]
-            run_i = torch.gather(cat_i, 1, order[:, :k])
-        exhausted = run_d >= _BIG
-        q2 = (Qb * Qb).sum(dim=1, keepdim=True)
-        out_d[q0 : q0 + rows] = torch.where(
-            exhausted, float("inf"), torch.clamp_min(run_d + q2, 0.0)
-        )
-        out_i[q0 : q0 + rows] = torch.where(exhausted, -1, run_i)
-    return out_d, out_i
+
+    def score_tile(q0, q1, n0, n1):
+        with matmul_precision():
+            qx = queries[q0:q1] @ items[n0:n1].T
+        return torch.where(valid[n0:n1], x2[n0:n1] - 2.0 * qx, _BIG)
+
+    part_d, part_i = _split_topk(score_tile, items.shape[0], queries.shape[0], k, splits, bq, bn,
+                                 queries.dtype, queries.device)
+    return merge_partials_reference(part_d, part_i, (queries * queries).sum(dim=1), k)
 
 
 _LIB = None
@@ -100,16 +243,133 @@ def _lib() -> ctypes.CDLL:
         from . import _build
 
         lib = _build.load(_SOURCE)
-        for fn in (lib.fused_knn_f32, lib.fused_knn_f64):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p] * 3
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        sigs = {
+            "tf32_split": [ptr, i64, i64, i64, ptr, ptr],
+            "fused_knn_tf32": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
+            "merge_partials": [ptr] * 3 + [i64] * 3 + [ptr] * 3,
+            "fused_knn_f64": [ptr] * 4 + [i64] * 4 + [ptr] * 3,
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in (("fused_knn_tf32_smem_bytes", [i64]),
+                               ("fused_knn_tf32_stages", [i64]),
+                               ("fused_knn_f64_smem_bytes", [])):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i64
         lib.fused_knn_error_string.argtypes = [ctypes.c_int]
         lib.fused_knn_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
 
 
-def _check(items, item_valid, queries, k: int) -> None:
+def _run(name: str, device: torch.device, *args) -> None:
+    """Call the C launcher `name` on the device's current stream; raise on
+    the error code it returns."""
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.fused_knn_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (code {err})")
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"fused_knn runs on cuda or cpu tensors, not {t.device}")
+    return True
+
+
+def tf32_split(x: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """The split pass: (2, rows, d_pad) float32 TF32 hi and lo of a
+    contiguous float32 (rows, d).  CUDA tensors launch the kernel; CPU
+    tensors run `tf32_split_reference`."""
+    global SPLIT_LAUNCHES
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError("tf32_split takes a contiguous float32 (rows, d) tensor")
+    if d_pad < x.shape[1] or d_pad % _BK:
+        raise ValueError(f"tf32_split: d_pad={d_pad} must be a multiple of {_BK} >= d")
+    if not _on_cuda(x):
+        return tf32_split_reference(x, d_pad)
+    rows, d = x.shape
+    out = torch.empty((2, rows, d_pad), dtype=torch.float32, device=x.device)
+    if rows:
+        _run("tf32_split", x.device, x.data_ptr(), rows, d, d_pad, out.data_ptr())
+        SPLIT_LAUNCHES += 1
+    return out
+
+
+def merge_partials(part_d, part_i, q2, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge pass: see `merge_partials_reference`, which CPU tensors
+    run; CUDA tensors launch the kernel."""
+    global MERGE_LAUNCHES
+    if not _on_cuda(part_d):
+        return merge_partials_reference(part_d, part_i, q2, k)
+    q, s, kk = part_d.shape
+    if (kk != k or part_d.dtype != torch.float32 or part_i.dtype != torch.int32
+            or part_i.shape != part_d.shape or q2.dtype != torch.float32 or q2.shape != (q,)):
+        raise ValueError("merge_partials takes (q, S, k) float32 scores, int32 positions and "
+                         "(q,) float32 query norms")
+    part_d, part_i, q2 = part_d.contiguous(), part_i.contiguous(), q2.contiguous()
+    out_d = torch.empty((q, k), dtype=torch.float32, device=part_d.device)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=part_d.device)
+    if q:
+        _run("merge_partials", part_d.device, part_d.data_ptr(), part_i.data_ptr(),
+             q2.data_ptr(), q, s, k, out_d.data_ptr(), out_i.data_ptr())
+        MERGE_LAUNCHES += 1
+    return out_d, out_i
+
+
+def padded_item_norms(items: torch.Tensor, item_valid: torch.Tensor) -> torch.Tensor:
+    """The float32 main kernel's item norms: ||x||^2, +inf where the item
+    is invalid, padded with +inf to whole tiles of 64 items."""
+    n = items.shape[0]
+    xs = torch.full((-(-n // _BN) * _BN,), float("inf"), dtype=items.dtype, device=items.device)
+    xs[:n] = torch.where(item_valid > 0, item_norms(items, item_valid), float("inf"))
+    return xs
+
+
+def fused_knn_tf32(xsplit, qsplit, xs, n: int, k: int, splits: int):
+    """The float32 main kernel on split items (2, n, d_pad) and queries
+    (2, q, d_pad), with xs from `padded_item_norms`: the (q, S, k) sorted
+    partial (score, position) lists, S = `split_plan(n, splits)[1]`.  CUDA
+    tensors launch the kernel; CPU tensors run `fused_knn_tf32_reference`.
+    On the card a split keeps only entries that beat the k-th entry other
+    splits of the row have reached, so its list may end early; the lists
+    merged (`merge_partials`) give the same top-k."""
+    global LAUNCHES
+    if not _on_cuda(qsplit):
+        return fused_knn_tf32_reference(xsplit, qsplit, xs, n, k, splits)
+    q, d_pad = qsplit.shape[1], qsplit.shape[2]
+    if not all(t.is_contiguous() and t.dtype == torch.float32 for t in (xsplit, qsplit, xs)) \
+            or xsplit.shape != (2, n, d_pad) or qsplit.shape[0] != 2 \
+            or xs.shape != (-(-n // _BN) * _BN,):
+        raise ValueError("fused_knn_tf32 takes contiguous float32 split arrays from tf32_split "
+                         "and item norms from padded_item_norms")
+    tps, s = split_plan(n, splits)
+    part_d = torch.empty((q, s, k), dtype=torch.float32, device=qsplit.device)
+    part_i = torch.empty((q, s, k), dtype=torch.int32, device=qsplit.device)
+    row_kth = torch.full((q,), -1, dtype=torch.int64, device=qsplit.device)  # all ones
+    _run("fused_knn_tf32", qsplit.device, xsplit.data_ptr(), qsplit.data_ptr(), xs.data_ptr(),
+         n, q, d_pad, k, tps, s, part_d.data_ptr(), part_i.data_ptr(), row_kth.data_ptr())
+    LAUNCHES += 1
+    return part_d, part_i
+
+
+def topk_partials(items, item_valid, queries, k: int, splits: int):
+    """float32 on the card, up to the merge: the split passes and the main
+    kernel, giving each row's (S, k) sorted partial lists."""
+    d_pad = padded_width(items.shape[1])
+    return fused_knn_tf32(tf32_split(items, d_pad), tf32_split(queries, d_pad),
+                          padded_item_norms(items, item_valid), items.shape[0], k, splits)
+
+
+def _check(items, item_valid, queries, k: int, splits: Optional[int]) -> None:
     if items.dim() != 2 or queries.dim() != 2 or item_valid.dim() != 1:
         raise ValueError(
             f"fused_knn takes items (n, d), item_valid (n,), queries (q, d); got "
@@ -134,7 +394,9 @@ def _check(items, item_valid, queries, k: int) -> None:
         raise ValueError("fused_knn takes row-major contiguous items and queries")
     if not 1 <= k <= _INT32_MAX:
         raise ValueError(f"fused_knn needs 1 <= k < 2^31, got k={k}")
-    if max(n, d, q) > _INT32_MAX:
+    if splits is not None and splits < 1:
+        raise ValueError(f"fused_knn needs splits >= 1, got {splits}")
+    if max(n, padded_width(d), q) > _INT32_MAX:
         raise ValueError(
             f"fused_knn indexes items, width and queries with int32; got n={n}, d={d}, q={q}"
         )
@@ -145,39 +407,37 @@ def fused_topk_sqdist(
     item_valid: torch.Tensor,
     queries: torch.Tensor,
     k: int,
+    splits: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact brute-force kNN: (squared distances (q, k), int32 item
     POSITIONS (q, k)), best first; invalid items never appear (+inf and
     -1 past the valid count).  CUDA tensors launch the hand-written
-    kernel; CPU tensors run `fused_topk_sqdist_reference`."""
-    global LAUNCHES
-    _check(items, item_valid, queries, k)
-    if queries.device.type == "cpu":
-        return fused_topk_sqdist_reference(items, item_valid, queries, k)
-    if queries.device.type != "cuda":
-        raise ValueError(f"fused_knn runs on cuda or cpu tensors, not {queries.device}")
-    lib = _lib()
-    fn = lib.fused_knn_f32 if items.dtype == torch.float32 else lib.fused_knn_f64
+    kernels; CPU tensors run `fused_topk_sqdist_reference`.  `splits` cuts
+    the float32 item sweep into that many ranges (default: `auto_splits` on
+    the card, 1 on the CPU); it never changes the result."""
+    global LAUNCHES_F64
+    _check(items, item_valid, queries, k, splits)
+    if not _on_cuda(queries):
+        return fused_topk_sqdist_reference(items, item_valid, queries, k, splits=splits or 1)
     n, d = items.shape
     q = queries.shape[0]
     dev, dt = queries.device, queries.dtype
-    x2 = item_norms(items, item_valid).contiguous()
-    valid = (item_valid > 0).to(dt).contiguous()
-    out_d = torch.empty((q, k), dtype=dt, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-    if q == 0:
+    if q == 0 or n == 0:
+        return (torch.full((q, k), float("inf"), dtype=dt, device=dev),
+                torch.full((q, k), -1, dtype=torch.int32, device=dev))
+    if dt == torch.float64:
+        x2 = item_norms(items, item_valid).contiguous()
+        valid = (item_valid > 0).to(dt).contiguous()
+        out_d = torch.empty((q, k), dtype=dt, device=dev)
+        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+        _run("fused_knn_f64", dev, items.data_ptr(), x2.data_ptr(), valid.data_ptr(),
+             queries.data_ptr(), n, d, q, k, out_d.data_ptr(), out_i.data_ptr())
+        LAUNCHES_F64 += 1
         return out_d, out_i
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            items.data_ptr(), x2.data_ptr(), valid.data_ptr(), queries.data_ptr(),
-            n, d, q, k, out_d.data_ptr(), out_i.data_ptr(), stream,
-        )
-    if err != 0:
-        msg = lib.fused_knn_error_string(err).decode()
-        raise RuntimeError(f"fused_knn kernel launch failed: {msg} (cudaError {err})")
-    LAUNCHES += 1
-    return out_d, out_i
+    if splits is None:
+        splits = auto_splits(n, q, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_d, part_i = topk_partials(items, item_valid, queries, k, splits)
+    return merge_partials(part_d, part_i, (queries * queries).sum(dim=1), k)
 
 
 def knn_topk_fused(items, item_valid, item_ids, queries, k: int):

@@ -38,7 +38,8 @@ _BLOCKED_TILE_LIMIT_BYTES = 2 << 30
 
 # Which form the last `knn_topk_single` ran ("kernel") and why
 # ("decided_by": "forced" for pallas_knn="on" or "auto", "config" for
-# "off").  The fused kernel on a CUDA tensor reads "fused_knn.cu"; on a CPU
+# "off").  The fused kernel on a CUDA tensor reads "fused_knn_tf32" (float32)
+# or "fused_knn_f64" (float64), the kernels of csrc/fused_knn.cu; on a CPU
 # tensor the wrapper runs its twin, "fused_topk_sqdist_reference".
 LAST_KERNEL_DECISION: Dict[str, Optional[str]] = {"kernel": None, "decided_by": None}
 
@@ -111,7 +112,9 @@ def knn_topk_single(items, item_valid, item_ids, queries, k: int):
     if mode not in _MODES:
         raise ValueError(f"pallas_knn must be one of {sorted(_MODES)}, got {mode!r}")
     if mode != "off":  # "auto" is "on"
-        kernel = "fused_knn.cu" if queries.is_cuda else "fused_topk_sqdist_reference"
+        kernel = "fused_topk_sqdist_reference"
+        if queries.is_cuda:
+            kernel = "fused_knn_f64" if queries.dtype == torch.float64 else "fused_knn_tf32"
         LAST_KERNEL_DECISION.update(kernel=kernel, decided_by="forced")
         return knn_topk_fused(items, item_valid, item_ids, queries, k)
     qb = min(_QUERY_BLOCK, max(int(queries.shape[0]), 1))

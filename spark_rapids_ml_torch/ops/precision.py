@@ -16,10 +16,13 @@
 #              single bf16 pass is.
 #
 # Only the plain torch forms read it (ops/distances.py `sqdist` and the
-# plain twin of the fused kernel).  The hand-written CUDA kernel always
-# accumulates with IEEE FMA in the input type.  float64 matmuls are never
-# affected.  The level is set around each matmul and restored after it,
-# never for the whole process.
+# plain twin of the fused kernel).  The hand-written CUDA kernels ignore
+# it: float32 runs 3xTF32 on the tensor cores at every level (hi*hi +
+# hi*lo + lo*hi with hi = tf32(x), lo = tf32(x - hi), summed in float32:
+# about float32's accuracy, rank-exact at the port's tolerances), float64
+# runs IEEE FMA in float64.  float64 matmuls are never affected.  The level
+# is set around each matmul and restored after it, never for the whole
+# process.
 #
 from __future__ import annotations
 

@@ -279,6 +279,152 @@ def test_installed_package_builds_into_a_user_cache(tmp_path):
     assert _build._BUILD_DIR == pkg.parent / "build" / "torch_ext"
 
 
+def test_build_target_hashes_every_file_under_csrc(tmp_path):
+    """A changed header a source includes names a new library, so an edited
+    .cuh never loads a stale build."""
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "k.cuh").write_text("// one\n")
+    first = _build._target("k.cu", tmp_path)
+    assert first == _build._target("k.cu", tmp_path) and first.name.startswith("k_")
+    (tmp_path / "k.cuh").write_text("// two\n")
+    assert _build._target("k.cu", tmp_path) != first
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def test_split_reference_hand_made_cases():
+    """tf32 rounds to 10 mantissa bits, ties away from zero; lo is formed
+    from the ROUNDED hi (wgmma reads only the top 19 bits of a value)."""
+    e = 2.0**-11
+    x = torch.tensor([[1.0, 1 + e, 1 + e / 2, -(1 + e), 1 + e + 2.0**-20]])
+    hi, lo = fk.tf32_split_reference(x, 32)
+    assert hi[0, :5].tolist() == [1.0, 1 + 2 * e, 1.0, -(1 + 2 * e), 1 + 2 * e]
+    assert lo[0, :5].tolist() == [0.0, -e, e / 2, e, -e + 2.0**-20]
+    assert (hi[0, 5:] == 0).all() and (lo[0, 5:] == 0).all()  # the pad
+
+
+def test_split_reference_reconstructs_x():
+    """hi + lo equals x within tf32(lo)'s rounding, both halves are TF32
+    values (13 low bits clear) and the pad is zero."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(300, 37)) * 10.0 ** rng.integers(-20, 20, size=(300, 37))
+    xt = _t(x.astype(np.float32))
+    hi, lo = fk.tf32_split_reference(xt, 64)
+    assert ((_bits(hi) & 0x1FFF) == 0).all() and ((_bits(lo) & 0x1FFF) == 0).all()
+    assert (hi[:, 37:] == 0).all() and (lo[:, 37:] == 0).all()
+    x64 = xt.double().numpy()
+    h64, l64 = hi[:, :37].double().numpy(), lo[:, :37].double().numpy()
+    assert (np.abs(x64 - h64) <= np.abs(x64) * 2.0**-11).all()
+    assert (np.abs(x64 - h64 - l64) <= np.abs(x64 - h64) * 2.0**-11).all()
+
+
+def test_merge_reference_hand_made_case():
+    """Two rows of three lists: ties across lists go to the lower position,
+    d^2 = max(score + ||q||^2, 0), +inf / -1 past the real entries."""
+    inf = float("inf")
+    part_d = torch.tensor([[[1.0, 2.0, inf], [1.0, 1.5, 3.0], [0.5, 2.0, 2.0]],
+                           [[-2.0, inf, inf], [inf, inf, inf], [inf, inf, inf]]])
+    part_i = torch.tensor([[[0, 5, -1], [70, 71, 72], [130, 131, 140]],
+                           [[3, -1, -1], [-1, -1, -1], [-1, -1, -1]]], dtype=torch.int32)
+    d2, ids = fk.merge_partials_reference(part_d, part_i, torch.tensor([1.0, 1.0]), 3)
+    assert d2.tolist() == [[1.5, 2.0, 2.0], [0.0, inf, inf]]
+    assert ids.tolist() == [[130, 0, 70], [3, -1, -1]]
+    before = fk.MERGE_LAUNCHES
+    assert torch.equal(fk.merge_partials(part_d, part_i, torch.tensor([1.0, 1.0]), 3)[1], ids)
+    assert fk.MERGE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("n,splits", [(1, 1), (64, 5), (700, 3), (700, 7), (5000, 7),
+                                      (1_000_000, 14)])
+def test_split_plan_covers_the_items(n, splits):
+    bounds = fk.split_bounds(n, splits)
+    assert bounds[0][0] == 0 and bounds[-1][1] == n and len(bounds) <= splits
+    assert all(hi > lo for lo, hi in bounds)  # no empty split
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert all(lo % 64 == 0 for lo, _ in bounds)  # whole tiles of the kernel
+
+
+def test_auto_splits_fills_whole_waves():
+    """On 132 SMs, one block each at a time: 10k queries (79 query blocks)
+    take 5 splits, 395 blocks in just under 3 waves; query blocks that fill
+    the card alone take 1; one query block takes the most; the item count
+    and the (q, S, k) scratch cap S."""
+    assert fk.auto_splits(1_000_000, 10_000, 32, 132) == 5
+    assert fk.auto_splits(1_000_000, 100_000, 32, 132) == 1
+    assert fk.auto_splits(1_000_000, 1, 10, 132) == fk._MAX_SPLITS
+    assert fk.auto_splits(1500, 130, 32, 132) == 1  # 24 tiles, 16 a split at least
+    assert fk.auto_splits(1_000_000, 10_000, 4000, 132) == 1  # 320 MB at S = 1 already
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+def test_twin_splits_match_the_jax_kernel(splits):
+    """Every row twice, 448 positions apart, so exact ties straddle the
+    split boundaries (every 320 items at 3 splits, 128 at 7): the lower
+    position must win across splits as within one."""
+    X, Q, valid = _data(31, 896, 24, 130, dup=True)
+    assert len(fk.split_bounds(896, splits)) == splits
+    d2t, it = fk.fused_topk_sqdist(_t(X), _t(valid), _t(Q), 9, splits=splits)
+    d2p, ip = jax_fused(jnp.asarray(X), jnp.asarray(valid), jnp.asarray(Q), 9,
+                        bq=64, bn=128, interpret=True)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ip))
+    np.testing.assert_allclose(d2t.numpy(), np.asarray(d2p), atol=1e-4)
+
+
+def _kernel_path_emulated(X, v, Q, k, splits, passes=3):
+    """The float32 card path run by its plain versions on the CPU: the
+    split pass, the main kernel's 3xTF32 products (or 1xTF32 with the lo
+    halves zeroed, passes=1) and the merge pass."""
+    d_pad = fk.padded_width(X.shape[1])
+    xsplit, qsplit = fk.tf32_split(X, d_pad), fk.tf32_split(Q, d_pad)
+    if passes == 1:
+        xsplit[1], qsplit[1] = 0.0, 0.0
+    part_d, part_i = fk.fused_knn_tf32(xsplit, qsplit, fk.padded_item_norms(X, v),
+                                       X.shape[0], k, splits or 1)
+    return fk.merge_partials(part_d, part_i, (Q * Q).sum(dim=1), k)
+
+
+def _phase2_float32_cases():
+    import chip_smoke
+
+    return [c for c in chip_smoke.phase2_cases(0) if c[5] == "float32"]
+
+
+@pytest.mark.parametrize("case", range(len(_phase2_float32_cases())))
+def test_3xtf32_emulation_passes_chip_smoke_against_jax(case):
+    """3xTF32 (hi.hi + hi.lo + lo.hi, float32 sums) meets chip_smoke's
+    float32 tolerances against the JAX package's XLA kNN on phase 2's data,
+    and the exact-ties cases stay bit-exact (integers give lo = 0)."""
+    import chip_smoke
+
+    name, X, v, Q, k, _, exact, splits = _phase2_float32_cases()[case]
+    Xt, vt, Qt = (_t(np.asarray(a, np.float32)) for a in (X, v, Q))
+    before = fk.LAUNCHES
+    kd, ki = _kernel_path_emulated(Xt, vt, Qt, k, splits)
+    assert fk.LAUNCHES == before
+    ids = np.arange(X.shape[0], dtype=np.int32)
+    jd, ji = jax_blocked(*(jnp.asarray(np.asarray(a, np.float32)) for a in (X, v)),
+                         jnp.asarray(ids), jnp.asarray(np.asarray(Q, np.float32)), k=k)
+    chip_smoke.compare(name, kd, ki, _t(np.array(jd)), _t(np.array(ji)), exact)
+
+
+def test_1xtf32_emulation_fails_chip_smoke():
+    """The counterpart: one TF32 pass (10-bit mantissas) misses the
+    tolerance on phase 2's normal data, so chip_smoke would catch a kernel
+    that dropped the lo halves."""
+    import chip_smoke
+
+    name, X, v, Q, k, _, _, splits = _phase2_float32_cases()[0]
+    Xt, vt, Qt = (_t(np.asarray(a, np.float32)) for a in (X, v, Q))
+    td, ti = fk.fused_topk_sqdist_reference(Xt, vt, Qt, k)
+    kd, ki = _kernel_path_emulated(Xt, vt, Qt, k, splits)
+    chip_smoke.compare(name + " 3xTF32", kd, ki, td, ti, exact=False)
+    kd, ki = _kernel_path_emulated(Xt, vt, Qt, k, splits, passes=1)
+    with pytest.raises(AssertionError, match="d2 differs beyond|id slots"):
+        chip_smoke.compare(name + " 1xTF32", kd, ki, td, ti, exact=False)
+
+
 def _beyond_f32(rng, rows, cols):
     # small integers plus multiples of 2^-30: 32 significant bits
     return rng.integers(-3, 4, size=(rows, cols)) + rng.integers(1, 256, size=(rows, cols)) * 2.0**-30

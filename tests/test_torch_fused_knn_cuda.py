@@ -1,8 +1,9 @@
 #
-# The hand-written CUDA kernel (spark_rapids_ml_torch/ops/csrc/fused_knn.cu)
-# against its plain twin, both on the card, and the exact-kNN entry points
-# on the card.  Every test here needs a CUDA device and skips without one.
-# This file imports no JAX, so it also runs where JAX is not installed:
+# The hand-written CUDA kernels (spark_rapids_ml_torch/ops/csrc/fused_knn.cu)
+# against their plain versions, both on the card, and the exact-kNN entry
+# points on the card.  Every test here needs a CUDA device and skips
+# without one.  This file imports no JAX, so it also runs where JAX is not
+# installed:
 #
 #     python -m pytest --noconftest -q tests/test_torch_fused_knn_cuda.py
 #
@@ -32,16 +33,32 @@ def _on(device, dtype, *arrays):
 
 
 # d^2 tolerance (rtol = atol) of the kernel against its twin, which sums
-# q.x in another order; float64 gets its own, far below float32's reach
+# q.x in another order (and, in float32, in IEEE FMA where the kernel
+# takes 3xTF32); float64 gets its own, far below float32's reach
 _TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 
 
-def _assert_matches_twin(d2k, ik, d2t, it):
+def _assert_matches_twin(d2k, ik, d2t, it, min_agree=0.999):
     fin = torch.isfinite(d2t)
     assert torch.equal(fin, torch.isfinite(d2k)) and torch.equal(ik < 0, it < 0)
     tol = _TOL[d2t.dtype]
     torch.testing.assert_close(d2k[fin], d2t[fin], rtol=tol, atol=tol)
-    assert (ik == it).double().mean().item() > 0.999
+    assert (ik == it).double().mean().item() > min_agree
+
+
+def _assert_ties_where_ids_differ(items, queries, d2t, ik, it):
+    """Every slot where kernel and twin name different items holds a tie:
+    both items lie at the same float64 distance from the query, within the
+    float32 tolerance of the twin's d^2."""
+    rows, cols = torch.nonzero(ik != it, as_tuple=True)
+    q = queries[rows].double()
+    dk = ((items[ik[rows, cols].long()].double() - q) ** 2).sum(1)
+    dt = ((items[it[rows, cols].long()].double() - q) ** 2).sum(1)
+    assert ((dk - dt).abs() <= 1e-4 * d2t[rows, cols].double().clamp_min(1.0)).all()
+
+
+def _launches(dtype):
+    return fk.LAUNCHES_F64 if dtype == torch.float64 else fk.LAUNCHES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -54,12 +71,102 @@ def test_kernel_matches_twin(cuda_device, dtype, n, d, q, k):
     valid[::9] = 0.0
     items, queries, v = _on(cuda_device, dtype, rng.normal(size=(n, d)),
                             rng.normal(size=(q, d)), valid)
-    before = fk.LAUNCHES
+    before = _launches(dtype)
     d2k, ik = fk.fused_topk_sqdist(items, v, queries, k)
     d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == before + 1
+    assert _launches(dtype) == before + 1
     _assert_matches_twin(d2k, ik, d2t, it)
+
+
+@pytest.mark.parametrize("q", [130, 10001])
+@pytest.mark.parametrize("d", [17, 131, 4100])
+@pytest.mark.parametrize("k", [1, 32, 1000])
+def test_float32_kernel_at_ragged_shapes(cuda_device, q, d, k):
+    """q past whole blocks of 128 queries, d past whole 32-float chunks
+    (and past the width at which the queries stay in shared memory).  At
+    d = 4100 the 1500 items crowd at distances of 8200 +- 180, so a few
+    slots in a thousand hold near-ties that the two summation orders break
+    differently: every slot that differs must be a tie in float64."""
+    rng = np.random.default_rng(q + d + k)
+    items, queries, v = _on(cuda_device, torch.float32, rng.normal(size=(1500, d)),
+                            rng.normal(size=(q, d)), np.ones(1500))
+    d2k, ik = fk.fused_topk_sqdist(items, v, queries, k)
+    d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k, bq=2048, bn=1500)
+    _assert_matches_twin(d2k, ik, d2t, it, min_agree=0.99)
+    _assert_ties_where_ids_differ(items, queries, d2t, ik, it)
+
+
+def test_float32_kernel_with_fewer_items_than_k(cuda_device):
+    rng = np.random.default_rng(4)
+    items, queries, v = _on(cuda_device, torch.float32, rng.normal(size=(50, 9)),
+                            rng.normal(size=(20, 9)), np.ones(50))
+    d2k, ik = fk.fused_topk_sqdist(items, v, queries, 64)
+    d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, 64)
+    _assert_matches_twin(d2k, ik, d2t, it)
+    assert (ik[:, 50:] == -1).all() and torch.isinf(d2k[:, 50:]).all()
+
+
+@pytest.mark.parametrize("splits", [2, 5, 11])
+def test_float32_kernel_split_sweep_at_small_q(cuda_device, splits):
+    """S forced above 1 where the wrapper would choose fewer: every split
+    count gives the twin's result; k = 300 exceeds a split's items."""
+    rng = np.random.default_rng(splits)
+    valid = np.ones(2000)
+    valid[::5] = 0.0
+    items, queries, v = _on(cuda_device, torch.float32, rng.normal(size=(2000, 33)),
+                            rng.normal(size=(20, 33)), valid)
+    assert fk.split_plan(2000, splits)[1] == splits
+    for k in (8, 300):
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k, splits=splits)
+        _assert_matches_twin(d2k, ik, d2t, it)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4, 7])
+def test_float32_kernel_ties_across_split_boundaries(cuda_device, splits):
+    """Integer rows repeated at 256-item strides tie exactly across the
+    item splits: the merge must give each tie to the lowest position, slot
+    for slot with the twin."""
+    rng = np.random.default_rng(7)
+    X = np.tile(rng.integers(-3, 4, size=(256, 17)), (4, 1))
+    Q = rng.integers(-3, 4, size=(40, 17))
+    items, queries, v = _on(cuda_device, torch.float32, X, Q, np.ones(1024))
+    for k in (1, 32, 700):
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
+        assert torch.equal(ik, it) and torch.equal(d2k, d2t)
+
+
+@pytest.mark.parametrize("d", [6, 17, 131])
+def test_split_kernel_is_bit_exact(cuda_device, d):
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(777, d)) * 10.0 ** rng.integers(-20, 20, size=(777, d))
+    (xt,) = _on(cuda_device, torch.float32, x)
+    d_pad = fk.padded_width(d)
+    before = fk.SPLIT_LAUNCHES
+    out = fk.tf32_split(xt, d_pad)
+    assert fk.SPLIT_LAUNCHES == before + 1
+    assert torch.equal(out, fk.tf32_split_reference(xt, d_pad))
+
+
+@pytest.mark.parametrize("splits,k", [(1, 16), (5, 16), (8, 100)])
+def test_merge_kernel_is_bit_exact(cuda_device, splits, k):
+    """The merge pass on the main kernel's partial lists (with ties across
+    them) equals its plain version bit for bit."""
+    rng = np.random.default_rng(splits + k)
+    X = rng.normal(size=(3000, 40))
+    X[1500:] = X[:1500]
+    items, queries, v = _on(cuda_device, torch.float32, X, rng.normal(size=(130, 40)),
+                            np.ones(3000))
+    part_d, part_i = fk.topk_partials(items, v, queries, k, splits)
+    assert part_d.shape == (130, splits, k)
+    q2 = (queries * queries).sum(dim=1)
+    before = fk.MERGE_LAUNCHES
+    md, mi = fk.merge_partials(part_d, part_i, q2, k)
+    assert fk.MERGE_LAUNCHES == before + 1
+    rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
+    assert torch.equal(mi, ri) and torch.equal(md, rd)
 
 
 def test_kernel_float64_beyond_float32_precision(cuda_device):
@@ -109,17 +216,20 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         fk.fused_topk_sqdist(items.half(), v, items[:2].half(), 3)
 
 
-def test_nearest_neighbors_on_the_card(cuda_device):
+@pytest.mark.parametrize("dtype,kernel", [(np.float32, "fused_knn_tf32"),
+                                          (np.float64, "fused_knn_f64")])
+def test_nearest_neighbors_on_the_card(cuda_device, dtype, kernel):
     rng = np.random.default_rng(1)
-    X = rng.normal(size=(2000, 32)).astype(np.float32)
-    Q = rng.normal(size=(50, 32)).astype(np.float32)
-    model = NearestNeighbors(k=8).fit(X)
-    before = fk.LAUNCHES
+    X = rng.normal(size=(2000, 32)).astype(dtype)
+    Q = rng.normal(size=(50, 32)).astype(dtype)
+    f32 = dtype == np.float32
+    model = NearestNeighbors(k=8, float32_inputs=f32).fit(X)
+    before = _launches(torch.float32 if f32 else torch.float64)
     _, _, on_card = model.kneighbors(Q)
-    assert fk.LAUNCHES == before + 1
-    assert ko.LAST_KERNEL_DECISION == {"kernel": "fused_knn.cu", "decided_by": "forced"}
+    assert _launches(torch.float32 if f32 else torch.float64) == before + 1
+    assert ko.LAST_KERNEL_DECISION == {"kernel": kernel, "decided_by": "forced"}
     set_default_device("cpu")
-    _, _, on_cpu = NearestNeighbors(k=8).fit(X).kneighbors(Q)
+    _, _, on_cpu = NearestNeighbors(k=8, float32_inputs=f32).fit(X).kneighbors(Q)
     np.testing.assert_array_equal(np.stack(on_card["indices"]), np.stack(on_cpu["indices"]))
     np.testing.assert_allclose(np.stack(on_card["distances"]),
                                np.stack(on_cpu["distances"]), atol=1e-4)
