@@ -13,13 +13,16 @@ Phases, each of which makes the script exit non-zero when it fails:
    (nvcc, one process per source, all started together) and its time, each
    kernel's registers, spills and shared memory (ptxas), and the tensor-core
    instructions in the built library's SASS (cuobjdump): the float32 kernel
-   must hold HGMMA (wgmma);
-2. kernels vs their plain versions, on the card: the split pass and the
-   merge pass bit for bit; the fused distance + top-k against its plain
+   must hold HGMMA (wgmma), the float64 kernel DMMA;
+2. kernels vs their plain versions, on the card: the split pass bit for
+   bit; each main kernel against its plain version (both sides merged); the
+   merge pass bit for bit in float32 and float64 at (S, k) = (5, 32),
+   (8, 100) and (32, 1000); the fused distance + top-k against its plain
    PyTorch twin at shapes with tails (k > valid items), invalid rows,
    exact ties (duplicated integer rows, also across the item splits),
-   widths that are no multiple of the kernel's chunk, k larger than a
-   split's items, float32 and float64, and k = 1, 32 and 1000;
+   widths that are no multiple of the kernel's chunk (d = 17, 33, 131 and
+   4100), k larger than a split's items, forced split counts, float32 and
+   float64, and k = 1, 32 and 1000;
 3. the main path at full size: NearestNeighbors(k).setIdCol("id").fit(items)
    -> kneighbors(queries) -> exactNearestNeighborsJoin, through the public
    entry points; every kernel's launch count is reset just before and read
@@ -30,8 +33,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    the yardstick) are timed with CUDA events, with the item sweep's split
    count swept;
 4. the float64 path through the same entry points (float32_inputs=False) at
-   a fifth of the items and queries, its launch count reset before and read
-   after, held against the twin at float64 precision and timed the same way;
+   a fifth of the items and queries, its launch counts (main kernel and
+   merge) reset before and read after, held against the twin at float64
+   precision and timed the same way, with the main kernel alone at one
+   wave for k = 1, 32, 128; then the float64 function at the main shape
+   (float64 items, 1 GB at 1M x 128), timed beside its bound and the
+   library call, with the split count swept, and held against a float64
+   host recomputation on 256 sampled queries;
 5. persistence: save, load, kneighbors again, identical results.
 
 The last lines of standard output are a JSON object of the kernels'
@@ -64,7 +72,9 @@ _SOURCE = "spark_rapids_ml_torch/ops/csrc/fused_knn.cu"
 _REPLACES = "spark_rapids_ml_tpu/ops/pallas_knn.py:148"
 # the kernels of fused_knn.cu, as their names appear in ptxas and SASS
 _KERNELS = ("tf32_split_kernel", "fused_knn_tf32_kernel", "merge_partials_kernel",
-            "fused_knn_kernel")
+            "merge_partials_regs_kernel", "fused_knn_f64_kernel")
+# template arguments as the Itanium ABI mangles them
+_TEMPLATE_ARGS = {"f": "float", "d": "double", "Lb1E": "true", "Lb0E": "false"}
 
 
 def log(msg: str) -> None:
@@ -79,11 +89,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of `fn` over `reps` runs (after one warm run)."""
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device milliseconds of `fn` over `reps` runs (after one warm run
+    unless `warm` is False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -94,8 +106,39 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds of one `fn` call: `reps` calls captured in one
+    CUDA graph, replayed, so no host work sits between the launches (a
+    short kernel timed by `cuda_ms` measures the host's wrapper too)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, reps=3) / reps
+
+
 def _kernel_of(symbol: str) -> str:
-    return next((k for k in _KERNELS if k in symbol), symbol)
+    """A kernel's name with its template arguments (`merge_partials_kernel
+    <double, true>`) from its mangled symbol."""
+    for name in _KERNELS:
+        at = symbol.find(name)
+        if at < 0:
+            continue
+        rest, args = symbol[at + len(name):], []
+        if rest.startswith("I"):
+            rest = rest[1:]
+            while (tok := next((t for t in _TEMPLATE_ARGS if rest.startswith(t)), None)):
+                args.append(_TEMPLATE_ARGS[tok])
+                rest = rest[len(tok):]
+        return f"{name}<{', '.join(args)}>" if args else name
+    return symbol
 
 
 def ptxas_report(text: str) -> dict:
@@ -187,14 +230,24 @@ def phase2_cases(seed: int) -> list:
     # 4 splits of 256 items, each holding the same 256 integer rows: every
     # tie spans the split boundaries, and the lowest position must win
     Xs = np.tile(rng.integers(-3, 4, size=(256, 17)).astype(np.float64), (4, 1))
-    cases.append(("exact ties across 4 item splits f32 k=32", Xs, np.ones(1024),
-                  rng.integers(-3, 4, size=(40, 17)).astype(np.float64), 32, "float32", True, 4))
+    Qs = rng.integers(-3, 4, size=(40, 17)).astype(np.float64)
+    for dt in ("float32", "float64"):
+        cases.append((f"exact ties across 4 item splits {dt} k=32", Xs, np.ones(1024), Qs, 32,
+                      dt, True, 4))
     cases.append(("d=131 f32 k=1", rng.normal(size=(2000, 131)), np.ones(2000),
                   rng.normal(size=(65, 131)), 1, "float32", False, None))
     cases.append(("d=4100 f32 k=5", rng.normal(size=(300, 4100)), np.ones(300),
                   rng.normal(size=(9, 4100)), 5, "float32", False, None))
     cases.append(("f64 d=40 k=32", rng.normal(size=(3000, 40)), np.ones(3000),
                   rng.normal(size=(100, 40)), 32, "float64", False, None))
+    X, Q = rng.normal(size=(3000, 40)), rng.normal(size=(100, 40))
+    for s in (1, 3, 7):
+        cases.append((f"f64 d=40 k=32 S={s}", X, np.ones(3000), Q, 32, "float64", False, s))
+    for d in (17, 33, 131):
+        cases.append((f"f64 d={d} k=32", rng.normal(size=(2000, d)), np.ones(2000),
+                      rng.normal(size=(65, d)), 32, "float64", False, None))
+    cases.append(("f64 d=4100 k=5", rng.normal(size=(300, 4100)), np.ones(300),
+                  rng.normal(size=(9, 4100)), 5, "float64", False, None))
 
     # small integers plus multiples of 2^-30 need 32 significant bits:
     # float32 rounds the offsets away, so a float32 body misses 1e-10
@@ -208,27 +261,65 @@ def phase2_cases(seed: int) -> list:
     for dt in ("float32", "float64"):
         cases.append((f"{dt} k=1000", X, np.ones(5000), Q, 1000, dt, False, None))
     # 7 splits of 768 items: k exceeds every split's item count
-    cases.append(("f32 k=1000 > a split's 768 items", X, np.ones(5000), Q, 1000, "float32",
-                  False, 7))
+    for dt in ("float32", "float64"):
+        cases.append((f"{dt} k=1000 > a split's 768 items", X, np.ones(5000), Q, 1000, dt,
+                      False, 7))
     return cases
 
 
 def hold_main_kernel(name, X, v, Q, k, splits, part_d, part_i, bq=256, bn=512) -> float:
-    """Hold the float32 main kernel's (q, S, k) partial lists against its
-    plain version (3xTF32 emulated with float32 matmuls) on the same split
-    inputs at `compare`'s float32 tolerance, after merging each side's
-    lists: a split's list past the row's merged top-k depends on the order
-    the blocks ran."""
+    """Hold a main kernel's (q, S, k) partial lists against its plain
+    version on the same inputs at `compare`'s tolerance for the type, after
+    merging each side's lists: a split's list past the row's merged top-k
+    depends on the order the blocks ran.  float32's plain version emulates
+    3xTF32 with float32 matmuls on the split inputs; float64's takes IEEE
+    float64 products."""
+    import torch
+
     from spark_rapids_ml_torch.ops import fused_knn as fk
 
-    d_pad = fk.padded_width(X.shape[1])
-    pd, pi = fk.fused_knn_tf32_reference(
-        fk.tf32_split_reference(X, d_pad), fk.tf32_split_reference(Q, d_pad),
-        fk.padded_item_norms(X, v), X.shape[0], k, splits, bq=bq, bn=bn)
+    if X.dtype == torch.float64:
+        pd, pi = fk.fused_knn_f64_reference(X, fk.padded_item_norms(X, v), Q, k, splits,
+                                            bq=bq, bn=bn)
+    else:
+        d_pad = fk.padded_width(X.shape[1])
+        pd, pi = fk.fused_knn_tf32_reference(
+            fk.tf32_split_reference(X, d_pad), fk.tf32_split_reference(Q, d_pad),
+            fk.padded_item_norms(X, v), X.shape[0], k, splits, bq=bq, bn=bn)
     q2 = (Q * Q).sum(dim=1)
     return compare(f"{name} vs its plain version (merged)",
                    *fk.merge_partials_reference(part_d, part_i, q2, k),
                    *fk.merge_partials_reference(pd, pi, q2, k), exact=False)
+
+
+def merge_bit_exact(device, rng, dtype, splits: int, k: int) -> None:
+    """The merge pass on a main kernel's partial lists, with rows that tie
+    across the lists, against its plain version bit for bit; and its time
+    at this shape (40 rows)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    n = max(3000, splits * 16 * 64)  # splits of 16 tiles or more
+    X = rng.normal(size=(n, 24))
+    X[n // 2:] = X[: n - n // 2]
+    X, Q = (torch.as_tensor(a, dtype=dtype, device=device) for a in (X, rng.normal(size=(40, 24))))
+    v = torch.ones(n, dtype=dtype, device=device)
+    if dtype == torch.float64:
+        part_d, part_i = fk.fused_knn_f64(X, Q, fk.padded_item_norms(X, v), k, splits)
+    else:
+        part_d, part_i = fk.topk_partials(X, v, Q, k, splits)
+    q2 = (Q * Q).sum(dim=1)
+    kd, ki = fk.merge_partials(part_d, part_i, q2, k)
+    td, ti = fk.merge_partials_reference(part_d, part_i, q2, k)
+    same = torch.equal(kd, td) and torch.equal(ki, ti)
+    call_ms = cuda_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=10)
+    device_ms = graph_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=10)
+    log(f"  merge pass {str(dtype)[6:]} (S, k) = ({part_d.shape[1]}, {k}), {Q.shape[0]} rows: "
+        f"bit-exact against its plain version: {same}; {call_ms:.4f} ms a call, "
+        f"{device_ms:.4f} ms on the card (CUDA graph)")
+    if not same:
+        raise AssertionError(f"merge_partials differs from merge_partials_reference, {dtype}")
 
 
 def phase_kernels_vs_plain(device, seed: int) -> None:
@@ -249,19 +340,20 @@ def phase_kernels_vs_plain(device, seed: int) -> None:
             for size in ((3000, 40), (130, 40)))
     part_d, part_i = fk.topk_partials(X, v, Q, 32, splits=5)
     hold_main_kernel("main kernel, 5 item splits", X, v, Q, 32, 5, part_d, part_i)
-    # the merge pass on lists with ties between the first and the last
-    # splits (exact in the kernel; another summation order may break
-    # them by an ulp, so the main kernel is held on the data above)
-    X[1500:] = X[:1500]
-    part_d, part_i = fk.topk_partials(X, v, Q, 32, splits=5)
-    q2 = (Q * Q).sum(dim=1)
-    kd, ki = fk.merge_partials(part_d, part_i, q2, 32)
-    td, ti = fk.merge_partials_reference(part_d, part_i, q2, 32)
-    same = torch.equal(kd, td) and torch.equal(ki, ti)
-    log(f"  merge pass of {part_d.shape[1]} partial lists: bit-exact against its plain "
-        f"version: {same}")
-    if not same:
-        raise AssertionError("merge_partials differs from merge_partials_reference")
+    valid = np.ones(3000)
+    valid[::7] = 0.0
+    X, Q, v = (torch.as_tensor(a, dtype=torch.float64, device=device)
+               for a in (rng.normal(size=(3000, 40)), rng.normal(size=(130, 40)), valid))
+    for splits in (1, 5):
+        part_d, part_i = fk.fused_knn_f64(X, Q, fk.padded_item_norms(X, v), 32, splits)
+        hold_main_kernel(f"float64 main kernel, {splits} item splits", X, v, Q, 32, splits,
+                         part_d, part_i)
+    # the merge pass on lists with ties across them (exact in the main
+    # kernels; another summation order may break them by an ulp, so the main
+    # kernels are held on the data above)
+    for dtype in (torch.float32, torch.float64):
+        for splits, k in ((5, 32), (8, 100), (32, 1000)):
+            merge_bit_exact(device, rng, dtype, splits, k)
 
     f32_before, f64_before = fk.LAUNCHES, fk.LAUNCHES_F64
     cases = phase2_cases(seed)
@@ -309,11 +401,47 @@ def bound(flops: float, peak_flops: float, nbytes: float):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, shape):
+def merge_entry(part_d, part_i, q2, k: int, launches: int) -> dict:
+    """The merge pass on these partial lists: timed, held bit for bit
+    against its plain version, beside its bytes bound and torch.topk of the
+    (q, S * k) view (the same selection without the tie order and the
+    epilogue).  `ms` and `library_ms` are a call from Python (CUDA events,
+    the host's wrapper included, as every other entry); `device_ms` is one
+    call inside a CUDA graph, the kernel's own time on the card."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    q, s, _ = part_d.shape
+    ms = cuda_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=20)
+    device_ms = graph_ms(lambda: fk.merge_partials(part_d, part_i, q2, k))
+    plain_ms = cuda_ms(lambda: fk.merge_partials_reference(part_d, part_i, q2, k), reps=2)
+    flat = part_d.view(q, s * k)
+    library_ms = cuda_ms(lambda: torch.topk(flat, k, dim=1, largest=False), reps=20)
+    library_device_ms = graph_ms(lambda: torch.topk(flat, k, dim=1, largest=False))
+    md, mi = fk.merge_partials(part_d, part_i, q2, k)
+    rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
+    if not (torch.equal(mi, ri) and torch.equal(md, rd)):
+        raise AssertionError(f"merge pass differs from its plain version, {part_d.dtype}")
+    size = part_d.element_size()
+    nbytes = (size + 4.0) * part_d.numel() + size * q + (size + 4.0) * q * k
+    bound_ms, bound_by = bound(0.0, _PEAK_FP32, nbytes)
+    dt = str(part_d.dtype)[6:]
+    log(f"  merge pass {dt}, {q} rows x {s} lists x k={k}: {ms:.4f} ms a call from Python, "
+        f"{device_ms:.4f} ms on the card (CUDA graph); plain {plain_ms:.3f}; torch.topk of the "
+        f"(q, S*k) view {library_ms:.4f} a call, {library_device_ms:.4f} in a graph; bound "
+        f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.1%} of a call, "
+        f"{bound_ms / device_ms:.1%} of the device time")
+    return entry(f"merge_partials<{dt}>", launches, 0.0, ms, plain_ms, bound_ms, bound_by,
+                 library_ms, f"{q} rows x {s} lists x k={k}, {dt}; device_ms is one call "
+                 "inside a CUDA graph", device_ms=device_ms)
+
+
+def entry(name, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, shape, **more):
     return {"name": name, "route": "cuda", "source": _SOURCE, "replaces": _REPLACES,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            "shape": shape}
+            "shape": shape, **more}
 
 
 def phase_main_path(device, args) -> dict:
@@ -423,16 +551,12 @@ def phase_main_path(device, args) -> dict:
     hold_main_kernel("main kernel at the main shape", items_t, valid_t, queries_t, k, splits,
                      part_d, part_i, bq=1024, bn=8192)
     q2 = (queries_t * queries_t).sum(dim=1)
-    merge_ms = cuda_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=5)
-    merge_plain_ms = cuda_ms(lambda: fk.merge_partials_reference(part_d, part_i, q2, k), reps=2)
-    md, mi = fk.merge_partials(part_d, part_i, q2, k)
-    rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
-    if not (torch.equal(mi, ri) and torch.equal(md, rd)):
-        raise AssertionError("merge pass differs from its plain version at the main shape")
+    merge = merge_entry(part_d, part_i, q2, k, launches["merge"])
     norms_ms = cuda_ms(lambda: fk.padded_item_norms(items_t, valid_t), reps=5)
     log(f"  parts (S = {splits} item splits): item norms {norms_ms:.3f} ms, split items "
         f"{split_ms:.3f} ms (plain {split_plain_ms:.3f}), split queries {qsplit_ms:.3f} ms, "
-        f"main kernel {main_ms:.3f} ms, merge {merge_ms:.3f} ms (plain {merge_plain_ms:.3f})")
+        f"main kernel {main_ms:.3f} ms, merge {merge['ms']:.4f} ms a call "
+        f"({merge['device_ms']:.4f} on the card)")
     sweep = {}
     for s in sorted({1, 2, 4, 6, 8, 12, 16, 24, splits}):
         sweep[s] = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k, splits=s),
@@ -450,22 +574,19 @@ def phase_main_path(device, args) -> dict:
         + ", ".join(f"k={kk}: {a:.3f} / {b:.3f}" for kk, (a, b) in per_k.items()))
 
     split_bytes = 4.0 * n * d + 8.0 * n * d_pad
-    merge_bytes = 8.0 * part_d.numel() + 4.0 * q + 8.0 * q * k
     shape = f"{n}x{d} float32 items, {q} queries, k={k}"
     kernels = [
         entry("fused_knn_tf32", launches["main"], err, ms, plain_ms, bound_ms, bound_by,
               library_ms, shape + f", S={splits}; ms is the whole fused_topk_sqdist call"),
         entry("tf32_split", launches["split"], split_err, split_ms, split_plain_ms,
               *bound(0.0, _PEAK_FP32, split_bytes), None, f"{n}x{d} float32 items"),
-        entry("merge_partials", launches["merge"], 0.0, merge_ms, merge_plain_ms,
-              *bound(0.0, _PEAK_FP32, merge_bytes), None,
-              f"{q} rows x {part_d.shape[1]} lists x k={k}"),
+        merge,
     ]
     return {"model": model, "queries": queries, "query_ids": query_ids, "knn_df": knn_df,
             "kernels": kernels}
 
 
-def phase_float64_path(device, args) -> dict:
+def phase_float64_path(device, args) -> list:
     import torch
 
     from spark_rapids_ml_torch.knn import NearestNeighbors
@@ -480,12 +601,12 @@ def phase_float64_path(device, args) -> dict:
     model = NearestNeighbors(k=k, float32_inputs=False).fit(items)
     _, _, knn_df = model.kneighbors(queries)
     t_kn = time.perf_counter() - t0
-    launches = fk.LAUNCHES_F64
+    launches = {"main": fk.LAUNCHES_F64, "merge": fk.MERGE_LAUNCHES}
     decision = dict(LAST_KERNEL_DECISION)
     log(f"  fit + kneighbors {t_kn:.3f} s ({q / t_kn:.1f} queries/s); launches {launches}; "
         f"LAST_KERNEL_DECISION {decision}")
-    if decision["kernel"] != "fused_knn_f64" or launches < 1:
-        raise AssertionError("the float64 path did not run the float64 CUDA kernel")
+    if decision["kernel"] != "fused_knn_f64" or min(launches.values()) < 1:
+        raise AssertionError("the float64 path did not run the float64 CUDA kernels")
     items_t, valid_t, _ = model._device_items[1]
     queries_t = torch.as_tensor(queries, device=device)
     kd, kp = fk.fused_topk_sqdist(items_t, valid_t, queries_t, k)
@@ -493,6 +614,7 @@ def phase_float64_path(device, args) -> dict:
     err = compare("float64 path: kernel vs twin", kd, kp, td, tp, exact=False)
     if not np.array_equal(np.stack(knn_df["indices"]), kp.cpu().numpy()):
         raise AssertionError("float64 kneighbors differs from a direct kernel call")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k), reps=3)
     plain_ms = cuda_ms(
         lambda: fk.fused_topk_sqdist_reference(items_t, valid_t, queries_t, k, bq=1024, bn=8192),
@@ -501,10 +623,70 @@ def phase_float64_path(device, args) -> dict:
     library_ms = cuda_ms(lambda: library_topk(items_t, queries_t, k), reps=2)
     bound_ms, bound_by = bound(2.0 * q * n * d, _PEAK_FP64,
                                8.0 * (n * d + q * d + 2 * n) + 12.0 * q * k)
-    log(f"  fused_knn_f64 {ms:.3f} ms; twin {plain_ms:.3f} ms; library matmul+topk "
-        f"{library_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}, FP64 on the tensor cores)")
-    return entry("fused_knn_f64", launches, err, ms, plain_ms, bound_ms, bound_by,
-                 library_ms, f"{n}x{d} float64 items, {q} queries, k={k}")
+    log(f"  fused_knn_f64 {ms:.3f} ms (S = {fk.auto_splits(n, q, k, sms, torch.float64)}); twin "
+        f"{plain_ms:.3f} ms; library matmul+topk {library_ms:.3f} ms; bound {bound_ms:.3f} ms "
+        f"({bound_by}, FP64 on the tensor cores), share {bound_ms / ms:.1%}")
+    # one wave of 128 blocks (16 query blocks x 8 splits): a block's time
+    # beside an eighth of the 1-split time shows the cost every block pays
+    xs = fk.padded_item_norms(items_t, valid_t)
+    per_k = {kk: (cuda_ms(lambda: fk.fused_knn_f64(items_t, queries_t, xs, kk, 1), 2),
+                  cuda_ms(lambda: fk.fused_knn_f64(items_t, queries_t, xs, kk, 8), 3))
+             for kk in (1, k, 128)}
+    log(f"  float64 main kernel alone, {q} queries, ms with 1 and 8 item splits by k: "
+        + ", ".join(f"k={kk}: {a:.3f} / {b:.3f}" for kk, (a, b) in per_k.items()))
+    kernels = [entry("fused_knn_f64", launches["main"], err, ms, plain_ms, bound_ms, bound_by,
+                     library_ms, f"{n}x{d} float64 items, {q} queries, k={k}; ms is the whole "
+                     f"fused_topk_sqdist call (main kernel + merge)")]
+
+    # ---- the float64 function at the main shape ---------------------------
+    n, q = args.items, args.queries
+    gen = torch.Generator(device=device).manual_seed(args.seed + 5)
+    items_t = torch.randn((n, d), dtype=torch.float64, device=device, generator=gen)
+    queries_t = torch.randn((q, d), dtype=torch.float64, device=device, generator=gen)
+    valid_t = torch.ones(n, dtype=torch.float64, device=device)
+    splits = fk.auto_splits(n, q, k, sms, torch.float64)
+    ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k), reps=3)
+    library_ms = cuda_ms(lambda: library_topk(items_t, queries_t, k), reps=1)
+    plain_ms = cuda_ms(
+        lambda: fk.fused_topk_sqdist_reference(items_t, valid_t, queries_t, k, bq=1024, bn=8192),
+        reps=1, warm=False,
+    )
+    bound_ms, bound_by = bound(2.0 * q * n * d, _PEAK_FP64,
+                               8.0 * (n * d + q * d + 2 * n) + 12.0 * q * k)
+    log(f"  main shape {n} x {d} float64 items, {q} queries, k={k}: fused_knn_f64 {ms:.3f} ms "
+        f"(S = {splits}); library matmul+topk {library_ms:.3f} ms; twin {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.3f} ms ({bound_by}, 2qnd / {_PEAK_FP64 / 1e12:.0f} TFLOP/s), share "
+        f"{bound_ms / ms:.1%}")
+    kd, kp = fk.fused_topk_sqdist(items_t, valid_t, queries_t, k)
+    sample = torch.as_tensor(np.random.default_rng(args.seed + 6).choice(q, size=min(256, q),
+                                                                         replace=False),
+                             device=device)
+    kd_h, kp_h = kd[sample].cpu().numpy(), kp[sample].cpu().numpy()
+    near = items_t[kp[sample].long()].cpu().numpy()
+    exact = ((near - queries_t[sample].cpu().numpy()[:, None, :]) ** 2).sum(-1)
+    rel = float((np.abs(kd_h - exact) / np.maximum(exact, 1e-30)).max())
+    log(f"  float64 host recomputation on {len(sample)} queries: max relative |d2 error| = "
+        f"{rel:.3e}")
+    if not (kp_h >= 0).all() or rel > 1e-10:
+        raise AssertionError("float64 d2 differs from the float64 recomputation beyond 1e-10")
+    sweep = {}
+    for s in sorted({1, 2, 4, 8, 16, splits}):
+        sweep[s] = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k, splits=s),
+                           reps=2)
+    log("  split sweep (float64 fused_topk_sqdist ms by S): "
+        + ", ".join(f"{s}: {t:.3f}" for s, t in sweep.items()))
+    shape = f"{n}x{d} float64 items, {q} queries, k={k}"
+    kernels.append(entry("fused_knn_f64", launches["main"], rel, ms, plain_ms, bound_ms, bound_by,
+                         library_ms, shape + f", S={splits}; ms is the whole fused_topk_sqdist "
+                         "call; max_abs_err is the relative d2 error against a float64 host "
+                         "recomputation"))
+
+    # ---- the merge pass on float64 lists at the main shape -----------------
+    part_d, part_i = fk.fused_knn_f64(items_t, queries_t, fk.padded_item_norms(items_t, valid_t),
+                                      k, splits)
+    q2 = (queries_t * queries_t).sum(dim=1)
+    kernels.append(merge_entry(part_d, part_i, q2, k, launches["merge"]))
+    return kernels
 
 
 def phase_persistence(main: dict) -> None:
@@ -544,11 +726,13 @@ def phase_build(args) -> None:
     d_pad = fk.padded_width(args.dim)
     log(f"    dynamic shared memory: fused_knn_tf32_kernel {lib.fused_knn_tf32_smem_bytes(d_pad)}"
         f" B at d={args.dim} ({lib.fused_knn_tf32_stages(d_pad)} ring stages), "
-        f"fused_knn_kernel<double> {lib.fused_knn_f64_smem_bytes()} B")
+        f"fused_knn_f64_kernel {lib.fused_knn_f64_smem_bytes(args.dim)} B")
     counts = sass_counts(_build._target("fused_knn.cu"), _build._nvcc())
     log(f"  tensor-core instructions in the SASS: {counts}")
-    if counts.get("fused_knn_tf32_kernel", {}).get("HGMMA", 0) < 1:
-        raise AssertionError("the float32 kernel's SASS holds no HGMMA (wgmma)")
+    for kernel, op in (("fused_knn_tf32_kernel", "HGMMA"), ("fused_knn_f64_kernel", "DMMA")):
+        found = [c[op] for name, c in counts.items() if name.startswith(kernel)]
+        if not found or min(found) < 1:
+            raise AssertionError(f"{kernel}: an instance's SASS holds no {op}")
 
 
 def main() -> int:
@@ -595,14 +779,14 @@ def main() -> int:
     log(f"phase 3: main path, {args.items} x {args.dim} items, {args.queries} queries, k={args.k}")
     main_out = phase_main_path(device, args)
 
-    log("phase 4: float64 path, a fifth of the items and queries")
+    log("phase 4: float64 path, a fifth of the items and queries; then the main shape")
     f64 = phase_float64_path(device, args)
 
     log("phase 5: persistence")
     phase_persistence(main_out)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": main_out["kernels"] + [f64]}))
+    print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({
         "ok": True,

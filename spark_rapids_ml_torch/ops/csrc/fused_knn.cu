@@ -22,11 +22,17 @@
 //                          owns BQ = 128 queries and one of S item splits,
 //                          and leaves that split's sorted (score, position)
 //                          list of each row in a (q, S, k) scratch.
-//   merge_partials_kernel  merges the S lists of each row by (score,
-//                          position) and applies the epilogue.
+//   merge_partials_regs_kernel / merge_partials_kernel
+//                          merge the S lists of each row by (score,
+//                          position) and apply the epilogue, float and
+//                          double: one warp per row with the lists in
+//                          registers for k <= 32, one thread per entry
+//                          above.
 //
-// float64 keeps the first, CUDA-core design (fused_knn_kernel<double>):
-// FP64 FMA, one block per 64 queries sweeping every item.
+// float64 runs two: fused_knn_f64_kernel (the distance tile on the FP64
+// tensor cores, mma.sync m16n8k4 .f64, with the same grid, selection and
+// partial lists as the float32 main kernel) and the merge pass.  Its
+// design, and what bounds it, are described above the kernel.
 //
 // What bounds the float32 kernel.  2*q*n*d multiply-adds against
 // (n + q)*d input bytes: at any realistic q it is bound by operations.
@@ -101,7 +107,12 @@ namespace {
 template <typename T>
 __device__ __forceinline__ T pos_inf();
 template <>
+__device__ __forceinline__ float pos_inf<float>() { return CUDART_INF_F; }
+template <>
 __device__ __forceinline__ double pos_inf<double>() { return CUDART_INF; }
+
+__device__ __forceinline__ float tmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double tmin(double a, double b) { return fmin(a, b); }
 
 // (score, position) order.  An empty slot holds (+inf, -1); as unsigned
 // its position is the largest, so it sorts after every real entry.
@@ -123,6 +134,49 @@ __device__ __forceinline__ void unpack_key(unsigned long long key, float& d, int
   uint32_t u = (uint32_t)(key >> 32);
   d = __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
   i = (int)(uint32_t)key;
+}
+
+// A float64 score alone as 64 bits whose unsigned order is the score's
+// (fused_knn.py `f64_order_key` is its plain version): 64 bits hold no
+// position beside it.
+__device__ __forceinline__ unsigned long long f64_key(double d) {
+  unsigned long long u = (unsigned long long)__double_as_longlong(d == 0.0 ? 0.0 : d);
+  return (u >> 63) ? ~u : (u | (1ull << 63));
+}
+__device__ __forceinline__ double f64_unkey(unsigned long long u) {
+  return __longlong_as_double((long long)((u >> 63) ? (u & ~(1ull << 63)) : ~u));
+}
+
+// A row's filtering threshold from its own k-th entry (kth, kth_i), (+inf,
+// -1) until the list holds k, and the k-th entries other splits of the row
+// have published in `slot`; publishes its own.  Any split's k-th entry
+// bounds the row's k-th over all items, so a value that does not beat the
+// least of them cannot be in the merged top-k.
+//
+// float32 publishes (score, position) as one key.  float64 publishes the
+// score alone, once the list is full: a candidate tied with another split's
+// k-th score may still win on position, so the bound (pub, -1) keeps every
+// score <= pub (position -1 is the largest as unsigned).
+__device__ __forceinline__ void row_bound(unsigned long long* slot, float kth, int kth_i,
+                                          float& td, int& ti) {
+  const unsigned long long mine = kth_i >= 0 ? pack_key(kth, kth_i) : NO_KEY;
+  const unsigned long long old = atomicMin(slot, mine);
+  const unsigned long long best = old < mine ? old : mine;
+  td = CUDART_INF_F;
+  ti = -1;
+  if (best != NO_KEY) unpack_key(best, td, ti);
+}
+__device__ __forceinline__ void row_bound(unsigned long long* slot, double kth, int kth_i,
+                                          double& td, int& ti) {
+  const unsigned long long mine = kth_i >= 0 ? f64_key(kth) : NO_KEY;
+  const unsigned long long old = atomicMin(slot, mine);
+  const double pub = old == NO_KEY ? CUDART_INF : f64_unkey(old);
+  td = kth;
+  ti = kth_i;
+  if (key_less(pub, -1, kth, kth_i)) {
+    td = pub;
+    ti = -1;
+  }
 }
 
 // ============================================================================
@@ -295,12 +349,13 @@ __device__ __forceinline__ void wgmma_tf32_m64n64k8(float (&d)[32], uint64_t da,
 // candidate's slot on move up by the number of candidates ahead of them,
 // walking from the back: each group of 32 is read before any of it is
 // written, and it only writes at or above its own lowest index.
-__device__ void merge_row(float* __restrict__ od, int* __restrict__ oi, int k, int m,
-                          float v, int vi, int lane) {
+template <typename T>
+__device__ void merge_row(T* __restrict__ od, int* __restrict__ oi, int k, int m, T v, int vi,
+                          int lane) {
   int rank = 0;
 #pragma unroll 8
   for (int t = 0; t < 32; ++t) {
-    const float tv = __shfl_sync(0xffffffffu, v, t);
+    const T tv = __shfl_sync(0xffffffffu, v, t);
     const int tvi = __shfl_sync(0xffffffffu, vi, t);
     rank += (t < m && key_less(tv, tvi, v, vi)) ? 1 : 0;
   }
@@ -317,7 +372,7 @@ __device__ void merge_row(float* __restrict__ od, int* __restrict__ oi, int k, i
   for (int top = k; top > p0; top -= 32) {
     const int i = top - 32 + lane;
     const bool act = i >= p0;
-    float e = CUDART_INF_F;
+    T e = pos_inf<T>();
     int ei = -1;
     if (act) {
       e = od[i];
@@ -326,7 +381,7 @@ __device__ void merge_row(float* __restrict__ od, int* __restrict__ oi, int k, i
     int less = 0;
 #pragma unroll 8
     for (int t = 0; t < 32; ++t) {
-      const float tv = __shfl_sync(0xffffffffu, v, t);
+      const T tv = __shfl_sync(0xffffffffu, v, t);
       const int tvi = __shfl_sync(0xffffffffu, vi, t);
       less += (t < m && key_less(tv, tvi, e, ei)) ? 1 : 0;
     }
@@ -347,9 +402,9 @@ __device__ void merge_row(float* __restrict__ od, int* __restrict__ oi, int k, i
 
 // One compare-exchange of a bitonic network across lanes `stride` apart:
 // in a run sorted ascending the lower lane keeps the lesser key.
-__device__ __forceinline__ void bitonic_step(float& d, int& i, int stride, bool ascending,
-                                             int lane) {
-  const float od = __shfl_xor_sync(0xffffffffu, d, stride);
+template <typename T>
+__device__ __forceinline__ void bitonic_step(T& d, int& i, int stride, bool ascending, int lane) {
+  const T od = __shfl_xor_sync(0xffffffffu, d, stride);
   const int oi = __shfl_xor_sync(0xffffffffu, i, stride);
   const bool keep_less = ((lane & stride) == 0) == ascending;
   if (keep_less ? key_less(od, oi, d, i) : key_less(d, i, od, oi)) {
@@ -363,14 +418,14 @@ __device__ __forceinline__ void bitonic_step(float& d, int& i, int stride, bool 
 // the candidates (one per lane, +inf / -1 past m); the lesser of list entry
 // j and candidate 31 - j are the 32 least keys of both, a bitonic run that
 // five more steps sort.  Entries past k are emptied.
-__device__ __forceinline__ void merge_row_regs(float& ld, int& li, int k, float v, int vi,
-                                               int lane) {
+template <typename T>
+__device__ __forceinline__ void merge_row_regs(T& ld, int& li, int k, T v, int vi, int lane) {
 #pragma unroll
   for (int size = 2; size <= 32; size <<= 1)
 #pragma unroll
     for (int stride = size >> 1; stride > 0; stride >>= 1)
       bitonic_step(v, vi, stride, (lane & size) == 0, lane);
-  const float rv = __shfl_sync(0xffffffffu, v, 31 - lane);
+  const T rv = __shfl_sync(0xffffffffu, v, 31 - lane);
   const int rvi = __shfl_sync(0xffffffffu, vi, 31 - lane);
   if (key_less(rv, rvi, ld, li)) {
     ld = rv;
@@ -379,10 +434,226 @@ __device__ __forceinline__ void merge_row_regs(float& ld, int& li, int k, float 
 #pragma unroll
   for (int stride = 16; stride > 0; stride >>= 1) bitonic_step(ld, li, stride, true, lane);
   if (lane >= k) {
-    ld = CUDART_INF_F;
+    ld = pos_inf<T>();
     li = -1;
   }
 }
+
+// The selection on the accumulators, shared by the float32 and float64
+// main kernels.  Both hold the distance tile in the same layout: a warp owns
+// 16 query rows of the block (16 * warp ..), and a thread holds rows lr0 =
+// 16 * warp + lane / 4 and lr1 = lr0 + 8, columns 8c + 2 * (lane % 4) + j
+// of a 64-item tile, in s[4c + 2i + j] (i: row, j: column).  That is the
+// wgmma m64nNk8 layout of the float32 kernel and the mma.sync m16n8 layout
+// of the float64 one.
+//
+// Row r's sorted running list: with REG_LIST (k <= 32), entry `lane` of the
+// warp's row 16 * warp + rr in (reg_d[rr], reg_i[rr]); else its slot of the
+// (q, S, k) scratch, so that any k works.  The candidate buffers, counts and
+// thresholds of a row live in shared memory and are touched only by the
+// warp that owns the row, so nothing here needs a block barrier.
+template <typename T, bool REG_LIST>
+struct RowSelect {
+  T* cand_d;  // (BQ, CAP)
+  int* cand_i;
+  int* cnt;   // (BQ,)
+  T* thr_d;   // (BQ,)
+  int* thr_i;
+  unsigned long long* row_kth;  // (q,) k-th entries shared across splits
+  T* part_d;                    // (q, splits, k)
+  int* part_i;
+  int q, k, splits, split, q0, warp, lane, lr0, lr1, col0;
+  bool live0, live1;
+  T th0, th1;
+  int ti0, ti1;
+  T reg_d[16];
+  int reg_i[16];
+
+  __device__ __forceinline__ T* list_d(int r) {
+    return part_d + ((int64_t)(q0 + r) * splits + split) * k;
+  }
+  __device__ __forceinline__ int* list_i(int r) {
+    return part_i + ((int64_t)(q0 + r) * splits + split) * k;
+  }
+
+  __device__ __forceinline__ void threshold(int r, T kth, int kth_i) {
+    T td = pos_inf<T>();
+    int ti = -1;
+    if (q0 + r < q) row_bound(&row_kth[q0 + r], kth, kth_i, td, ti);
+    thr_d[r] = td;
+    thr_i[r] = ti;
+    cnt[r] = 0;
+  }
+
+  // Empty lists and thresholds of the warp's rows.
+  __device__ __forceinline__ void init() {
+    const T INF = pos_inf<T>();
+    lr0 = 16 * warp + (lane >> 2);
+    lr1 = lr0 + 8;
+    col0 = 2 * (lane & 3);
+    live0 = q0 + lr0 < q;
+    live1 = q0 + lr1 < q;
+#pragma unroll
+    for (int rr = 0; rr < 16; ++rr) {
+      reg_d[rr] = INF;
+      reg_i[rr] = -1;
+    }
+    if constexpr (!REG_LIST) {
+      for (int r = 16 * warp; r < 16 * warp + 16 && q0 + r < q; ++r) {
+        T* od = list_d(r);
+        int* oi = list_i(r);
+        for (int j = lane; j < k; j += 32) {
+          od[j] = INF;
+          oi[j] = -1;
+        }
+      }
+    }
+    if (lane < 16) threshold(16 * warp + lane, INF, -1);
+    __syncwarp();
+    th0 = thr_d[lr0];
+    th1 = thr_d[lr1];
+    ti0 = thr_i[lr0];
+    ti1 = thr_i[lr1];
+  }
+
+  // Merge every buffered row of this warp, then reload the thresholds.  A
+  // rolled loop keeps this rarely run code small; with REG_LIST the row
+  // being merged is always reg_*[0], and the lists rotate by one row per
+  // step, so after 16 steps they are back in place.
+  __device__ __forceinline__ void flush() {
+    const T INF = pos_inf<T>();
+#pragma unroll 1
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = 16 * warp + rr;
+      const int m = min(cnt[r], CAP);
+      if (m > 0) {  // the same for the whole warp
+        T* bd = cand_d + r * CAP;
+        int* bi = cand_i + r * CAP;
+        const T v = lane < m ? bd[lane] : INF;
+        const int vi = lane < m ? bi[lane] : -1;
+        T kth;
+        int kth_i;
+        if constexpr (REG_LIST) {
+          merge_row_regs(reg_d[0], reg_i[0], k, v, vi, lane);
+          kth = __shfl_sync(0xffffffffu, reg_d[0], k - 1);
+          kth_i = __shfl_sync(0xffffffffu, reg_i[0], k - 1);
+        } else {
+          merge_row(list_d(r), list_i(r), k, m, v, vi, lane);
+          kth = list_d(r)[k - 1];
+          kth_i = list_i(r)[k - 1];
+        }
+        if (lane == 0) threshold(r, kth, kth_i);
+        __syncwarp();
+      }
+      if constexpr (REG_LIST) {
+        const T d0 = reg_d[0];
+        const int i0 = reg_i[0];
+#pragma unroll
+        for (int j = 0; j < 15; ++j) {
+          reg_d[j] = reg_d[j + 1];
+          reg_i[j] = reg_i[j + 1];
+        }
+        reg_d[15] = d0;
+        reg_i[15] = i0;
+      }
+    }
+    th0 = thr_d[lr0];
+    ti0 = thr_i[lr0];
+    th1 = thr_d[lr1];
+    ti1 = thr_i[lr1];
+  }
+
+  // Scores of a finished tile against the thresholds; survivors to the
+  // candidate buffers, merging the warp's rows whenever one would overflow.
+  // The 4 lanes that share a row take consecutive slots (a prefix sum over
+  // the 4), so filing needs no atomics.  A value past the buffer's end is
+  // filed after the merge; it may no longer beat the k-th entry then, and
+  // the merge drops it.
+  __device__ __forceinline__ void select(const T (&score)[32], int n0) {
+    const T INF = pos_inf<T>();
+    // past the first tiles almost no score beats the k-th entry: look at
+    // each row's least score first, and leave at once when no lane has one
+    T least0 = INF, least1 = INF;
+#pragma unroll
+    for (int v = 0; v < 32; ++v) {
+      if ((v >> 1) & 1) least1 = tmin(least1, score[v]);
+      else least0 = tmin(least0, score[v]);
+    }
+    const bool any0 = live0 && least0 <= th0, any1 = live1 && least1 <= th1;
+    if (!__any_sync(0xffffffffu, any0 || any1)) return;
+    uint32_t pend = 0;  // bit v: score[v] beats its row's k-th entry
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (i ? any1 : any0) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {  // the row's 16 values, s[4c + 2i + j]
+            const int v = 4 * c + 2 * i + j;
+            const int pos = n0 + 8 * c + col0 + j;
+            if (score[v] < INF && key_less(score[v], pos, i ? th1 : th0, i ? ti1 : ti0))
+              pend |= 1u << v;
+          }
+      }
+    }
+    while (true) {
+      const int c0 = __popc(pend & 0x33333333u), c1 = __popc(pend & 0xCCCCCCCCu);
+      int p0 = c0, p1 = c1;  // inclusive prefix sums over the row's 4 lanes
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const int a = __shfl_up_sync(0xffffffffu, p0, o, 4);
+        const int b = __shfl_up_sync(0xffffffffu, p1, o, 4);
+        if ((lane & 3) >= o) {
+          p0 += a;
+          p1 += b;
+        }
+      }
+      int s0 = cnt[lr0] + p0 - c0, s1 = cnt[lr1] + p1 - c1;
+      __syncwarp();
+      if ((lane & 3) == 3) {
+        cnt[lr0] += p0;
+        cnt[lr1] += p1;
+      }
+      __syncwarp();
+      uint32_t keep = 0;
+#pragma unroll
+      for (int v = 0; v < 32; ++v) {
+        if (pend & (1u << v)) {
+          const int i = (v >> 1) & 1;
+          const int lr = i ? lr1 : lr0;
+          const int slot = i ? s1++ : s0++;
+          if (slot < CAP) {
+            cand_d[lr * CAP + slot] = score[v];
+            cand_i[lr * CAP + slot] = n0 + 8 * (v >> 2) + col0 + (v & 1);
+          } else {
+            keep |= 1u << v;
+          }
+        }
+      }
+      pend = keep;
+      if (!__any_sync(0xffffffffu, keep != 0)) break;
+      __syncwarp();
+      flush();
+    }
+  }
+
+  // After the sweep: merge what is buffered, and write the register lists
+  // to the scratch.
+  __device__ __forceinline__ void finish() {
+    __syncwarp();
+    flush();
+    if constexpr (REG_LIST) {
+#pragma unroll
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = 16 * warp + rr;
+        if (q0 + r < q && lane < k) {
+          list_d(r)[lane] = reg_d[rr];
+          list_i(r)[lane] = reg_i[rr];
+        }
+      }
+    }
+  }
+};
 
 // REG_LIST: k <= 32, each row's running list in the registers of the warp
 // that owns the row; otherwise in the row's slot of the (q, S, k) scratch.
@@ -455,104 +726,24 @@ fused_knn_tf32_kernel(const __grid_constant__ CUtensorMap xmap,  // items (d_pad
 
   // ---- consumers: two warpgroups of 64 query rows each ---------------------
   const int wg = tid >> 7;
-  const int warp = tid >> 5;  // 0..7; rows 16*warp .. 16*warp + 15 of the block
   const int lane = tid & 31;
-  const float INF = CUDART_INF_F;
-  // accumulator layout of m64nNk8: this thread holds rows lr0 and lr0 + 8,
-  // columns 8c + 2*(lane % 4) + j, in d[4c + 2i + j] (i: row, j: column)
-  const int lr0 = 16 * warp + (lane >> 2);
-  const int lr1 = lr0 + 8;
-  const int col0 = 2 * (lane & 3);
-  const bool live0 = q0 + lr0 < q, live1 = q0 + lr1 < q;
-
-  // Row r's sorted running list: with REG_LIST, entry `lane` of the
-  // warp's row 16 * warp + rr in (reg_d[rr], reg_i[rr]); else its slot of
-  // the (q, S, k) scratch, so that any k works.
-  auto list_d = [&](int r) { return part_d + ((int64_t)(q0 + r) * splits + split) * k; };
-  auto list_i = [&](int r) { return part_i + ((int64_t)(q0 + r) * splits + split) * k; };
-  float reg_d[16];
-  int reg_i[16];
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    reg_d[rr] = INF;
-    reg_i[rr] = -1;
-  }
-  if constexpr (!REG_LIST) {
-    for (int r = 16 * warp; r < 16 * warp + 16 && q0 + r < q; ++r) {
-      float* od = list_d(r);
-      int* oi = list_i(r);
-      for (int j = lane; j < k; j += 32) {
-        od[j] = INF;
-        oi[j] = -1;
-      }
-    }
-  }
-  // A row's threshold: the least of its k-th entry here and the k-th
-  // entries other splits of the row have published in row_kth.  Any
-  // split's k-th entry bounds the row's k-th over all items, so a value
-  // that does not beat it cannot be in the merged top-k.
-  auto threshold = [&](int r, unsigned long long mine) {
-    float td = INF;
-    int ti = -1;
-    if (q0 + r < q) {
-      const unsigned long long old = atomicMin(&row_kth[q0 + r], mine);
-      const unsigned long long best = old < mine ? old : mine;
-      if (best != NO_KEY) unpack_key(best, td, ti);
-    }
-    thr_d[r] = td;
-    thr_i[r] = ti;
-    cnt[r] = 0;
-  };
-  if (lane < 16) threshold(16 * warp + lane, NO_KEY);
-  __syncwarp();
-  float th0 = thr_d[lr0], th1 = thr_d[lr1];
-  int ti0 = thr_i[lr0], ti1 = thr_i[lr1];
-
-  // Merge every buffered row of this warp, then reload the thresholds.  A
-  // rolled loop keeps this rarely run code small; with REG_LIST the row
-  // being merged is always reg_*[0], and the lists rotate by one row per
-  // step, so after 16 steps they are back in place.
-  auto flush = [&]() {
-#pragma unroll 1
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * warp + rr;
-      const int m = min(cnt[r], CAP);
-      if (m > 0) {  // the same for the whole warp
-        float* bd = cand_d + r * CAP;
-        int* bi = cand_i + r * CAP;
-        const float v = lane < m ? bd[lane] : INF;
-        const int vi = lane < m ? bi[lane] : -1;
-        float kth;
-        int kth_i;
-        if constexpr (REG_LIST) {
-          merge_row_regs(reg_d[0], reg_i[0], k, v, vi, lane);
-          kth = __shfl_sync(0xffffffffu, reg_d[0], k - 1);
-          kth_i = __shfl_sync(0xffffffffu, reg_i[0], k - 1);
-        } else {
-          merge_row(list_d(r), list_i(r), k, m, v, vi, lane);
-          kth = list_d(r)[k - 1];
-          kth_i = list_i(r)[k - 1];
-        }
-        if (lane == 0) threshold(r, kth_i >= 0 ? pack_key(kth, kth_i) : NO_KEY);
-        __syncwarp();
-      }
-      if constexpr (REG_LIST) {
-        const float d0 = reg_d[0];
-        const int i0 = reg_i[0];
-#pragma unroll
-        for (int j = 0; j < 15; ++j) {
-          reg_d[j] = reg_d[j + 1];
-          reg_i[j] = reg_i[j + 1];
-        }
-        reg_d[15] = d0;
-        reg_i[15] = i0;
-      }
-    }
-    th0 = thr_d[lr0];
-    ti0 = thr_i[lr0];
-    th1 = thr_d[lr1];
-    ti1 = thr_i[lr1];
-  };
+  RowSelect<float, REG_LIST> sel;
+  sel.cand_d = cand_d;
+  sel.cand_i = cand_i;
+  sel.cnt = cnt;
+  sel.thr_d = thr_d;
+  sel.thr_i = thr_i;
+  sel.row_kth = row_kth;
+  sel.part_d = part_d;
+  sel.part_i = part_i;
+  sel.q = q;
+  sel.k = k;
+  sel.splits = splits;
+  sel.split = split;
+  sel.q0 = q0;
+  sel.warp = tid >> 5;  // 0..7; rows 16*warp .. 16*warp + 15 of the block
+  sel.lane = lane;
+  sel.init();
 
   if (resident) mbar_wait(qbar, 0);
   const uint32_t arow = wg * 64 * (BK * 4);  // this warpgroup's 64 rows in a query chunk
@@ -590,79 +781,6 @@ fused_knn_tf32_kernel(const __grid_constant__ CUtensorMap xmap,  // items (d_pad
     }
   };
 
-  // Scores of a finished tile against the thresholds; survivors to the
-  // candidate buffers, merging the warp's rows whenever one would overflow.
-  // The 4 lanes that share a row take consecutive slots (a prefix sum over
-  // the 4), so filing needs no atomics.  A value past the buffer's end is
-  // filed after the merge; it may no longer beat the k-th entry then, and
-  // the merge drops it.
-  auto select = [&](const float (&score)[32], int n0) {
-    // past the first tiles almost no score beats the k-th entry: look at
-    // each row's least score first, and leave at once when no lane has one
-    float least0 = INF, least1 = INF;
-#pragma unroll
-    for (int v = 0; v < 32; ++v) {
-      if ((v >> 1) & 1) least1 = fminf(least1, score[v]);
-      else least0 = fminf(least0, score[v]);
-    }
-    const bool any0 = live0 && least0 <= th0, any1 = live1 && least1 <= th1;
-    if (!__any_sync(0xffffffffu, any0 || any1)) return;
-    uint32_t pend = 0;  // bit v: score[v] beats its row's k-th entry
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (i ? any1 : any0) {
-#pragma unroll
-        for (int c = 0; c < BN / 8; ++c)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {  // the row's 16 values, d[4c + 2i + j]
-            const int v = 4 * c + 2 * i + j;
-            const int pos = n0 + 8 * c + col0 + j;
-            if (score[v] < INF && key_less(score[v], pos, i ? th1 : th0, i ? ti1 : ti0))
-              pend |= 1u << v;
-          }
-      }
-    }
-    while (true) {
-      const int c0 = __popc(pend & 0x33333333u), c1 = __popc(pend & 0xCCCCCCCCu);
-      int p0 = c0, p1 = c1;  // inclusive prefix sums over the row's 4 lanes
-#pragma unroll
-      for (int o = 1; o < 4; o <<= 1) {
-        const int a = __shfl_up_sync(0xffffffffu, p0, o, 4);
-        const int b = __shfl_up_sync(0xffffffffu, p1, o, 4);
-        if ((lane & 3) >= o) {
-          p0 += a;
-          p1 += b;
-        }
-      }
-      int s0 = cnt[lr0] + p0 - c0, s1 = cnt[lr1] + p1 - c1;
-      __syncwarp();
-      if ((lane & 3) == 3) {
-        cnt[lr0] += p0;
-        cnt[lr1] += p1;
-      }
-      __syncwarp();
-      uint32_t keep = 0;
-#pragma unroll
-      for (int v = 0; v < 32; ++v) {
-        if (pend & (1u << v)) {
-          const int i = (v >> 1) & 1;
-          const int lr = i ? lr1 : lr0;
-          const int slot = i ? s1++ : s0++;
-          if (slot < CAP) {
-            cand_d[lr * CAP + slot] = score[v];
-            cand_i[lr * CAP + slot] = n0 + 8 * (v >> 2) + col0 + (v & 1);
-          } else {
-            keep |= 1u << v;
-          }
-        }
-      }
-      pend = keep;
-      if (!__any_sync(0xffffffffu, keep != 0)) break;
-      __syncwarp();
-      flush();
-    }
-  };
-
   // Each tile: every depth chunk into acc, all retired before the
   // selection, so no wgmma is in flight across its divergent code (ptxas
   // would serialise every wgmma otherwise).  The two warpgroups overlap
@@ -675,7 +793,7 @@ fused_knn_tf32_kernel(const __grid_constant__ CUtensorMap xmap,  // items (d_pad
     float2 xv[BN / 8];
 #pragma unroll
     for (int c = 0; c < BN / 8; ++c)
-      xv[c] = *reinterpret_cast<const float2*>(xs + n0 + 8 * c + col0);
+      xv[c] = *reinterpret_cast<const float2*>(xs + n0 + 8 * c + sel.col0);
     for (int kc = 0; kc < kc_count; ++kc) issue(acc, kc);
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty0 + 8 * pending);
@@ -686,343 +804,378 @@ fused_knn_tf32_kernel(const __grid_constant__ CUtensorMap xmap,  // items (d_pad
       const float2 x2 = xv[v >> 2];
       acc[v] = (v & 1 ? x2.y : x2.x) - 2.0f * acc[v];
     }
-    select(acc, n0);
+    sel.select(acc, n0);
   }
-  __syncwarp();
-  flush();
-  if constexpr (REG_LIST) {
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = 16 * warp + rr;
-      if (q0 + r < q && lane < k) {
-        list_d(r)[lane] = reg_d[rr];
-        list_i(r)[lane] = reg_i[rr];
-      }
-    }
-  }
+  sel.finish();
 }
 
 // ============================================================================
-// float32: merge pass
+// merge pass (float and double)
 // ============================================================================
 
-// Entries of list t (sorted, empties last) that come before (v, vi).
-__device__ __forceinline__ int count_less(const float* __restrict__ ld, const int* __restrict__ li,
-                                          int k, float v, int vi) {
+// Entries of list t (sorted, empties last) that come before (v, vi), and
+// with `or_equal` those equal to it too.
+template <typename T>
+__device__ __forceinline__ int count_before(const T* __restrict__ ld, const int* __restrict__ li,
+                                            int k, T v, int vi, bool or_equal) {
   int lo = 0, hi = k;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (key_less(ld[mid], li[mid], v, vi)) lo = mid + 1; else hi = mid;
+    if (or_equal ? !key_less(v, vi, ld[mid], li[mid]) : key_less(ld[mid], li[mid], v, vi))
+      lo = mid + 1;
+    else
+      hi = mid;
   }
   return lo;
 }
 
-// One thread per partial entry (row, list s, slot j).  An entry's slot in
-// the merged row is j plus the entries of the other lists ahead of it
-// (positions are unique, so every real entry has its own slot); the
-// threads of list 0 also write the +inf / -1 tail past the row's count of
-// real entries.  d^2 = max(score + ||q||^2, 0).
-__global__ void merge_partials_kernel(const float* __restrict__ part_d,  // (q, S, k)
-                                      const int* __restrict__ part_i,
-                                      const float* __restrict__ q2,      // (q,)
-                                      int q, int S, int k,
-                                      float* __restrict__ out_d,         // (q, k)
-                                      int* __restrict__ out_i) {
-  const long long per_row = (long long)S * k;
-  const long long total = (long long)q * per_row;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long row = e / per_row;
-    const int rem = (int)(e - row * per_row);
-    const int s = rem / k, j = rem - s * k;
-    const float* rd = part_d + row * per_row;
-    const int* ri = part_i + row * per_row;
-    if (s == 0) {
-      long long real = 0;
-      for (int t = 0; t < S; ++t) {
-        int lo = 0, hi = k;  // first empty slot of list t
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (ri[t * k + mid] >= 0) lo = mid + 1; else hi = mid;
-        }
-        real += lo;
-      }
-      if (j >= real) {
-        out_d[row * k + j] = CUDART_INF_F;
-        out_i[row * k + j] = -1;
-      }
+// k <= 32: one warp per row, the row's running top-k in registers (lane j
+// holds entry j).  List 0 is the first running list; each further list is
+// read coalesced (the next one in flight while this one merges) and joined
+// as merge_row_regs does, with no sort: the list is sorted already, so the
+// lesser of entry j and the list's entry 31 - j are the 32 least keys of
+// both, a bitonic run that five steps sort.  Empty slots (+inf, -1) sort
+// last.  d^2 = max(score + ||q||^2, 0).
+template <typename T>
+__global__ void __launch_bounds__(256)
+merge_partials_regs_kernel(const T* __restrict__ part_d,  // (q, S, k)
+                           const int* __restrict__ part_i,
+                           const T* __restrict__ q2,      // (q,)
+                           int q, int S, int k,
+                           T* __restrict__ out_d,         // (q, k)
+                           int* __restrict__ out_i) {
+  const int lane = threadIdx.x & 31;
+  const T INF = pos_inf<T>();
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long row = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); row < q;
+       row += warps) {
+    const T* rd = part_d + row * S * k + lane;
+    const int* ri = part_i + row * S * k + lane;
+    const bool mine = lane < k;
+    T ld = mine ? rd[0] : INF;
+    int li = mine ? ri[0] : -1;
+    T nd = INF;
+    int ni = -1;
+    if (S > 1 && mine) {
+      nd = rd[k];
+      ni = ri[k];
     }
-    const float v = rd[rem];
-    const int vi = ri[rem];
-    if (vi < 0) continue;
-    int rank = j;
+    for (int s = 1; s < S; ++s) {
+      const T vd = nd;
+      const int vi = ni;
+      if (s + 1 < S && mine) {
+        nd = rd[(s + 1) * k];
+        ni = ri[(s + 1) * k];
+      }
+      const T rv = __shfl_sync(0xffffffffu, vd, 31 - lane);
+      const int rvi = __shfl_sync(0xffffffffu, vi, 31 - lane);
+      if (key_less(rv, rvi, ld, li)) {
+        ld = rv;
+        li = rvi;
+      }
+#pragma unroll
+      for (int stride = 16; stride > 0; stride >>= 1) bitonic_step(ld, li, stride, true, lane);
+    }
+    if (mine) {
+      const T d2 = ld + q2[row];
+      out_d[row * k + lane] = li < 0 ? INF : (d2 > T(0) ? d2 : T(0));
+      out_i[row * k + lane] = li;
+    }
+  }
+}
+
+// Larger k: one thread per entry of the (q, S, k) lists, so a row's S * k
+// entries spread over S * k / 32 warps and a few rows still fill the card
+// (at k = 1000, S = 32 a row is 32,000 entries: one warp per row would
+// leave it to 32 lanes).  An entry's slot in the merged row is its index
+// in its own list plus the entries of the other lists ahead of it, a
+// binary search in each, read where they lie (the lanes of a warp hold
+// neighbouring entries of one list and walk nearly the same paths, so most
+// reads hit L1); the searches stop once the slot is past k.  Equal keys,
+// which only empty slots (+inf, -1) share, go to the lower list: the S * k
+// entries take distinct slots, so the first k slots are all written
+// without counting the row's real entries.  d^2 = max(score + ||q||^2, 0).
+template <typename T>
+__global__ void __launch_bounds__(256)
+merge_partials_kernel(const T* __restrict__ part_d,  // (q, S, k)
+                      const int* __restrict__ part_i,
+                      const T* __restrict__ q2,      // (q,)
+                      int q, int S, int k,
+                      T* __restrict__ out_d,         // (q, k)
+                      int* __restrict__ out_i) {
+  const long long per_row = (long long)S * k, total = (long long)q * per_row;
+  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < total;
+       g += (long long)gridDim.x * blockDim.x) {
+    const long long row = g / per_row;
+    const long long e = g - row * per_row;
+    const int s = (int)(e / k);
+    const T* ld = part_d + row * per_row;
+    const int* li = part_i + row * per_row;
+    const T v = part_d[g];
+    const int vi = part_i[g];
+    int rank = (int)(e - (long long)s * k);
     for (int t = 0; t < S && rank < k; ++t)
-      if (t != s) rank += count_less(rd + t * k, ri + t * k, k, v, vi);
+      if (t != s)
+        rank += count_before(ld + (long long)t * k, li + (long long)t * k, k, v, vi, t < s);
     if (rank < k) {
-      const float d2 = v + q2[row];
-      out_d[row * k + rank] = d2 > 0.0f ? d2 : 0.0f;
+      const T d2 = v + q2[row];
+      out_d[row * k + rank] = vi < 0 ? pos_inf<T>() : (d2 > T(0) ? d2 : T(0));
       out_i[row * k + rank] = vi;
     }
   }
 }
 
 // ============================================================================
-// float64: the first design, FP64 FMA on the CUDA cores
+// float64: main kernel (mma.sync .f64 on the FP64 tensor cores, cp.async ring)
 // ============================================================================
 //
-// One block owns BQ64 query rows and sweeps the whole item set in tiles of
-// BN64 items.  Each tile: (1) a BQ64 x BN64 tile of dot products with rows
-// staged through shared memory in chunks of DK along d, so any d works;
-// (2) one warp per query row keeps only the tile's candidates that beat the
-// row's current k-th entry (a ballot + compaction), sorts those few by rank
-// counting, and merges them into the row's sorted running list, which
-// lives in the output buffers themselves.
+// What bounds it.  2*q*n*d multiply-adds in float64 against (n + q)*d*8
+// input bytes: bound by operations, on the FP64 tensor cores (DMMA) at
+// 67 TFLOP/s, twice the FP64 FMA rate of the CUDA cores.  There is no
+// wgmma for float64: the products are mma.sync m16n8k4 .f64 issued by each
+// warp from shared memory, and at that size a product reads more shared
+// memory per operation than wgmma does, so the tile is blocked for reuse.
+//
+// The design, against the four limits of the first design (FP64 FMA on the
+// CUDA cores, one block per 64 queries sweeping every item):
+//   1. Too few blocks.  The grid is (ceil(q/BQD), S), as for float32: the
+//      wrapper splits the item sweep (`auto_splits` with this kernel's BQD
+//      and its 12-byte scratch entries), the merge pass joins the lists.
+//      The splits of a row share their k-th SCORES (row_bound): a double
+//      and a position do not fit one 64-bit atomicMin, so the score alone
+//      is published, once a split's list holds k entries, and a candidate
+//      is dropped only when its score is strictly greater (a tie may still
+//      win on position).
+//   2. No tensor cores.  Each of 8 warps owns 16 query rows and computes
+//      their 16 x 64 tile as 8 m16n8k4 products per k-step: an A fragment
+//      (2 doubles a lane) is reused across the 8 item tiles, so a k-step
+//      reads 2.5 KB of shared memory per 8 KFLOP (about 86 B/cycle per SM
+//      at the DMMA rate, under the SM's 128).  A row belongs to one warp and
+//      4 lanes, in the accumulator layout the float32 selection takes, so
+//      the selection (RowSelect) is the same code, on doubles.  A wider warp
+//      tile (32 x 64, 0.19 B/FLOP) would need 128 accumulator registers
+//      beside the register lists; the kernel takes 203 as it is.
+//   3. Synchronous loads.  cp.async (16 bytes where d is even and the
+//      arrays are 16-byte aligned, else 8) fills a ring of STAGES64 chunks
+//      of BKD = 32 doubles (256-byte rows), with zero-fill for rows past n
+//      or q and the ragged depth chunk, so any d works and no padded copy is
+//      made (TMA would need 16-byte row strides: d = 17, 33 have none).
+//      Rows are swizzled (16-byte unit u of row r at u ^ 2 (r % 4)), so
+//      the fragment loads of a half-warp hit 16 distinct bank pairs.  Where
+//      d <= 128 the block's queries stay resident (128 KB at d = 128); wider
+//      rows stream a query chunk beside every item chunk.
+//   4. Serialised selection.  As for float32: scores on the accumulators,
+//      a per-row least against per-lane thresholds, prefix-sum filing,
+//      per-warp merges (register lists and a bitonic network for k <= 32).
+// One barrier per depth chunk keeps the ring: a chunk's slot is refilled
+// only after every warp has read it.  With one block of 8 warps on an SM
+// those barriers and the products' latency are what is left between the
+// kernel and the DMMA rate: chunks of 32 doubles in a ring of 2 (one
+// barrier per 64 products a warp) took about a sixth less time at the
+// main shape than chunks of 16 in a ring of 4 on an H100 (PERF.md).
 
-constexpr int BQ64 = 64;                          // query rows per block
-constexpr int BN64 = 64;                          // items per tile
-constexpr int DK = 16;                            // depth of one staged chunk
-constexpr int TQ = 4;                             // query rows per thread
-constexpr int TN = 4;                             // items per thread
-constexpr int GQ = BQ64 / TQ;                     // thread rows (16)
-constexpr int GN = BN64 / TN;                     // thread columns (16)
-constexpr int NTHREADS = GQ * GN;                 // 256
-constexpr int NWARPS = NTHREADS / 32;             // 8
-constexpr int QS_LD = BQ64 + 1;                   // padded strides against
-constexpr int XS_LD = BN64 + 1;                   // shared-memory bank
-constexpr int S_LD = BN64 + 1;                    // conflicts
+constexpr int BQD = 128;                  // query rows per block: 8 warps x 16
+constexpr int BND = 64;                   // items per tile
+constexpr int BKD = 32;                   // doubles per depth chunk: a 256-byte row
+constexpr uint32_t ROW64 = BKD * 8;       // bytes of a chunk's row
+constexpr int NTHREADS64 = 256;
+constexpr int STAGES64 = 2;               // ring slots
+constexpr int RESIDENT64_MAX_KC = 4;      // queries stay in smem up to d = 128
+constexpr uint32_t XCHUNK64 = BND * BKD * 8;  // item chunk, 16 KB
+constexpr uint32_t QCHUNK64 = BQD * BKD * 8;  // query chunk, 32 KB
 
-static_assert(BN64 % 32 == 0, "a warp scans the tile 32 columns at a time");
+struct Smem64 {
+  uint32_t qres, ring, stage_bytes, cand_d, thr_d, cand_i, cnt, thr_i, total;
+};
 
-template <typename T>
-constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)(DK * QS_LD + DK * XS_LD + BQ64 * S_LD  // tiles
-                              + 2 * BQ64                              // ||q||^2, worst
-                              + 2 * NWARPS * BN64)                    // candidates
-         + sizeof(int) * (size_t)(BQ64 + 2 * NWARPS * BN64);
+// Resident queries (or none), the ring, then the candidate buffers and
+// the row state.  Every part is a multiple of 16 bytes.
+__host__ __device__ inline Smem64 smem64_layout(int kc_count, bool resident) {
+  Smem64 s;
+  s.qres = 0;
+  s.ring = resident ? (uint32_t)kc_count * QCHUNK64 : 0u;
+  s.stage_bytes = XCHUNK64 + (resident ? 0u : QCHUNK64);
+  s.cand_d = s.ring + STAGES64 * s.stage_bytes;
+  s.thr_d = s.cand_d + BQD * CAP * 8;
+  s.cand_i = s.thr_d + BQD * 8;
+  s.cnt = s.cand_i + BQD * CAP * 4;
+  s.thr_i = s.cnt + BQD * 4;
+  s.total = s.thr_i + BQD * 4;
+  return s;
+}
+static_assert(RESIDENT64_MAX_KC * QCHUNK64 + STAGES64 * XCHUNK64 + BQD * CAP * 12 + BQD * 16 <=
+                  SMEM_LIMIT,
+              "resident float64 layout exceeds shared memory");
+
+// Byte offset of element c (0..BKD-1) of row r in a swizzled chunk.
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return (uint32_t)r * ROW64 + ((uint32_t)((c >> 1) ^ ((r & 3) << 1)) << 4) + ((c & 1) << 3);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-fused_knn_kernel(const T* __restrict__ items,    // (n, d)
-                 const T* __restrict__ x2,       // (n,) ||x||^2, 0 where invalid
-                 const T* __restrict__ valid,    // (n,) > 0 for a real item
-                 const T* __restrict__ queries,  // (q, d)
-                 int n, int d, int q, int k,
-                 T* __restrict__ out_d,          // (q, k)
-                 int* __restrict__ out_i) {      // (q, k)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);  // [DK][QS_LD] query chunk, transposed
-  T* Xs = Qs + DK * QS_LD;                 // [DK][XS_LD] item chunk, transposed
-  T* S = Xs + DK * XS_LD;                  // [BQ64][S_LD] tile scores
-  T* q2 = S + BQ64 * S_LD;                 // [BQ64]
-  T* worst_d = q2 + BQ64;                  // [BQ64] current k-th score of each row
-  T* cand_d = worst_d + BQ64;              // [NWARPS][BN64] survivors, tile order
-  T* sort_d = cand_d + NWARPS * BN64;      // [NWARPS][BN64] survivors, sorted
-  int* worst_i = reinterpret_cast<int*>(sort_d + NWARPS * BN64);  // [BQ64]
-  int* cand_i = worst_i + BQ64;            // [NWARPS][BN64]
-  int* sort_i = cand_i + NWARPS * BN64;    // [NWARPS][BN64]
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
+// Rows row0 .. row0 + ROWS - 1 of a row-major (limit, d) float64 array,
+// columns col0 .. col0 + BKD - 1, into the swizzled chunk at dst; rows
+// past limit and columns past d read as zeros.  16-byte copies where d is
+// even and the arrays 16-byte aligned (vec16), else 8-byte copies, which
+// take any d: at 1M x 128 float64 items and 10k queries the function takes
+// 8% longer with 8-byte copies alone on an H100 (PERF.md).
+template <int ROWS>
+__device__ __forceinline__ void load_chunk64(uint32_t dst, const double* __restrict__ src,
+                                             long long row0, long long limit, int d, int col0,
+                                             bool vec16, int tid) {
+  if (vec16) {
+#pragma unroll
+    for (int it = 0; it < ROWS * (BKD / 2) / NTHREADS64; ++it) {
+      const unsigned u = tid + it * NTHREADS64;
+      const int r = u / (BKD / 2), cu = u % (BKD / 2), c = col0 + 2 * cu;
+      const long long row = row0 + r;
+      const bool ok = row < limit && c < d;
+      cp_async16(dst + r * ROW64 + ((cu ^ ((r & 3) << 1)) << 4), ok ? src + row * d + c : src,
+                 ok ? 16u : 0u);
+    }
+  } else {
+#pragma unroll
+    for (int it = 0; it < ROWS * BKD / NTHREADS64; ++it) {
+      const unsigned e = tid + it * NTHREADS64;
+      const int r = e / BKD, c = col0 + e % BKD;
+      const long long row = row0 + r;
+      const bool ok = row < limit && c < d;
+      cp_async8(dst + sw64(r, e % BKD), ok ? src + row * d + c : src, ok ? 8u : 0u);
+    }
+  }
+}
+
+// d (16 x 8) += a (16 x 4, row) * b (4 x 8, col), float64 on the tensor
+// cores.  Lane l holds a[l/4][l%4] and a[l/4 + 8][l%4], b[l%4][l/4], and
+// d[l/4][2(l%4) + j] in dj, d[l/4 + 8][2(l%4) + j] in d(2+j).
+__device__ __forceinline__ void dmma_16x8x4(double& d0, double& d1, double& d2, double& d3,
+                                            double a0, double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64"
+      " {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+template <bool REG_LIST>
+__global__ void __launch_bounds__(NTHREADS64, 1)
+fused_knn_f64_kernel(const double* __restrict__ items,    // (n, d)
+                     const double* __restrict__ queries,  // (q, d)
+                     const double* __restrict__ xs,  // (n_tiles*BND,) ||x||^2, +inf where invalid
+                     int n, int q, int d, int k, int kc_count, int tiles_per_split, int n_tiles,
+                     int splits, int resident, int vec16,
+                     double* __restrict__ part_d,  // (q, splits, k)
+                     int* __restrict__ part_i,
+                     unsigned long long* __restrict__ row_kth) {  // (q,) NO_KEY at launch
+  extern __shared__ __align__(16) unsigned char smem64_raw[];
+  const Smem64 L = smem64_layout(kc_count, resident != 0);
+  const uint32_t base = smem_u32(smem64_raw);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int tx = tid % GN;
-  const int ty = tid / GN;
-  const int q0 = blockIdx.x * BQ64;
-  const T INF = pos_inf<T>();
+  const int warp = tid >> 5;  // 0..7; rows 16*warp .. 16*warp + 15 of the block
+  const int q0 = blockIdx.x * BQD;
+  const int split = blockIdx.y;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int steps = (t_end - t_begin) * kc_count;  // (tile, depth chunk) pairs
 
-  // Empty running lists and the query norms of this block's rows.
-  for (int r = warp; r < BQ64; r += NWARPS) {
-    const int row = q0 + r;
-    T acc = T(0);
-    if (row < q) {
-      const T* qr = queries + (int64_t)row * d;
-      for (int c = lane; c < d; c += 32) acc += qr[c] * qr[c];
-      T* od = out_d + (int64_t)row * k;
-      int* oi = out_i + (int64_t)row * k;
-      for (int j = lane; j < k; j += 32) {
-        od[j] = INF;
-        oi[j] = -1;
+  RowSelect<double, REG_LIST> sel;
+  sel.cand_d = reinterpret_cast<double*>(smem64_raw + L.cand_d);
+  sel.cand_i = reinterpret_cast<int*>(smem64_raw + L.cand_i);
+  sel.cnt = reinterpret_cast<int*>(smem64_raw + L.cnt);
+  sel.thr_d = reinterpret_cast<double*>(smem64_raw + L.thr_d);
+  sel.thr_i = reinterpret_cast<int*>(smem64_raw + L.thr_i);
+  sel.row_kth = row_kth;
+  sel.part_d = part_d;
+  sel.part_i = part_i;
+  sel.q = q;
+  sel.k = k;
+  sel.splits = splits;
+  sel.split = split;
+  sel.q0 = q0;
+  sel.warp = warp;
+  sel.lane = lane;
+  sel.init();
+
+  // The loads of step g into ring slot g % STAGES64, one commit group per
+  // step (empty past the last step, so the wait below counts evenly).
+  auto load_step = [&](int g) {
+    if (g < steps) {
+      const int kc = g % kc_count;
+      const uint32_t slot = base + L.ring + (g % STAGES64) * L.stage_bytes;
+      load_chunk64<BND>(slot, items, (long long)(t_begin + g / kc_count) * BND, n, d, kc * BKD,
+                        vec16 != 0, tid);
+      if (!resident)
+        load_chunk64<BQD>(slot + XCHUNK64, queries, q0, q, d, kc * BKD, vec16 != 0, tid);
+    }
+    cp_async_commit();
+  };
+  if (resident)  // part of the first group
+    for (int kc = 0; kc < kc_count; ++kc)
+      load_chunk64<BQD>(base + L.qres + kc * QCHUNK64, queries, q0, q, d, kc * BKD, vec16 != 0,
+                        tid);
+  for (int g = 0; g < STAGES64 - 1; ++g) load_step(g);
+
+  // Fragment offsets of this lane: A rows 16*warp + lane/4 (+ 8), B rows
+  // (items) 8j + lane/4, column 4kk + lane%4 of the chunk.  All these rows
+  // have r % 4 = g3, so the column's offset in the row, sw64(r, 4kk +
+  // lane%4) - r * ROW64, is 32 (kk ^ g3) + 8 (lane % 4) for every one.
+  const int g8 = lane >> 2, t4 = lane & 3, g3 = g8 & 3;
+  const uint32_t arow0 = (16 * warp + g8) * ROW64, arow1 = arow0 + 8 * ROW64;
+  const uint32_t brow = g8 * ROW64;
+
+  double acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0;
+  for (int g = 0; g < steps; ++g) {
+    cp_async_wait<STAGES64 - 2>();
+    __syncthreads();  // step g has landed for every thread; slot (g - 1) is free
+    load_step(g + STAGES64 - 1);
+    const int kc = g % kc_count;
+    const unsigned char* xa = smem64_raw + L.ring + (g % STAGES64) * L.stage_bytes;
+    const unsigned char* qa = resident ? smem64_raw + L.qres + kc * QCHUNK64 : xa + XCHUNK64;
+#pragma unroll
+    for (int kk = 0; kk < BKD / 4; ++kk) {
+      const uint32_t koff = ((kk ^ g3) << 5) + (t4 << 3);
+      const double a0 = *reinterpret_cast<const double*>(qa + arow0 + koff);
+      const double a1 = *reinterpret_cast<const double*>(qa + arow1 + koff);
+#pragma unroll
+      for (int j = 0; j < BND / 8; ++j) {
+        const double b = *reinterpret_cast<const double*>(xa + brow + j * 8 * ROW64 + koff);
+        dmma_16x8x4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3], a0, a1, b);
       }
     }
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      q2[r] = acc;
-      worst_d[r] = INF;
-      worst_i[r] = -1;
-    }
-  }
-  __syncthreads();
-
-  T* my_cd = cand_d + warp * BN64;
-  int* my_ci = cand_i + warp * BN64;
-  T* my_sd = sort_d + warp * BN64;
-  int* my_si = sort_i + warp * BN64;
-
-  for (int n0 = 0; n0 < n; n0 += BN64) {
-    // ---- 1. scores of the BQ64 x BN64 tile ---------------------------------
-    T acc[TQ][TN];
+    if (kc == kc_count - 1) {  // the tile is done: scores, in place, then selection
+      const int n0 = (t_begin + g / kc_count) * BND;
 #pragma unroll
-    for (int i = 0; i < TQ; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = T(0);
-
-    for (int d0 = 0; d0 < d; d0 += DK) {
-      for (int e = tid; e < BQ64 * DK; e += NTHREADS) {
-        const int r = e / DK, c = e % DK;
-        const int row = q0 + r, col = d0 + c;
-        Qs[c * QS_LD + r] = (row < q && col < d) ? queries[(int64_t)row * d + col] : T(0);
+      for (int c = 0; c < BND / 8; ++c) {
+        const double2 x2 = *reinterpret_cast<const double2*>(xs + n0 + 8 * c + sel.col0);
+        acc[4 * c] = x2.x - 2.0 * acc[4 * c];
+        acc[4 * c + 1] = x2.y - 2.0 * acc[4 * c + 1];
+        acc[4 * c + 2] = x2.x - 2.0 * acc[4 * c + 2];
+        acc[4 * c + 3] = x2.y - 2.0 * acc[4 * c + 3];
       }
-      for (int e = tid; e < BN64 * DK; e += NTHREADS) {
-        const int r = e / DK, c = e % DK;
-        const int it = n0 + r, col = d0 + c;
-        Xs[c * XS_LD + r] = (it < n && col < d) ? items[(int64_t)it * d + col] : T(0);
-      }
-      __syncthreads();
+      sel.select(acc, n0);
 #pragma unroll
-      for (int c = 0; c < DK; ++c) {
-        T a[TQ], b[TN];
-#pragma unroll
-        for (int i = 0; i < TQ; ++i) a[i] = Qs[c * QS_LD + ty + i * GQ];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Xs[c * XS_LD + tx + j * GN];
-#pragma unroll
-        for (int i = 0; i < TQ; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int c = tx + j * GN;
-      const int it = n0 + c;
-      const bool ok = it < n && valid[it] > T(0);
-      const T xx = ok ? x2[it] : T(0);
-#pragma unroll
-      for (int i = 0; i < TQ; ++i) {
-        const int r = ty + i * GQ;
-        S[r * S_LD + c] = ok ? xx - T(2) * acc[i][j] : INF;
-      }
-    }
-    __syncthreads();
-
-    // ---- 2. merge the tile into each row's running top-k -------------------
-    const int nt = min(BN64, n - n0);
-    for (int r = warp; r < BQ64; r += NWARPS) {
-      const int row = q0 + r;
-      if (row >= q) continue;  // the same for the whole warp
-      T* od = out_d + (int64_t)row * k;
-      int* oi = out_i + (int64_t)row * k;
-      const T thr = worst_d[r];
-      const int thr_i = worst_i[r];
-      __syncwarp();
-
-      // survivors: candidates that beat the current k-th entry
-      int m = 0;
-#pragma unroll
-      for (int c0 = 0; c0 < BN64; c0 += 32) {
-        const int c = c0 + lane;
-        const T s = S[r * S_LD + c];
-        const int pos = n0 + c;
-        const bool take = c < nt && s < INF && key_less(s, pos, thr, thr_i);
-        const unsigned ball = __ballot_sync(0xffffffffu, take);
-        if (take) {
-          const int slot = m + __popc(ball & ((1u << lane) - 1u));
-          my_cd[slot] = s;
-          my_ci[slot] = pos;
-        }
-        m += __popc(ball);
-      }
-      if (m == 0) continue;  // the same for the whole warp
-      __syncwarp();
-
-      // sort the survivors: (score, position) pairs are distinct, so the
-      // ranks are a permutation
-      for (int s0 = lane; s0 < m; s0 += 32) {
-        const T v = my_cd[s0];
-        const int vi = my_ci[s0];
-        int rank = 0;
-        for (int t = 0; t < m; ++t) rank += key_less(my_cd[t], my_ci[t], v, vi) ? 1 : 0;
-        my_sd[rank] = v;
-        my_si[rank] = vi;
-      }
-      __syncwarp();
-
-      // slot of each survivor in the merged list: its rank among the
-      // survivors plus the number of running entries ahead of it
-      int tgt[BN64 / 32];
-#pragma unroll
-      for (int u = 0; u < BN64 / 32; ++u) {
-        const int j = lane + 32 * u;
-        tgt[u] = k;
-        if (j < m) {
-          const T v = my_sd[j];
-          const int vi = my_si[j];
-          int lo = 0, hi = k;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (key_less(od[mid], oi[mid], v, vi)) lo = mid + 1; else hi = mid;
-          }
-          tgt[u] = j + lo;
-        }
-      }
-      // entries before the first survivor's slot stay where they are; the
-      // rest move up by the number of survivors ahead of them (from the
-      // back, as in merge_row above)
-      const int p0 = __shfl_sync(0xffffffffu, tgt[0], 0);
-      for (int top = k; top > p0; top -= 32) {
-        const int i = top - 32 + lane;
-        const bool act = i >= p0;
-        T v = INF;
-        int vi = -1;
-        int dst = k;
-        if (act) {
-          v = od[i];
-          vi = oi[i];
-          int lo = 0, hi = m;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (key_less(my_sd[mid], my_si[mid], v, vi)) lo = mid + 1; else hi = mid;
-          }
-          dst = i + lo;
-        }
-        __syncwarp();
-        if (act && dst < k) {
-          od[dst] = v;
-          oi[dst] = vi;
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int u = 0; u < BN64 / 32; ++u) {
-        const int j = lane + 32 * u;
-        if (j < m && tgt[u] < k) {
-          od[tgt[u]] = my_sd[j];
-          oi[tgt[u]] = my_si[j];
-        }
-      }
-      __syncwarp();
-      if (lane == 0) {
-        worst_d[r] = od[k - 1];
-        worst_i[r] = oi[k - 1];
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- epilogue: d^2 = max(score + ||q||^2, 0); +inf past the valid count --
-  for (int r = warp; r < BQ64; r += NWARPS) {
-    const int row = q0 + r;
-    if (row >= q) continue;
-    T* od = out_d + (int64_t)row * k;
-    const int* oi = out_i + (int64_t)row * k;
-    const T qq = q2[r];
-    for (int j = lane; j < k; j += 32) {
-      const T v = od[j] + qq;
-      od[j] = oi[j] < 0 ? INF : (v > T(0) ? v : T(0));
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0;
     }
   }
+  cp_async_wait<0>();
+  sel.finish();
 }
 
 // ============================================================================
@@ -1078,21 +1231,29 @@ unsigned grid_for(long long total, int threads) {
   return (unsigned)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
+// The merge pass of one type: k <= 32 merges in registers, one warp per
+// row, 8 warps a block; larger k takes one thread per entry.
 template <typename T>
-int launch(const void* items, const void* x2, const void* valid, const void* queries,
-           long long n, long long d, long long q, long long k,
-           void* out_d, void* out_i, void* stream) {
-  constexpr size_t smem = smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_knn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((q + BQ64 - 1) / BQ64));
-  fused_knn_kernel<T><<<grid, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(items), static_cast<const T*>(x2), static_cast<const T*>(valid),
-      static_cast<const T*>(queries), (int)n, (int)d, (int)q, (int)k,
-      static_cast<T*>(out_d), static_cast<int*>(out_i));
+int launch_merge(const void* part_d, const void* part_i, const void* q2, long long q,
+                 long long splits, long long k, void* out_d, void* out_i, void* stream) {
+  const T* pd = static_cast<const T*>(part_d);
+  const int* pi = static_cast<const int*>(part_i);
+  const T* qq = static_cast<const T*>(q2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k <= 32) {
+    const long long blocks = (q + 7) / 8;
+    merge_partials_regs_kernel<T><<<(unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)), 256, 0,
+                                    st>>>(pd, pi, qq, (int)q, (int)splits, (int)k,
+                                          static_cast<T*>(out_d), static_cast<int*>(out_i));
+  } else {
+    merge_partials_kernel<T><<<grid_for(q * splits * k, 256), 256, 0, st>>>(
+        pd, pi, qq, (int)q, (int)splits, (int)k, static_cast<T*>(out_d),
+        static_cast<int*>(out_i));
+  }
   return (int)cudaGetLastError();
 }
+
+int kc_count64(long long d) { return d > 0 ? (int)((d + BKD - 1) / BKD) : 1; }
 
 }  // namespace
 
@@ -1138,31 +1299,54 @@ int fused_knn_tf32(const void* xsplit, const void* qsplit, const void* xs, long 
   return (int)cudaGetLastError();
 }
 
+// part_d (q, splits, k) float32 (f64 = 0) or float64 (f64 = 1) sorted
+// lists, part_i int32, q2 (q,) of the same type as part_d.
 int merge_partials(const void* part_d, const void* part_i, const void* q2, long long q,
-                   long long splits, long long k, void* out_d, void* out_i, void* stream) {
-  merge_partials_kernel<<<grid_for(q * splits * k, 256), 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part_d), static_cast<const int*>(part_i),
-      static_cast<const float*>(q2), (int)q, (int)splits, (int)k, static_cast<float*>(out_d),
-      static_cast<int*>(out_i));
+                   long long splits, long long k, long long f64, void* out_d, void* out_i,
+                   void* stream) {
+  return f64 ? launch_merge<double>(part_d, part_i, q2, q, splits, k, out_d, out_i, stream)
+             : launch_merge<float>(part_d, part_i, q2, q, splits, k, out_d, out_i, stream);
+}
+
+// items (n, d) and queries (q, d) row-major float64; xs (n_tiles * 64,)
+// item norms, +inf where invalid or past n; part_d/part_i (q, splits, k)
+// scratch; row_kth (q,) 64-bit keys, all ones at launch; splits *
+// tiles_per_split covers the n_tiles tiles of 64 items.
+int fused_knn_f64(const void* items, const void* queries, const void* xs, long long n,
+                  long long q, long long d, long long k, long long tiles_per_split,
+                  long long splits, void* part_d, void* part_i, void* row_kth, void* stream) {
+  const int kc_count = kc_count64(d);
+  const bool resident = kc_count <= RESIDENT64_MAX_KC;
+  const Smem64 L = smem64_layout(kc_count, resident);
+  const bool vec16 = d % 2 == 0 && reinterpret_cast<uintptr_t>(items) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(queries) % 16 == 0;
+  auto kernel = k <= 32 ? fused_knn_f64_kernel<true> : fused_knn_f64_kernel<false>;
+  const cudaError_t cerr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const int n_tiles = (int)((n + BND - 1) / BND);
+  const dim3 grid((unsigned)((q + BQD - 1) / BQD), (unsigned)splits);
+  kernel<<<grid, NTHREADS64, L.total, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(items), static_cast<const double*>(queries),
+      static_cast<const double*>(xs), (int)n, (int)q, (int)d, (int)k, kc_count,
+      (int)tiles_per_split, n_tiles, (int)splits, resident ? 1 : 0, vec16 ? 1 : 0,
+      static_cast<double*>(part_d), static_cast<int*>(part_i),
+      static_cast<unsigned long long*>(row_kth));
   return (int)cudaGetLastError();
 }
 
-int fused_knn_f64(const void* items, const void* x2, const void* valid, const void* queries,
-                  long long n, long long d, long long q, long long k,
-                  void* out_d, void* out_i, void* stream) {
-  return launch<double>(items, x2, valid, queries, n, d, q, k, out_d, out_i, stream);
-}
-
 // Dynamic shared memory the float32 kernel asks for, and its ring's
-// stages, at this width; and the float64 kernel's (for reports).
+// stages, at this width; and the float64 kernel's at width d (for reports).
 long long fused_knn_tf32_smem_bytes(long long d_pad) {
   return smem32_layout((int)(d_pad / BK), d_pad <= RESIDENT_MAX_DPAD).total;
 }
 long long fused_knn_tf32_stages(long long d_pad) {
   return smem32_layout((int)(d_pad / BK), d_pad <= RESIDENT_MAX_DPAD).stages;
 }
-long long fused_knn_f64_smem_bytes() { return (long long)smem_bytes<double>(); }
+long long fused_knn_f64_smem_bytes(long long d) {
+  const int kc = kc_count64(d);
+  return smem64_layout(kc, kc <= RESIDENT64_MAX_KC).total;
+}
 
 const char* fused_knn_error_string(int code) {
   if (code >= ENCODE_ERROR) return "cuTensorMapEncodeTiled failed (code - 100000 is its CUresult)";

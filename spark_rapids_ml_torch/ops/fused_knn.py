@@ -14,6 +14,9 @@
 #                                its plain version beside it, which CPU
 #                                tensors run; `topk_partials` chains the
 #                                first two.
+#   fused_knn_f64                the float64 main kernel, with its plain
+#                                version `fused_knn_f64_reference`; the merge
+#                                pass takes float64 too.
 #   knn_topk_fused               the wrapper plus the position -> id map.
 #
 # float32 on the card runs three kernels: the split pass (x -> TF32 hi and
@@ -21,8 +24,9 @@
 # the tensor cores, the item sweep split S ways across blocks, selection on
 # the accumulators, one sorted partial list per row and split) and the merge
 # pass (the S lists by (score, position), then the ||q||^2 epilogue).
-# float64 keeps the first design's CUDA-core kernel, so
-# `float32_inputs=False` keeps float64 inside the kernel (the JAX package
+# float64 on the card runs two: the main kernel (products on the FP64
+# tensor cores, the same split sweep and selection) and the merge pass, so
+# `float32_inputs=False` keeps float64 inside the kernels (the JAX package
 # sends float64 to XLA instead, and bounds d at 4096).  Neither has a width
 # bound.
 #
@@ -39,7 +43,8 @@ _SOURCE = "fused_knn.cu"
 # stand-in for +inf inside the twin's running state, as in the TPU kernel
 _BIG = 3.0e38
 _INT32_MAX = 2**31 - 1
-# tile sizes of the float32 kernel (csrc/fused_knn.cu BN, BQ, BK)
+# tile sizes of the float32 kernel (csrc/fused_knn.cu BN, BQ, BK); the
+# float64 kernel's query block and item tile (BQD, BND) are _BQ and _BN too
 _BN = 64
 _BQ = 128
 _BK = 32
@@ -56,8 +61,8 @@ _SPLIT_SCRATCH_BYTES = 256 << 20
 # Launches since the last reset (chip_smoke.py resets them before the main
 # path and reads them after), each counted by the wrapper that launches the
 # kernel: the float32 main kernel (one per fused_topk_sqdist call), the
-# float64 kernel, the split pass and the merge pass.  The plain versions
-# never count.
+# float64 main kernel, the split pass and the merge pass (either type).
+# The plain versions never count.
 LAUNCHES = 0
 LAUNCHES_F64 = 0
 SPLIT_LAUNCHES = 0
@@ -89,16 +94,17 @@ def split_bounds(n: int, splits: int):
     return [(i * tps * _BN, min((i + 1) * tps * _BN, n)) for i in range(s)]
 
 
-def auto_splits(n: int, q: int, k: int, sms: int) -> int:
+def auto_splits(n: int, q: int, k: int, sms: int, dtype=torch.float32) -> int:
     """Splits of the item sweep for a card with `sms` SMs, one block per SM
     at a time: the S of least waves(S) * (1 / S + _BLOCK_COST), the time of
     whole waves of blocks that each sweep 1/S of the items and pay a fixed
     cost besides (ties to the fewer splits).  Each split keeps at least
-    _MIN_SPLIT_TILES tiles and the (q, S, k) scratch stays under
-    _SPLIT_SCRATCH_BYTES."""
+    _MIN_SPLIT_TILES tiles and the (q, S, k) scratch, a score of `dtype`
+    and an int32 position per entry, stays under _SPLIT_SCRATCH_BYTES."""
     qblocks = -(-q // _BQ)
     by_items = max(1, -(-n // _BN) // _MIN_SPLIT_TILES)
-    by_bytes = max(1, _SPLIT_SCRATCH_BYTES // max(1, q * k * 8))
+    entry = 12 if dtype == torch.float64 else 8
+    by_bytes = max(1, _SPLIT_SCRATCH_BYTES // max(1, q * k * entry))
     top = max(1, min(_MAX_SPLITS, by_items, by_bytes))
 
     def cost(s: int) -> float:
@@ -124,6 +130,15 @@ def tf32_split_reference(x: torch.Tensor, d_pad: int) -> torch.Tensor:
 
     hi = rna(xp)
     return torch.stack([hi, rna(xp - hi)])
+
+
+def f64_order_key(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the float64 kernel's shared-bound key (csrc
+    `f64_key`): float64 scores as int64 bit patterns whose UNSIGNED order is
+    the scores' order (-0.0 as +0.0; NaN is not ordered).  key ^ (1 << 63)
+    orders the same as signed int64."""
+    b = torch.where(x == 0, torch.zeros_like(x), x).view(torch.int64)
+    return torch.where(b < 0, ~b, b | torch.iinfo(torch.int64).min)
 
 
 def merge_partials_reference(
@@ -202,6 +217,22 @@ def fused_knn_tf32_reference(xsplit, qsplit, xs, n: int, k: int, splits: int,
     return _split_topk(score_tile, n, qh.shape[0], k, splits, bq, bn, xs.dtype, xs.device)
 
 
+def fused_knn_f64_reference(items, xs, queries, k: int, splits: int,
+                            bq: int = 256, bn: int = 512):
+    """Plain version of the float64 main kernel, on its inputs (items and
+    queries (n, d), (q, d) float64, xs from `padded_item_norms`): IEEE
+    float64 scores xs - 2 q.x, +BIG where the item is invalid, then the
+    (q, S, k) sorted partial lists of `_split_topk`."""
+    n = items.shape[0]
+    inf = torch.isinf(xs[:n])
+
+    def score_tile(q0, q1, n0, n1):
+        qx = queries[q0:q1] @ items[n0:n1].T
+        return torch.where(inf[n0:n1], _BIG, xs[n0:n1] - 2.0 * qx)
+
+    return _split_topk(score_tile, n, queries.shape[0], k, splits, bq, bn, xs.dtype, xs.device)
+
+
 def fused_topk_sqdist_reference(
     items: torch.Tensor,  # (n, d)
     item_valid: torch.Tensor,  # (n,) > 0 for a real item
@@ -247,8 +278,8 @@ def _lib() -> ctypes.CDLL:
         sigs = {
             "tf32_split": [ptr, i64, i64, i64, ptr, ptr],
             "fused_knn_tf32": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
-            "merge_partials": [ptr] * 3 + [i64] * 3 + [ptr] * 3,
-            "fused_knn_f64": [ptr] * 4 + [i64] * 4 + [ptr] * 3,
+            "merge_partials": [ptr] * 3 + [i64] * 4 + [ptr] * 3,
+            "fused_knn_f64": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -256,7 +287,7 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for name, argtypes in (("fused_knn_tf32_smem_bytes", [i64]),
                                ("fused_knn_tf32_stages", [i64]),
-                               ("fused_knn_f64_smem_bytes", [])):
+                               ("fused_knn_f64_smem_bytes", [i64])):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i64
         lib.fused_knn_error_string.argtypes = [ctypes.c_int]
@@ -305,22 +336,26 @@ def tf32_split(x: torch.Tensor, d_pad: int) -> torch.Tensor:
 
 
 def merge_partials(part_d, part_i, q2, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The merge pass: see `merge_partials_reference`, which CPU tensors
-    run; CUDA tensors launch the kernel."""
+    """The merge pass, float32 or float64 (scores and query norms of one
+    type): see `merge_partials_reference`, which CPU tensors run; CUDA
+    tensors launch the kernel."""
     global MERGE_LAUNCHES
+    if part_d.dtype not in (torch.float32, torch.float64) or q2.dtype != part_d.dtype:
+        raise TypeError(f"merge_partials takes float32 or float64 scores and query norms of one "
+                        f"dtype; got {part_d.dtype} and {q2.dtype}")
     if not _on_cuda(part_d):
         return merge_partials_reference(part_d, part_i, q2, k)
     q, s, kk = part_d.shape
-    if (kk != k or part_d.dtype != torch.float32 or part_i.dtype != torch.int32
-            or part_i.shape != part_d.shape or q2.dtype != torch.float32 or q2.shape != (q,)):
-        raise ValueError("merge_partials takes (q, S, k) float32 scores, int32 positions and "
-                         "(q,) float32 query norms")
+    if kk != k or part_i.dtype != torch.int32 or part_i.shape != part_d.shape or q2.shape != (q,):
+        raise ValueError("merge_partials takes (q, S, k) scores, int32 positions and (q,) "
+                         "query norms")
     part_d, part_i, q2 = part_d.contiguous(), part_i.contiguous(), q2.contiguous()
-    out_d = torch.empty((q, k), dtype=torch.float32, device=part_d.device)
+    out_d = torch.empty((q, k), dtype=part_d.dtype, device=part_d.device)
     out_i = torch.empty((q, k), dtype=torch.int32, device=part_d.device)
     if q:
         _run("merge_partials", part_d.device, part_d.data_ptr(), part_i.data_ptr(),
-             q2.data_ptr(), q, s, k, out_d.data_ptr(), out_i.data_ptr())
+             q2.data_ptr(), q, s, k, int(part_d.dtype == torch.float64), out_d.data_ptr(),
+             out_i.data_ptr())
         MERGE_LAUNCHES += 1
     return out_d, out_i
 
@@ -358,6 +393,32 @@ def fused_knn_tf32(xsplit, qsplit, xs, n: int, k: int, splits: int):
     _run("fused_knn_tf32", qsplit.device, xsplit.data_ptr(), qsplit.data_ptr(), xs.data_ptr(),
          n, q, d_pad, k, tps, s, part_d.data_ptr(), part_i.data_ptr(), row_kth.data_ptr())
     LAUNCHES += 1
+    return part_d, part_i
+
+
+def fused_knn_f64(items, queries, xs, k: int, splits: int):
+    """The float64 main kernel on contiguous float64 items (n, d) and
+    queries (q, d), with xs from `padded_item_norms`: the (q, S, k) sorted
+    partial (score, position) lists, S = `split_plan(n, splits)[1]`.  CUDA
+    tensors launch the kernel; CPU tensors run `fused_knn_f64_reference`.
+    On the card a split keeps only entries whose score does not exceed the
+    k-th score other splits of the row have reached, so its list may end
+    early; the lists merged (`merge_partials`) give the same top-k."""
+    global LAUNCHES_F64
+    if not _on_cuda(queries):
+        return fused_knn_f64_reference(items, xs, queries, k, splits)
+    (n, d), q = items.shape, queries.shape[0]
+    if not all(t.is_contiguous() and t.dtype == torch.float64 for t in (items, queries, xs)) \
+            or queries.shape[1] != d or xs.shape != (-(-n // _BN) * _BN,):
+        raise ValueError("fused_knn_f64 takes contiguous float64 items, queries of the same "
+                         "width and item norms from padded_item_norms")
+    tps, s = split_plan(n, splits)
+    part_d = torch.empty((q, s, k), dtype=torch.float64, device=queries.device)
+    part_i = torch.empty((q, s, k), dtype=torch.int32, device=queries.device)
+    row_kth = torch.full((q,), -1, dtype=torch.int64, device=queries.device)  # all ones
+    _run("fused_knn_f64", queries.device, items.data_ptr(), queries.data_ptr(), xs.data_ptr(),
+         n, q, d, k, tps, s, part_d.data_ptr(), part_i.data_ptr(), row_kth.data_ptr())
+    LAUNCHES_F64 += 1
     return part_d, part_i
 
 
@@ -413,30 +474,24 @@ def fused_topk_sqdist(
     POSITIONS (q, k)), best first; invalid items never appear (+inf and
     -1 past the valid count).  CUDA tensors launch the hand-written
     kernels; CPU tensors run `fused_topk_sqdist_reference`.  `splits` cuts
-    the float32 item sweep into that many ranges (default: `auto_splits` on
+    the item sweep into that many ranges (default: `auto_splits` on
     the card, 1 on the CPU); it never changes the result."""
-    global LAUNCHES_F64
     _check(items, item_valid, queries, k, splits)
     if not _on_cuda(queries):
         return fused_topk_sqdist_reference(items, item_valid, queries, k, splits=splits or 1)
-    n, d = items.shape
-    q = queries.shape[0]
+    n, q = items.shape[0], queries.shape[0]
     dev, dt = queries.device, queries.dtype
     if q == 0 or n == 0:
         return (torch.full((q, k), float("inf"), dtype=dt, device=dev),
                 torch.full((q, k), -1, dtype=torch.int32, device=dev))
-    if dt == torch.float64:
-        x2 = item_norms(items, item_valid).contiguous()
-        valid = (item_valid > 0).to(dt).contiguous()
-        out_d = torch.empty((q, k), dtype=dt, device=dev)
-        out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
-        _run("fused_knn_f64", dev, items.data_ptr(), x2.data_ptr(), valid.data_ptr(),
-             queries.data_ptr(), n, d, q, k, out_d.data_ptr(), out_i.data_ptr())
-        LAUNCHES_F64 += 1
-        return out_d, out_i
     if splits is None:
-        splits = auto_splits(n, q, k, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_d, part_i = topk_partials(items, item_valid, queries, k, splits)
+        splits = auto_splits(n, q, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+                             dt)
+    if dt == torch.float64:
+        part_d, part_i = fused_knn_f64(items, queries, padded_item_norms(items, item_valid), k,
+                                       splits)
+    else:
+        part_d, part_i = topk_partials(items, item_valid, queries, k, splits)
     return merge_partials(part_d, part_i, (queries * queries).sum(dim=1), k)
 
 

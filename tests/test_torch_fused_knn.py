@@ -449,3 +449,195 @@ def test_float64_tolerance_rejects_a_float32_body(data):
     d2f, i_f = fk.fused_topk_sqdist_reference(items.float(), valid.float(), queries.float(), 16)
     with pytest.raises(AssertionError, match="1e-10"):
         chip_smoke.compare("float32 body", d2f.double(), i_f, d2t, it, exact=False)
+
+
+def _tie_data(seed, n, d, q):
+    """Integer rows repeated every n/2 positions: exact ties straddle the
+    split boundaries."""
+    rng = np.random.default_rng(seed)
+    X = rng.integers(-3, 4, size=(n, d)).astype(np.float64)
+    X[n // 2 :] = X[: n - n // 2]
+    return X, rng.integers(-3, 4, size=(q, d)).astype(np.float64), np.ones(n)
+
+
+def _f64_path_on_cpu(X, v, Q, k, splits):
+    """The float64 card path run by its plain versions: the main kernel's
+    partial lists, then the merge pass."""
+    Xt, vt, Qt = _t(X), _t(v), _t(Q)
+    xs = fk.padded_item_norms(Xt, vt)
+    before = (fk.LAUNCHES_F64, fk.MERGE_LAUNCHES)
+    part_d, part_i = fk.fused_knn_f64(Xt, Qt, xs, k, splits)
+    out = fk.merge_partials(part_d, part_i, (Qt * Qt).sum(dim=1), k)
+    assert (fk.LAUNCHES_F64, fk.MERGE_LAUNCHES) == before  # the CPU never counts
+    return part_d, part_i, out
+
+
+@pytest.mark.parametrize("splits,d,data,k", [
+    (1, 17, "normal", 12), (3, 17, "normal", 200), (7, 33, "normal", 200),
+    (3, 33, "ties", 40), (7, 17, "ties", 150),
+])
+def test_f64_plain_versions_match_jax_blocked(splits, d, data, k):
+    """fused_knn_f64_reference + merge_partials_reference in float64 against
+    JAX knn_topk_blocked under x64.  896 items in 3 or 7 splits hold 320 or
+    128 items each, so k = 150 and 200 exceed a split's items."""
+    if data == "ties":
+        X, Q, valid = _tie_data(splits + d, 896, d, 50)
+    else:
+        X, Q, valid = _data(splits + d, 896, d, 50, dtype=np.float64)
+    part_d, _, (d2t, it) = _f64_path_on_cpu(X, valid, Q, k, splits)
+    assert part_d.shape == (50, splits, k) and d2t.dtype == torch.float64
+    with jax.enable_x64(True):
+        d2r, ir = jax_blocked(jnp.asarray(X), jnp.asarray(valid),
+                              jnp.asarray(np.arange(896, dtype=np.int32)), jnp.asarray(Q), k=k)
+        d2r, ir = np.asarray(d2r), np.asarray(ir)
+    np.testing.assert_array_equal(it.numpy(), ir)
+    fin = np.isfinite(d2r)
+    assert np.array_equal(fin, np.isfinite(d2t.numpy()))
+    tol = 1e-10 * np.maximum(1.0, np.abs(d2r[fin]))
+    assert (np.abs(d2t.numpy()[fin] - d2r[fin]) <= tol).all()
+
+
+def _apply_shared_bound(part_d, part_i, k, strict):
+    """What the float64 kernel's splits do with the score-only bound: each
+    row's bound is the least k-th SCORE of its full lists; a split drops
+    entries with a score above it (strict) or, wrongly, at or above it."""
+    full = part_i[:, :, k - 1] >= 0
+    kth = torch.where(full, part_d[:, :, k - 1], float("inf"))
+    pub = kth.min(dim=1, keepdim=True).values[:, :, None]
+    drop = (part_d > pub) if strict else (part_d >= pub)
+    own = kth[:, :, None] == pub  # a split keeps its own list whole
+    drop &= ~own
+    d = torch.where(drop, float("inf"), part_d)
+    i = torch.where(drop, -1, part_i)
+    srt, order = torch.sort(d, dim=2, stable=True)
+    return srt, torch.gather(i, 2, order)
+
+
+def test_f64_shared_bound_drops_only_strictly_greater_scores():
+    """A hand-made row, k = 2: split 0 (positions 0, 1) scores 2, 3;
+    split 1 (positions 5, 6) scores 1, 2.  The true top 2 is (1, 5), (2, 0):
+    the tie at score 2 goes to position 0.  Split 1's k-th score, 2, bounds
+    the row; dropping split 0's entries at >= 2 loses position 0."""
+    inf = float("inf")
+    part_d = torch.tensor([[[2.0, 3.0], [1.0, 2.0]]], dtype=torch.float64)
+    part_i = torch.tensor([[[0, 1], [5, 6]]], dtype=torch.int32)
+    q2 = torch.zeros(1, dtype=torch.float64)
+    want = fk.merge_partials_reference(part_d, part_i, q2, 2)
+    assert want[1].tolist() == [[5, 0]]
+    kept = fk.merge_partials_reference(*_apply_shared_bound(part_d, part_i, 2, True), q2, 2)
+    assert torch.equal(kept[0], want[0]) and torch.equal(kept[1], want[1])
+    lost = fk.merge_partials_reference(*_apply_shared_bound(part_d, part_i, 2, False), q2, 2)
+    assert lost[1].tolist() == [[5, 6]] and lost[0].tolist() != [[inf, inf]]
+
+
+@pytest.mark.parametrize("data", ["normal", "ties"])
+def test_f64_shared_bound_keeps_the_merged_top_k(data):
+    """On whole partial lists, dropping every score strictly above the
+    least full k-th score of the row leaves the merged top-k unchanged."""
+    if data == "ties":
+        X, Q, valid = _tie_data(41, 1024, 17, 30)
+    else:
+        X, Q, valid = _data(41, 1024, 17, 30, dtype=np.float64)
+    part_d, part_i, want = _f64_path_on_cpu(X, valid, Q, 16, 4)
+    q2 = (_t(Q) * _t(Q)).sum(dim=1)
+    cut_d, cut_i = _apply_shared_bound(part_d, part_i, 16, True)
+    assert (cut_i < 0).sum() > (part_i < 0).sum()  # the bound does drop entries
+    got = fk.merge_partials_reference(cut_d, cut_i, q2, 16)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_f64_order_key_is_monotone():
+    """The float64 bound's key orders -inf, negatives, -0.0 = +0.0,
+    subnormals, normals and +inf as the scores (unsigned order, checked as
+    signed after flipping the top bit)."""
+    tiny = np.finfo(np.float64).smallest_subnormal
+    vals = torch.tensor([-np.inf, -1e308, -2.5, -1.0, -1e-300, -tiny, -0.0, 0.0, tiny, 2 * tiny,
+                         1e-300, 1.0, 2.5, 1e308, np.inf], dtype=torch.float64)
+    signed = fk.f64_order_key(vals) ^ torch.iinfo(torch.int64).min
+    assert (signed[1:] >= signed[:-1]).all()
+    assert ((signed[1:] > signed[:-1]) == (vals[1:] > vals[:-1])).all()
+    assert signed[6] == signed[7]  # -0.0 and +0.0 share a key
+    assert (fk.f64_order_key(vals) != -1).all()  # none is the "no key yet" pattern
+
+
+def test_auto_splits_float64_block_and_scratch_bound():
+    """float64 blocks queries as float32 does (128 a block) and counts
+    12-byte scratch entries: at 1000 queries and k = 12000 the (q, S, k)
+    scratch is 96 MB a split in float32 (two fit under 256 MB) and 144 MB in
+    float64 (one)."""
+    assert fk._BQ == 128
+    assert fk.auto_splits(1_000_000, 10_000, 32, 132, torch.float64) == 5
+    assert fk.auto_splits(1_000_000, 2_000, 32, 132, torch.float64) == 8
+    assert fk.auto_splits(1_000_000, 1_000, 12_000, 132) == 2
+    assert fk.auto_splits(1_000_000, 1_000, 12_000, 132, torch.float64) == 1
+    tps, s = fk.split_plan(200_000, fk.auto_splits(200_000, 2_000, 32, 132, torch.float64))
+    assert s == 8 and tps * 64 * s >= 200_000
+
+
+def test_merge_wrapper_rejects_mixed_types():
+    part_d = torch.zeros((2, 3, 4), dtype=torch.float64)
+    part_i = torch.full((2, 3, 4), -1, dtype=torch.int32)
+    with pytest.raises(TypeError, match="one"):
+        fk.merge_partials(part_d, part_i, torch.zeros(2, dtype=torch.float32), 4)
+    with pytest.raises(TypeError, match="one"):
+        fk.merge_partials(part_d.float(), part_i, torch.zeros(2, dtype=torch.float64), 4)
+    d2, ids = fk.merge_partials(part_d, part_i, torch.zeros(2, dtype=torch.float64), 4)
+    assert d2.dtype == torch.float64 and (ids == -1).all() and torch.isinf(d2).all()
+
+
+def _phase2_float64_cases():
+    import chip_smoke
+
+    return [c for c in chip_smoke.phase2_cases(0) if c[5] == "float64"]
+
+
+@pytest.mark.parametrize("case", range(len(_phase2_float64_cases())))
+def test_f64_plain_path_passes_chip_smoke_against_jax(case):
+    """The float64 card path's plain versions meet chip_smoke's float64
+    tolerance against the JAX package's XLA kNN under x64 on phase 2's
+    float64 data, the integer cases bit-exact."""
+    import chip_smoke
+
+    name, X, v, Q, k, _, exact, splits = _phase2_float64_cases()[case]
+    _, _, (kd, ki) = _f64_path_on_cpu(X, v, Q, k, splits or 1)
+    with jax.enable_x64(True):
+        jd, ji = jax_blocked(jnp.asarray(X), jnp.asarray(v),
+                             jnp.asarray(np.arange(X.shape[0], dtype=np.int32)), jnp.asarray(Q),
+                             k=k)
+        jd, ji = np.array(jd), np.array(ji)
+    chip_smoke.compare(name, kd, ki, _t(jd), _t(ji), exact)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("splits,k", [(1, 40), (3, 33), (7, 40), (5, 64)])
+def test_merge_slot_rule_matches_plain_version(dtype, splits, k):
+    """The rule the merge kernel uses for k > 32, emulated: an entry's slot
+    is its index in its list plus, in every other list, the entries before
+    its (score, position) key, counting equal keys (the empty slots) only
+    in lower lists.  The S * k entries take distinct slots, and the first
+    k equal `merge_partials_reference` bit for bit on lists that tie and end
+    early."""
+    import bisect
+
+    import compare_kernels
+
+    gen = torch.Generator().manual_seed(splits * k)
+    part_d, part_i, q2 = compare_kernels.partial_lists(6, splits, k, dtype, "cpu", gen)
+    want_d, want_i = fk.merge_partials_reference(part_d, part_i, q2, k)
+    keys = [[[(float(d), int(i) & 0xFFFFFFFF) for d, i in zip(part_d[r, t], part_i[r, t])]
+             for t in range(splits)] for r in range(6)]
+    for r in range(6):
+        slots, got_d, got_i = set(), {}, {}
+        for t in range(splits):
+            for j, key in enumerate(keys[r][t]):
+                slot = j + sum(
+                    (bisect.bisect_right if u < t else bisect.bisect_left)(keys[r][u], key)
+                    for u in range(splits) if u != t)
+                slots.add(slot)
+                if slot < k:
+                    v, vi = part_d[r, t, j], int(part_i[r, t, j])
+                    got_d[slot] = float("inf") if vi < 0 else float(torch.clamp_min(v + q2[r], 0))
+                    got_i[slot] = vi
+        assert slots == set(range(splits * k))
+        assert [got_i[j] for j in range(k)] == want_i[r].tolist()
+        assert [got_d[j] for j in range(k)] == want_d[r].tolist()

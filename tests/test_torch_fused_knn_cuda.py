@@ -233,3 +233,127 @@ def test_nearest_neighbors_on_the_card(cuda_device, dtype, kernel):
     np.testing.assert_array_equal(np.stack(on_card["indices"]), np.stack(on_cpu["indices"]))
     np.testing.assert_allclose(np.stack(on_card["distances"]),
                                np.stack(on_cpu["distances"]), atol=1e-4)
+
+
+@pytest.mark.parametrize("q", [130, 10001])
+@pytest.mark.parametrize("d", [17, 131, 4100])
+@pytest.mark.parametrize("k", [1, 32, 1000])
+def test_float64_kernel_at_ragged_shapes(cuda_device, q, d, k):
+    """q past whole blocks of 128 queries, odd d (a ragged 32-double chunk)
+    and d past the width at which the queries stay in shared memory, k in
+    registers and in the scratch."""
+    rng = np.random.default_rng(q + d + k + 1)
+    valid = np.ones(1500)
+    valid[::11] = 0.0
+    items, queries, v = _on(cuda_device, torch.float64, rng.normal(size=(1500, d)),
+                            rng.normal(size=(q, d)), valid)
+    before = (fk.LAUNCHES_F64, fk.MERGE_LAUNCHES)
+    d2k, ik = fk.fused_topk_sqdist(items, v, queries, k)
+    d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k, bq=2048, bn=1500)
+    torch.cuda.synchronize()
+    assert (fk.LAUNCHES_F64, fk.MERGE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _assert_matches_twin(d2k, ik, d2t, it)
+
+
+@pytest.mark.parametrize("splits", [2, 5, 11])
+def test_float64_kernel_split_sweep_at_small_q(cuda_device, splits):
+    rng = np.random.default_rng(splits + 100)
+    valid = np.ones(2000)
+    valid[::5] = 0.0
+    items, queries, v = _on(cuda_device, torch.float64, rng.normal(size=(2000, 33)),
+                            rng.normal(size=(20, 33)), valid)
+    assert fk.split_plan(2000, splits)[1] == splits
+    for k in (8, 300):
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k, splits=splits)
+        _assert_matches_twin(d2k, ik, d2t, it)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4, 7])
+def test_float64_kernel_ties_across_split_boundaries(cuda_device, splits):
+    """Integer rows repeated at 256-item strides tie exactly across the
+    item splits, and the splits share only k-th SCORES: a tie with the
+    shared bound must be kept, so the lowest position wins slot for slot."""
+    rng = np.random.default_rng(8)
+    X = np.tile(rng.integers(-3, 4, size=(256, 17)), (4, 1))
+    Q = rng.integers(-3, 4, size=(40, 17))
+    items, queries, v = _on(cuda_device, torch.float64, X, Q, np.ones(1024))
+    for k in (1, 32, 700):
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
+        assert torch.equal(ik, it) and torch.equal(d2k, d2t)
+
+
+@pytest.mark.parametrize("splits,k", [(1, 32), (5, 32), (8, 100)])
+def test_float64_main_kernel_matches_its_plain_version(cuda_device, splits, k):
+    """The (q, S, k) partial lists against `fused_knn_f64_reference`, both
+    merged: past the merged top-k a split's list depends on block order."""
+    rng = np.random.default_rng(splits * k)
+    valid = np.ones(3000)
+    valid[::7] = 0.0
+    items, queries, v = _on(cuda_device, torch.float64, rng.normal(size=(3000, 40)),
+                            rng.normal(size=(130, 40)), valid)
+    xs = fk.padded_item_norms(items, v)
+    part_d, part_i = fk.fused_knn_f64(items, queries, xs, k, splits)
+    pd, pi = fk.fused_knn_f64_reference(items, xs, queries, k, splits)
+    assert part_d.shape == pd.shape == (130, splits, k)
+    q2 = (queries * queries).sum(dim=1)
+    _assert_matches_twin(*fk.merge_partials_reference(part_d, part_i, q2, k),
+                         *fk.merge_partials_reference(pd, pi, q2, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("splits,k", [(5, 32), (8, 100), (32, 1000)])
+def test_merge_kernel_is_bit_exact_in_both_types(cuda_device, dtype, splits, k):
+    """The merge pass on the main kernels' partial lists (duplicated rows
+    tie across the lists, and the shared bound cuts lists short) equals its
+    plain version bit for bit; k > 32 takes the kernel with one thread per
+    entry, a row of 32,000 entries at (32, 1000)."""
+    rng = np.random.default_rng(splits + k + 1)
+    n = max(3000, splits * 16 * 64)
+    X = rng.normal(size=(n, 24))
+    X[n // 2 :] = X[: n - n // 2]
+    items, queries, v = _on(cuda_device, dtype, X, rng.normal(size=(40, 24)), np.ones(n))
+    if dtype == torch.float64:
+        part_d, part_i = fk.fused_knn_f64(items, queries, fk.padded_item_norms(items, v), k,
+                                          splits)
+    else:
+        part_d, part_i = fk.topk_partials(items, v, queries, k, splits)
+    assert part_d.shape == (40, splits, k)
+    q2 = (queries * queries).sum(dim=1)
+    before = fk.MERGE_LAUNCHES
+    md, mi = fk.merge_partials(part_d, part_i, q2, k)
+    assert fk.MERGE_LAUNCHES == before + 1
+    rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
+    assert torch.equal(mi, ri) and torch.equal(md, rd)
+
+
+def test_float64_route_has_no_fallback(cuda_device):
+    """A float64 CUDA tensor the kernel does not take raises; nothing gives
+    way to the plain version."""
+    items = torch.zeros((10, 4), dtype=torch.float64, device=cuda_device)
+    xs = fk.padded_item_norms(items, torch.ones(10, dtype=torch.float64, device=cuda_device))
+    with pytest.raises(ValueError):
+        fk.fused_knn_f64(items, items[:, :3].contiguous(), xs, 3, 1)
+    with pytest.raises(TypeError):
+        fk.merge_partials(torch.zeros((2, 1, 3), dtype=torch.float64, device=cuda_device),
+                          torch.zeros((2, 1, 3), dtype=torch.int32, device=cuda_device),
+                          torch.zeros(2, device=cuda_device), 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("q,splits,k", [(40, 5, 32), (7, 3, 33), (40, 8, 100), (40, 32, 1000),
+                                        (3000, 5, 32)])
+def test_merge_kernel_on_lists_that_end_early(cuda_device, dtype, q, splits, k):
+    """Sorted lists with scores that tie within and across lists, a quarter
+    of them cut short (+inf, -1): the empty slots of several lists tie with
+    each other, and the merged row must still fill every slot past its real
+    entries with +inf and -1, bit for bit as the plain version."""
+    import compare_kernels
+
+    gen = torch.Generator(device=cuda_device).manual_seed(q + splits + k)
+    part_d, part_i, q2 = compare_kernels.partial_lists(q, splits, k, dtype, cuda_device, gen)
+    assert (part_i < 0).any()
+    md, mi = fk.merge_partials(part_d, part_i, q2, k)
+    rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
+    assert torch.equal(mi, ri) and torch.equal(md, rd)

@@ -1,6 +1,6 @@
 #
 # The port stands alone: no module of spark_rapids_ml_torch, nor
-# chip_smoke.py, imports JAX or the JAX package; the port runs with both
+# chip_smoke.py or compare_kernels.py, imports JAX or the JAX package; the port runs with both
 # made unimportable; and chip_smoke.py refuses to run without a CUDA device
 # or without the rest of the repo.
 #
@@ -19,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "spark_rapids_ml_tpu")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
 
 
 def _imported_roots(path: Path):
