@@ -4,7 +4,9 @@
 Run from the root of a checkout:
 
     python3 chip_smoke.py [--seed 0] [--items 1000000] [--queries 10000]
-                          [--dim 128] [--k 32]
+                          [--dim 128] [--k 32] [--lr-rows 2000000] [--lr-dim 256]
+                          [--lr-wide-rows 1000000] [--lr-wide-dim 3000]
+                          [--lr-multi-rows 200000]
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -17,7 +19,8 @@ Phases, each of which makes the script exit non-zero when it fails:
 2. kernels vs their plain versions, on the card: the split pass bit for
    bit; each main kernel against its plain version (both sides merged); the
    merge pass bit for bit in float32 and float64 at (S, k) = (5, 32),
-   (8, 100) and (32, 1000); the fused distance + top-k against its plain
+   (8, 100) and (32, 1000), timed beside its plain version and torch.topk
+   of the (q, S * k) view; the fused distance + top-k against its plain
    PyTorch twin at shapes with tails (k > valid items), invalid rows,
    exact ties (duplicated integer rows, also across the item splits),
    widths that are no multiple of the kernel's chunk (d = 17, 33, 131 and
@@ -40,10 +43,30 @@ Phases, each of which makes the script exit non-zero when it fails:
    (float64 items, 1 GB at 1M x 128), timed beside its bound and the
    library call, with the split count swept, and held against a float64
    host recomputation on 256 sampled queries;
-5. persistence: save, load, kneighbors again, identical results.
+5. LogisticRegression through the public entry points (no hand-written
+   kernel: cuBLAS matrix-vector products and torch elementwise ops):
+   (a) bench.py's headline, 2,000,000 x 256 float32 binomial from its
+   `_gen_binary(seed=0)`, maxIter=50, regParam=1e-4, tol=1e-8; (b) the
+   reference benchmark's width, 1,000,000 x 3000 float32, maxIter=200;
+   (c) 200,000 x 256 float64, 5 classes, elasticNetParam=0.5,
+   regParam=1e-3, sample weights.  Each cell: staging into a
+   DeviceDataset, moments and standardize, the oracle per call by part
+   beside its bytes bound and the memory a call adds, fits from the
+   DeviceDataset (cold, least of three warm) and from host arrays
+   (identical coefficients), iterations and oracle calls, a transform;
+   held: the oracle's (f, g) against a float64 host recomputation (a
+   65,536-row slice of (a) within 1e-5, (c) within 1e-12), the objective
+   at the returned coefficients against a float64 host recomputation
+   (1e-5 float32, 1e-10 float64), predictions against host margins, and
+   (c) against the same fit on the CPU (coefficients 1e-6, objective
+   1e-10);
+6. persistence: the kNN model saved, loaded and asked again (identical
+   results), and the LogisticRegression model of (a) likewise (identical
+   transform outputs).
 
-The last lines of standard output are a JSON object of the kernels'
-numbers, the card's name and power limit, and
+The last lines of standard output are a JSON object of the logistic
+cells' numbers, a JSON object of the kernels' numbers, the card's name
+and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
 """
@@ -294,8 +317,10 @@ def hold_main_kernel(name, X, v, Q, k, splits, part_d, part_i, bq=256, bn=512) -
 
 def merge_bit_exact(device, rng, dtype, splits: int, k: int) -> None:
     """The merge pass on a main kernel's partial lists, with rows that tie
-    across the lists, against its plain version bit for bit; and its time
-    at this shape (40 rows)."""
+    across the lists, against its plain version bit for bit; and at this
+    shape (40 rows) its time, its plain version's and that of torch.topk of
+    the (q, S * k) view (the same selection without the tie order and the
+    epilogue)."""
     import torch
 
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -315,9 +340,14 @@ def merge_bit_exact(device, rng, dtype, splits: int, k: int) -> None:
     same = torch.equal(kd, td) and torch.equal(ki, ti)
     call_ms = cuda_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=10)
     device_ms = graph_ms(lambda: fk.merge_partials(part_d, part_i, q2, k), reps=10)
+    plain_ms = cuda_ms(lambda: fk.merge_partials_reference(part_d, part_i, q2, k), reps=3)
+    flat = part_d.view(part_d.shape[0], -1)
+    library_ms = cuda_ms(lambda: torch.topk(flat, k, dim=1, largest=False), reps=10)
+    library_device_ms = graph_ms(lambda: torch.topk(flat, k, dim=1, largest=False), reps=10)
     log(f"  merge pass {str(dtype)[6:]} (S, k) = ({part_d.shape[1]}, {k}), {Q.shape[0]} rows: "
         f"bit-exact against its plain version: {same}; {call_ms:.4f} ms a call, "
-        f"{device_ms:.4f} ms on the card (CUDA graph)")
+        f"{device_ms:.4f} ms on the card (CUDA graph); plain {plain_ms:.4f} ms; torch.topk of "
+        f"the (q, S*k) view {library_ms:.4f} a call, {library_device_ms:.4f} in a graph")
     if not same:
         raise AssertionError(f"merge_partials differs from merge_partials_reference, {dtype}")
 
@@ -689,7 +719,352 @@ def phase_float64_path(device, args) -> list:
     return kernels
 
 
-def phase_persistence(main: dict) -> None:
+# ---- LogisticRegression ------------------------------------------------------
+
+
+def gen_binary(n_rows: int, n_cols: int, seed: int = 0):
+    """bench.py's `_gen_binary`: standard normal float32 features, labels
+    from a random linear model plus noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n_rows, n_cols), dtype=np.float32)
+    true_w = rng.standard_normal((n_cols,)).astype(np.float32)
+    logits = X @ true_w + 0.25 * rng.standard_normal(n_rows).astype(np.float32)
+    return X, (logits > 0).astype(np.float32)
+
+
+def gen_multiclass(n_rows: int, n_cols: int, classes: int, seed: int):
+    """float64 features, labels the argmax of `classes` noisy linear
+    scores, sample weights in [0.2, 2)."""
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n_rows, n_cols))
+    W = rng.standard_normal((classes, n_cols)) * (3.0 / np.sqrt(n_cols))
+    y = np.argmax(X @ W.T + rng.gumbel(size=(n_rows, classes)), axis=1).astype(np.float64)
+    return X, y, rng.uniform(0.2, 2.0, n_rows)
+
+
+def _host_rows(X, chunk: int = 1 << 16):
+    for lo in range(0, X.shape[0], chunk):
+        yield slice(lo, min(lo + chunk, X.shape[0]))
+
+
+def host_moments(X, w):
+    """Weighted mean and ddof-1 std of X's columns in float64 on the host,
+    two passes over row chunks (std 0 -> 1, as the estimator does)."""
+    wsum = w.sum()
+    mean = sum(w[r] @ X[r].astype(np.float64) for r in _host_rows(X)) / wsum
+    var = sum(w[r] @ (X[r].astype(np.float64) - mean) ** 2 for r in _host_rows(X))
+    std = np.sqrt(var / max(wsum - 1.0, 1.0))
+    return mean, np.where(std == 0.0, 1.0, std)
+
+
+def host_objective(X, y, w, coef, intercept, l2: float, l1: float, std=None,
+                   with_grad: bool = False):
+    """The Spark logistic objective (data loss + penalty) in float64 on the
+    host, over row chunks: binomial when coef has one row.  `std` given,
+    the penalty is on coef * std (the standardized coefficients).  With
+    `with_grad`, also the gradient in the oracle's theta layout."""
+    coef = np.asarray(coef, np.float64)
+    intercept = np.asarray(intercept, np.float64)
+    binomial = coef.shape[0] == 1
+    wsum, loss = w.sum(), 0.0
+    g_coef, g_b = np.zeros_like(coef), np.zeros(coef.shape[0])
+    for r in _host_rows(X):
+        x = X[r].astype(np.float64)
+        m = x @ coef.T + intercept
+        wr = w[r] / wsum
+        if binomial:
+            s = 2.0 * y[r] - 1.0
+            z = -s * m[:, 0]
+            loss += (np.logaddexp(0.0, z) * wr).sum()
+            res = (-s / (1.0 + np.exp(-z)) * wr)[:, None]
+        else:
+            lse = np.logaddexp.reduce(m, axis=1)
+            lab = y[r].astype(np.int64)
+            loss += ((lse - m[np.arange(len(lab)), lab]) * wr).sum()
+            res = np.exp(m - lse[:, None])
+            res[np.arange(len(lab)), lab] -= 1.0
+            res *= wr[:, None]
+        if with_grad:
+            g_coef += res.T @ x
+            g_b += res.sum(0)
+    pen = coef * (std if std is not None else 1.0)
+    f = loss + 0.5 * l2 * (pen * pen).sum() + l1 * np.abs(pen).sum()
+    if not with_grad:
+        return f
+    return f, np.concatenate([(g_coef + l2 * coef).ravel(), g_b])
+
+
+def check_oracle(name, X, y, w, classes: int, l2: float, rtol: float, device, seed: int) -> float:
+    """The oracle's (f, g) on the card at theta = 0 and at a seeded random
+    theta against a float64 recomputation on the host; the largest relative
+    error (f relative to |f|, g to max |g|)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import logistic as lo
+
+    binomial = classes == 2
+    dt = torch.float64 if X.dtype == np.float64 else torch.float32
+    oracle = lo.LogisticOracle(torch.as_tensor(X, dtype=dt, device=device),
+                               torch.as_tensor(w, dtype=dt, device=device),
+                               torch.as_tensor(y.astype(np.int32), device=device),
+                               classes, l2, True, binomial)
+    C, d = oracle.C, X.shape[1]
+    worst = 0.0
+    for theta in (np.zeros(oracle.n_param),
+                  np.random.default_rng(seed).normal(size=oracle.n_param) / np.sqrt(d)):
+        f, g = oracle(theta)
+        hf, hg = host_objective(X, y, w, theta[: C * d].reshape(C, d), theta[C * d:], l2, 0.0,
+                                with_grad=True)
+        err = max(abs(f - hf) / abs(hf), float(np.abs(g - hg).max() / np.abs(hg).max()))
+        worst = max(worst, err)
+    log(f"  {name}: oracle (f, g) on the card vs a float64 host recomputation at theta = 0 "
+        f"and a random theta: max relative error {worst:.3e} (limit {rtol:g})")
+    if worst > rtol:
+        raise AssertionError(f"{name}: the oracle differs from the host beyond {rtol:g}")
+    return worst
+
+
+def oracle_parts(X, w, y, classes: int, l2: float, device) -> dict:
+    """ms per oracle call on the card by part (CUDA events): the margin
+    matmul, the elementwise loss and residual, the gradient matmul, the
+    whole evaluation on the device, and a call from the solver (theta up,
+    (f, g) down); and the memory one call adds beside X."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import logistic as lo
+
+    oracle = lo.LogisticOracle(X, w, y, classes, l2, True, classes == 2)
+    theta_h = np.random.default_rng(7).normal(size=oracle.n_param) / np.sqrt(X.shape[1])
+    theta = torch.as_tensor(theta_h, dtype=X.dtype, device=device)
+    m = oracle.margins(theta)
+    _, r = oracle.loss_and_residual(m)
+    out = {
+        "margin_ms": cuda_ms(lambda: oracle.margins(theta), reps=10),
+        "elementwise_ms": cuda_ms(lambda: oracle.loss_and_residual(m), reps=10),
+        "gradient_ms": cuda_ms(lambda: oracle.gradient(r), reps=10),
+        "device_ms": cuda_ms(lambda: oracle.value_and_grad(theta), reps=10),
+    }
+    oracle(theta_h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        oracle(theta_h)
+    out["call_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+    del m, r
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    oracle(theta_h)
+    out["call_extra_bytes"] = torch.cuda.max_memory_allocated(device) - base
+    n, d = X.shape
+    if out["call_extra_bytes"] > max(16 * n * oracle.C * X.element_size(), 1 << 20):
+        raise AssertionError(f"one oracle call allocated {out['call_extra_bytes']} bytes: more "
+                             f"than N and N x C vectors (N = {n}, C = {oracle.C})")
+    out["bound_ms"] = 2.0 * n * d * X.element_size() / _PEAK_BYTES_PER_S * 1e3
+    return out
+
+
+def device_busy_share(fn) -> tuple:
+    """(wall ms of one `fn()` call, the share of it the card spent in
+    kernels) from a torch.profiler trace of the call; the share is None
+    when the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the kernels' own entries: a CPU op's entry counts its kernels' time too
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return wall_ms, (busy_us / 1e3 / wall_ms if busy_us > 0 else None)
+
+
+def phase_logistic_cell(device, name: str, X, y, w, classes: int, fit_kw: dict,
+                        transform_rows: int, seed: int, weight_col: bool) -> dict:
+    """One LogisticRegression cell through the public entry points: fits
+    from a DeviceDataset (cold, then the least of three warm) and from host
+    arrays, the layers timed apart, the oracle and the objective held
+    against float64 host recomputations, and a transform."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.ops import logistic as lo
+    from spark_rapids_ml_torch.ops import stats
+
+    n, d = X.shape
+    f32 = X.dtype == np.float32
+    dtype = np.float32 if f32 else np.float64
+    reg, en = fit_kw.get("regParam", 0.0), fit_kw.get("elasticNetParam", 0.0)
+    l2, l1 = reg * (1.0 - en), reg * en
+    rec = {"cell": name, "rows": n, "cols": d, "classes": classes, "dtype": np.dtype(dtype).name}
+
+    # staging: host rows -> a DeviceDataset
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = DeviceDataset.from_host(X, y=y, weight=w if weight_col else None, dtype=dtype,
+                                 label_dtype=np.int32)
+    torch.cuda.synchronize()
+    rec["staging_s"] = time.perf_counter() - t0
+    rec["staging_GBps"] = X.nbytes / rec["staging_s"] / 1e9
+    mean, std, _ = stats.weighted_moments(ds.X, ds.weight)
+    rec["moments_ms"] = cuda_ms(lambda: stats.weighted_moments(ds.X, ds.weight), reps=3)
+    rec["standardize_ms"] = cuda_ms(lambda: stats.standardize(ds.X, ds.weight, mean, std),
+                                    reps=2)
+    Xs = stats.standardize(ds.X, ds.weight, mean, std)
+    rec["oracle"] = oracle_parts(Xs, ds.weight, ds.y, classes, l2, device)
+    del Xs
+    o = rec["oracle"]
+    log(f"  {name}: staging {rec['staging_s']:.3f} s ({rec['staging_GBps']:.2f} GB/s); moments "
+        f"{rec['moments_ms']:.3f} ms; standardize {rec['standardize_ms']:.3f} ms")
+    log(f"  {name}: oracle per call on the card: margin matmul {o['margin_ms']:.3f} ms, "
+        f"elementwise {o['elementwise_ms']:.3f} ms, gradient matmul {o['gradient_ms']:.3f} ms, "
+        f"whole evaluation {o['device_ms']:.3f} ms (bytes bound, X read twice: "
+        f"{o['bound_ms']:.3f} ms, share {o['bound_ms'] / o['device_ms']:.1%}); a call from the "
+        f"solver {o['call_ms']:.3f} ms; memory a call adds {o['call_extra_bytes'] / 1e6:.1f} MB")
+
+    def fit(data):
+        est = LogisticRegression(**fit_kw)
+        if weight_col and not isinstance(data, DeviceDataset):
+            est.setWeightCol("wt")
+        lo.ORACLE_CALLS = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(data)
+        return time.perf_counter() - t0, model, lo.ORACLE_CALLS
+
+    torch.cuda.reset_peak_memory_stats(device)
+    rec["fit_cold_s"], model, calls = fit(ds)
+    warm = [fit(ds) for _ in range(3)]
+    rec["fit_warm_s"] = min(t for t, _, _ in warm)
+    rec["rows_per_s"] = n / rec["fit_warm_s"]
+    rec["iterations"], rec["oracle_calls"] = model.summary.totalIterations, calls
+    if any(c != calls or m.summary.totalIterations != rec["iterations"] for _, m, c in warm):
+        raise AssertionError(f"{name}: warm fits took another path than the cold one")
+    host_data = {"features": X, "label": y, "wt": w} if weight_col else (X, y)
+    rec["fit_numpy_s"], model_np, _ = fit(host_data)
+    if not (np.array_equal(model_np.coef_, model.coef_)
+            and np.array_equal(model_np.intercept_, model.intercept_)):
+        raise AssertionError(f"{name}: the fit from host arrays differs from the DeviceDataset fit")
+    rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
+    try:
+        wall_ms, rec["device_busy_share"] = device_busy_share(lambda: fit(ds))
+        log(f"  {name}: one warm fit under torch.profiler: {wall_ms:.3f} ms, the card busy in "
+            f"kernels for {rec['device_busy_share'] or float('nan'):.1%} of it")
+    except Exception as e:  # a failed trace costs the busy share, not the run
+        rec["device_busy_share"] = None
+        log(f"  {name}: torch.profiler failed, device busy share not measured: {e!r}")
+    prologue = (rec["moments_ms"] + rec["standardize_ms"]) / 1e3
+    rec["host_ms_per_iter"] = ((rec["fit_warm_s"] - prologue - calls * o["device_ms"] / 1e3)
+                               / max(rec["iterations"], 1) * 1e3)
+    log(f"  {name}: fit from a DeviceDataset cold {rec['fit_cold_s']:.3f} s, warm "
+        f"{rec['fit_warm_s']:.3f} s ({rec['rows_per_s']:,.0f} rows/s); from host arrays "
+        f"{rec['fit_numpy_s']:.3f} s; {rec['iterations']} iterations, {calls} oracle calls; "
+        f"the rest of a warm fit per iteration (solver, D2H of f and g, launches): "
+        f"{rec['host_ms_per_iter']:.3f} ms; max_memory_allocated "
+        f"{rec['max_memory_allocated_GB']:.2f} GB")
+
+    # the objective at the returned coefficients, recomputed on the host
+    h_mean, h_std = host_moments(X, w if weight_col else np.ones(n))
+    obj = host_objective(X, y, w if weight_col else np.ones(n), model.coef_, model.intercept_,
+                         l2, l1, std=h_std)
+    obj = float(obj)
+    rec["objective"], rec["objective_host"] = model.objective, obj
+    rel = abs(model.objective - obj) / abs(obj)
+    limit = 1e-5 if f32 else 1e-10
+    log(f"  {name}: model.objective {model.objective!r}, float64 host recomputation {obj!r}, "
+        f"relative error {rel:.3e} (limit {limit:g})")
+    if not np.isfinite(model.coef_).all() or model.coef_.shape != (1 if classes == 2 else classes,
+                                                                     d) or rel > limit:
+        raise AssertionError(f"{name}: the model's objective differs from the host's")
+
+    # transform
+    rows = min(transform_rows, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(X[:rows])
+    t_tr = time.perf_counter() - t0
+    rec["transform_rows"], rec["transform_rows_per_s"] = rows, rows / t_tr
+    probs = out["probability"]
+    coef64, b64 = model.coef_.astype(np.float64), model.intercept_.astype(np.float64)
+    host_pred = np.concatenate([
+        (lambda m: m[:, 0] > 0 if classes == 2 else np.argmax(m, axis=1))(
+            X[r].astype(np.float64) @ coef64.T + b64) for r in _host_rows(X[:rows])])
+    agree = float((out["prediction"] == host_pred).mean())
+    log(f"  {name}: transform {rows} rows {t_tr:.3f} s ({rec['transform_rows_per_s']:,.0f} "
+        f"rows/s); predictions equal to the host's on {agree:.6f} of rows")
+    if (probs.shape != (rows, classes) or not np.isfinite(probs).all()
+            or np.abs(probs.sum(1) - 1.0).max() > 1e-4 or agree < 0.999):
+        raise AssertionError(f"{name}: transform outputs are wrong")
+    rec["model"] = model
+    return rec
+
+
+def phase_logistic(device, args) -> dict:
+    """(a) bench.py's headline, (b) the reference benchmark's width, (c)
+    softmax + OWL-QN + weights in float64, also fitted on the CPU."""
+    from spark_rapids_ml_torch import set_default_device
+    from spark_rapids_ml_torch.classification import LogisticRegression
+
+    cells = []
+    bench_kw = dict(regParam=1e-4, elasticNetParam=0.0, tol=1e-8)
+    t0 = time.perf_counter()
+    X, y = gen_binary(args.lr_rows, args.lr_dim, seed=0)
+    log(f"  (a) data {X.shape} float32 from bench.py's _gen_binary(seed=0): "
+        f"{time.perf_counter() - t0:.2f} s")
+    sl = np.random.default_rng(args.seed + 11).choice(len(y), size=min(65536, len(y)),
+                                                     replace=False)
+    check_oracle("(a) 65,536-row slice", X[sl], y[sl], np.ones(len(sl), np.float32), 2, 1e-4,
+                 1e-5, device, args.seed)
+    cells.append(phase_logistic_cell(device, f"(a) {args.lr_rows}x{args.lr_dim} float32 binomial",
+                                     X, y, None, 2, dict(bench_kw, maxIter=50), 1_000_000,
+                                     args.seed, weight_col=False))
+    model_a, X_a = cells[-1]["model"], X
+    del X, y
+
+    t0 = time.perf_counter()
+    X, y = gen_binary(args.lr_wide_rows, args.lr_wide_dim, seed=0)
+    log(f"  (b) data {X.shape} float32 from _gen_binary(seed=0): {time.perf_counter() - t0:.2f} s")
+    cells.append(phase_logistic_cell(
+        device, f"(b) {args.lr_wide_rows}x{args.lr_wide_dim} float32 binomial", X, y, None, 2,
+        dict(bench_kw, maxIter=200), 1_000_000, args.seed, weight_col=False))
+    del X, y, cells[-1]["model"]
+
+    n = args.lr_multi_rows
+    X, y, w = gen_multiclass(n, 256, 5, seed=args.seed + 21)
+    c_kw = dict(regParam=1e-3, elasticNetParam=0.5, float32_inputs=False)
+    check_oracle("(c) float64", X, y, w, 5, 1e-3 * 0.5, 1e-12, device, args.seed + 1)
+    rec = phase_logistic_cell(device, f"(c) {n}x256 float64 5 classes, elastic net, weights",
+                              X, y, w, 5, c_kw, n, args.seed, weight_col=True)
+    set_default_device("cpu")
+    t0 = time.perf_counter()
+    cpu = LogisticRegression(**c_kw).setWeightCol("wt").fit({"features": X, "label": y, "wt": w})
+    t_cpu = time.perf_counter() - t0
+    set_default_device(device)
+    g = rec["model"]
+    coef_rel = float(np.linalg.norm(g.coef_ - cpu.coef_) / np.linalg.norm(cpu.coef_))
+    obj_rel = abs(g.objective - cpu.objective) / abs(cpu.objective)
+    rec.update(cpu_fit_s=t_cpu, cpu_coef_rel=coef_rel, cpu_objective_rel=obj_rel)
+    log(f"  (c) against the same fit on the CPU ({t_cpu:.2f} s, {cpu.summary.totalIterations} "
+        f"iterations; card {g.summary.totalIterations}): coefficients {coef_rel:.3e} relative "
+        f"(limit 1e-6), objective {obj_rel:.3e} (limit 1e-10); {int((g.coef_ == 0).sum())} of "
+        f"{g.coef_.size} coefficients zero")
+    if coef_rel > 1e-6 or obj_rel > 1e-10:
+        raise AssertionError("(c): the fit on the card differs from the fit on the CPU")
+    del rec["model"]
+    cells.append(rec)
+    for c in cells:
+        c.pop("model", None)
+    return {"cells": cells, "model": model_a, "X": X_a}
+
+
+def phase_persistence(main: dict, logistic: dict) -> None:
+    from spark_rapids_ml_torch.classification import LogisticRegressionModel
     from spark_rapids_ml_torch.knn import NearestNeighborsModel
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -706,6 +1081,17 @@ def phase_persistence(main: dict) -> None:
     log(f"  save + load {t_io:.2f} s; kneighbors after load identical: {same}")
     if not same:
         raise AssertionError("the loaded model answers differently")
+    X = logistic["X"][:100_000]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lr_model")
+        logistic["model"].save(path)
+        loaded = LogisticRegressionModel.load(path)
+    a, b = logistic["model"].transform(X), loaded.transform(X)
+    same = all(np.array_equal(a[c], b[c]) for c in a)
+    log(f"  LogisticRegressionModel save + load; transform of {len(X)} rows after load "
+        f"identical: {same}")
+    if not same:
+        raise AssertionError("the loaded LogisticRegressionModel answers differently")
 
 
 def phase_build(args) -> None:
@@ -742,6 +1128,11 @@ def main() -> int:
     ap.add_argument("--queries", type=int, default=10_000)
     ap.add_argument("--dim", type=int, default=128)
     ap.add_argument("--k", type=int, default=32)
+    ap.add_argument("--lr-rows", type=int, default=2_000_000)
+    ap.add_argument("--lr-dim", type=int, default=256)
+    ap.add_argument("--lr-wide-rows", type=int, default=1_000_000)
+    ap.add_argument("--lr-wide-dim", type=int, default=3000)
+    ap.add_argument("--lr-multi-rows", type=int, default=200_000)
     args = ap.parse_args()
 
     import torch
@@ -782,10 +1173,15 @@ def main() -> int:
     log("phase 4: float64 path, a fifth of the items and queries; then the main shape")
     f64 = phase_float64_path(device, args)
 
-    log("phase 5: persistence")
-    phase_persistence(main_out)
+    log("phase 5: LogisticRegression: (a) bench.py's headline, (b) the reference benchmark's "
+        "width, (c) softmax + OWL-QN + weights in float64")
+    logistic = phase_logistic(device, args)
+
+    log("phase 6: persistence")
+    phase_persistence(main_out, logistic)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

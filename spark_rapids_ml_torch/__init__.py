@@ -5,7 +5,9 @@
 # PyTorch, and the JAX package's one Pallas kernel is a CUDA C++ kernel
 # written for sm_90a (ops/fused_knn.py, ops/csrc/fused_knn.cu).
 #
-# Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`).
+# Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`) and
+# LogisticRegression (`spark_rapids_ml_torch.classification`), with the
+# generic staged fit, the chunked transform and `DeviceDataset`.
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
 # `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without
@@ -16,7 +18,9 @@ import sys as _sys
 __version__ = "0.1.0"
 
 from . import config  # noqa: F401
-from .models import knn  # noqa: F401
+from .data import DeviceDataset  # noqa: F401
+from .models import classification, knn  # noqa: F401
 from .parallel import get_default_device, set_default_device  # noqa: F401
 
 _sys.modules[__name__ + ".knn"] = knn
+_sys.modules[__name__ + ".classification"] = classification

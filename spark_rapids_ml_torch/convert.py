@@ -12,6 +12,7 @@ import numpy as np
 
 from .core import _ReadWriteMixin
 from .data import _is_sparse
+from .models.classification import LogisticRegressionModel
 from .models.knn import NearestNeighborsModel
 
 
@@ -45,4 +46,28 @@ def nn_model_to_reference_attributes(model: NearestNeighborsModel) -> Dict[str, 
         "item_ids": np.array(model.item_ids),
         "n_cols": int(model.n_cols),
         "dtype": str(model.dtype),
+    }
+
+
+def logreg_model_from_reference(attrs: Dict[str, Any],
+                                params: Dict[str, Any]) -> LogisticRegressionModel:
+    """A port `LogisticRegressionModel` from the JAX model's attributes
+    (`_get_model_attributes()`) and param maps (`model_params`)."""
+    model = LogisticRegressionModel(**dict(attrs))
+    _ReadWriteMixin._restore_params(model, params)
+    return model
+
+
+def logreg_model_to_reference_attributes(model: LogisticRegressionModel) -> Dict[str, Any]:
+    """The attributes the JAX `LogisticRegressionModel(**attrs)` takes, as
+    numpy arrays and plain scalars and lists."""
+    return {
+        "coef_": np.array(model.coef_),
+        "intercept_": np.array(model.intercept_),
+        "classes_": list(model.classes_),
+        "n_cols": int(model.n_cols),
+        "dtype": str(model.dtype),
+        "num_iters": int(model.num_iters),
+        "objective": float(model.objective),
+        "objective_history": list(model.objective_history),
     }

@@ -1,6 +1,5 @@
 #
-# Core runtime: the port of the parts of spark_rapids_ml_tpu/core.py the
-# exact-kNN slice needs.
+# Core runtime: the port of spark_rapids_ml_tpu/core.py.
 #
 #   Estimator / Transformer / Model   pyspark.ml-style bases
 #   _Writer / _ReadWriteMixin         persistence, in the JAX package's
@@ -13,22 +12,52 @@
 #                                     in the other
 #   _TpuCaller / _TpuEstimator / _TpuModel   the estimator and model bases
 #
-# Telemetry, resilience and the generic staged fit are later slices:
-# `fit_report()` returns None until then.
+# The generic staged fit (`_TpuEstimator._fit`): extract host arrays ->
+# validate -> stage them on the device (`_stage_fit_input`), or take a
+# DeviceDataset's tensors as they are (`_stage_from_device`) -> the
+# estimator's `_fit_array` -> model.  The generic transform
+# (`_TpuModel._transform`): extract -> `_transform_mesh`, which runs the
+# model's `_transform_device` over row chunks sized by `host_batch_bytes`,
+# the next chunk's host-to-device copy on a side stream while the current
+# one computes.
+#
+# Left for later slices: Spark DataFrames, parquet streaming, the fused
+# stage-and-solve, the baseline fold, fitMultiple, the CPU fallback, the
+# sparse (ELL) staging, and the resilience (retry, OOM halving) and
+# telemetry seams.  `fit_report()` returns None until then.
 #
 from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 from abc import abstractmethod
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .data import DatasetLike, _is_sparse
+from .data import DatasetLike, DeviceDataset, _ensure_dense, _is_sparse, extract_arrays
 from .params import Param, Params, _TpuParams
-from .utils import get_logger
+from .utils import PartitionDescriptor, _ArrayBatch, get_logger
+
+
+@dataclass
+class FitInput:
+    """Everything an estimator's `_fit_array` needs for one fit: the staged
+    tensors and the resolved backend params.  The JAX package's `mesh` field
+    is `device` here: one device holds every row."""
+
+    device: Any  # torch.device
+    X: Any  # torch.Tensor (n, d)
+    w: Any  # torch.Tensor (n,) validity * sample weight
+    y: Optional[Any]  # torch.Tensor (n,) or None
+    pdesc: PartitionDescriptor
+    dtype: np.dtype
+    n_valid: int
+    params: Dict[str, Any]  # resolved backend params (_tpu_params)
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
 def _resolve_feature_params(inst: Params) -> Tuple[Optional[str], Sequence[str]]:
@@ -220,16 +249,146 @@ class _TpuCaller(_TpuParams, _ReadWriteMixin):
             return np.dtype(np.float64)
         return np.dtype(np.float32)
 
+    def _validate_device_input(self, ds: DeviceDataset) -> None:
+        """Device-side counterpart of `_validate_input` for a DeviceDataset
+        (runs before any label dtype cast)."""
+
+    def _fit_label_dtype(self) -> Optional[np.dtype]:
+        return np.dtype(np.float32)
+
+    def _stage_fit_input(self, batch: _ArrayBatch) -> FitInput:
+        """Stage a host batch on the device: features in the fit's dtype
+        (CSR densified chunk by chunk: the JAX package's ELL staging for
+        sparse kernels is a later item), validity * sample weights, labels
+        in `_fit_label_dtype`."""
+        from .parallel import DeviceContext
+        from .parallel.mesh import RowStager
+
+        with DeviceContext(self.num_workers) as ctx:
+            device = ctx.device
+        X = batch.X
+        dtype = self._out_dtype(X)
+        st = RowStager(X.shape[0], device)
+        Xs = st.stage_sparse(X, dtype) if _is_sparse(X) else st.stage(X, dtype)
+        w = st.mask(dtype, weights=batch.weight)
+        y = None
+        if batch.y is not None:
+            ldt = self._fit_label_dtype() or dtype
+            y = st.stage(np.asarray(batch.y).reshape(-1).astype(ldt), ldt)
+        return FitInput(
+            device=device,
+            X=Xs,
+            w=w,
+            y=y,
+            pdesc=PartitionDescriptor.build([st.n_valid], int(X.shape[1])),
+            dtype=dtype,
+            n_valid=st.n_valid,
+            params=dict(self._tpu_params),
+        )
+
+    def _stage_from_device(self, ds: DeviceDataset) -> FitInput:
+        """A DeviceDataset's tensors as they are; only the label dtype cast
+        runs, on the device."""
+        supervised = getattr(self, "_is_supervised", lambda: False)()
+        if supervised and ds.y is None:
+            raise ValueError("Supervised fit requires a DeviceDataset with labels")
+        self._validate_device_input(ds)
+        y = ds.y
+        ldt = self._fit_label_dtype() if supervised else None
+        from .parallel.mesh import _numpy_dtype, _torch_dtype
+
+        if y is not None and ldt is not None:
+            y = y.to(_torch_dtype(ldt))
+        return FitInput(
+            device=ds.device,
+            X=ds.X,
+            w=ds.weight,
+            y=y,
+            pdesc=PartitionDescriptor.build([ds.n_valid], int(ds.X.shape[1])),
+            dtype=_numpy_dtype(ds.X.dtype),
+            n_valid=ds.n_valid,
+            params=dict(self._tpu_params),
+        )
+
 
 class _TpuEstimator(Estimator, _TpuCaller):
-    """Estimator base.  The kNN estimator implements `_fit` itself (it
-    stages nothing at fit time); the generic staged fit comes with the
-    first estimator that trains."""
+    """Estimator base: the generic staged fit.  The kNN estimator
+    implements `_fit` itself (it stages nothing at fit time)."""
 
     def __init__(self) -> None:
         super().__init__()
         self._init_tpu_params()
         self.logger = get_logger(type(self))
+
+    # -- subclass contract ---------------------------------------------------
+
+    def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
+        """Run the fit on the staged tensors; return the model's host
+        attributes."""
+        raise NotImplementedError(f"{type(self).__name__} implements no _fit_array")
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "_TpuModel":
+        raise NotImplementedError(f"{type(self).__name__} implements no _create_model")
+
+    def _is_supervised(self) -> bool:
+        return False
+
+    def _validate_input(self, batch: _ArrayBatch) -> None:
+        """Validate the raw host batch before dtype casting and staging."""
+
+    # -- fit orchestration ---------------------------------------------------
+
+    def _run_fit_kernel(self, fit_input: FitInput) -> Dict[str, Any]:
+        """The seam where the JAX package's resilience layer (watchdog,
+        retry, elastic restage) wraps the fit; a plain call until that
+        layer is ported, so every error reaches the caller."""
+        return self._fit_array(fit_input)
+
+    def _extract(self, dataset: DatasetLike) -> _ArrayBatch:
+        features_col, features_cols = _resolve_feature_params(self)
+        label_col = (
+            self.getOrDefault("labelCol")
+            if self._is_supervised() and self.hasParam("labelCol")
+            else None
+        )
+        weight_col = (
+            self.getOrDefault("weightCol")
+            if self.hasParam("weightCol") and self.isSet("weightCol")
+            else None
+        )
+        return extract_arrays(
+            dataset,
+            features_col=features_col,
+            features_cols=features_cols,
+            label_col=label_col,
+            weight_col=weight_col,
+            dtype=None,  # keep the input's precision; _out_dtype decides
+            supervised=self._is_supervised(),
+        )
+
+    def _fit(self, dataset: DatasetLike) -> "_TpuModel":
+        t0 = time.time()
+        if isinstance(dataset, DeviceDataset):
+            fit_input = self._stage_from_device(dataset)
+        else:
+            batch = self._extract(dataset)
+            self._validate_input(batch)
+            fit_input = self._stage_fit_input(batch)
+            del batch
+        attrs = self._run_fit_kernel(fit_input)
+        model = self._create_model(attrs)
+        self._copyValues(model)
+        model._num_workers = self._num_workers
+        model._float32_inputs = self._float32_inputs
+        self.logger.info(f"Finished fit in {time.time() - t0:.3f}s")
+        return model
+
+
+class _TpuEstimatorSupervised(_TpuEstimator):
+    """Supervised variant: labels are required."""
+
+    def _is_supervised(self) -> bool:
+        return True
 
 
 class _TpuModel(Model, _TpuCaller):
@@ -245,3 +404,154 @@ class _TpuModel(Model, _TpuCaller):
     @classmethod
     def _from_attributes(cls, attrs: Dict[str, Any]) -> "_TpuModel":
         return cls(**attrs)
+
+    # -- transform contract --------------------------------------------------
+
+    def _transform_device(self, Xs: Any) -> Optional[Dict[str, Any]]:
+        """Map an (n, d) feature tensor on the device to `{col: tensor}`
+        outputs with rows leading.  Row-wise models implement this; the base
+        `_transform_array` runs it over host-bounded chunks.  Models that
+        manage their own staging (kNN) leave it unimplemented."""
+        return None
+
+    def _transform_array(self, X: np.ndarray) -> Dict[str, np.ndarray]:
+        """Map a host feature block to output columns ({col_name: values})
+        through the chunked `_transform_mesh`."""
+        outs = self._transform_mesh(X)
+        if outs is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} implements neither _transform_array "
+                "nor _transform_device"
+            )
+        return outs
+
+    def _fetch_transform_outputs(self, st, dev: Dict[str, Any]) -> Dict[str, np.ndarray]:
+        """`_transform_device` outputs to the host: tensors through the
+        stager's fetch after one wait for the chunk's work; host arrays
+        (degenerate-model paths) cut to the chunk's rows."""
+        import torch
+
+        tensors = [v for v in dev.values() if isinstance(v, torch.Tensor)]
+        if tensors and tensors[0].is_cuda:
+            torch.cuda.current_stream(tensors[0].device).synchronize()
+        return {
+            col: st.fetch(v) if isinstance(v, torch.Tensor) else np.asarray(v)[: st.n_valid]
+            for col, v in dev.items()
+        }
+
+    def _transform_mesh(self, X: Any) -> Optional[Dict[str, np.ndarray]]:
+        """Batched inference on the device: rows in chunks of
+        `host_batch_bytes` (halved, since two chunks are in flight), each
+        staged and run through `_transform_device`.  A one-deep pipeline:
+        chunk i+1 is converted on the host and copied on a side stream while
+        chunk i computes; then chunk i is fetched.  None when the model has
+        no `_transform_device`."""
+        if type(self)._transform_device is _TpuModel._transform_device:
+            return None
+        import torch
+
+        from .parallel import DeviceContext
+        from .parallel.mesh import RowStager
+
+        sparse_in = _is_sparse(X)
+        if sparse_in:
+            # stays CSR: each chunk densifies on its own
+            X = X.tocsr()
+            x_dtype = self._out_dtype(X)
+        else:
+            X = _ensure_dense(X)
+            x_dtype = X.dtype
+        n = int(X.shape[0])
+        d = int(X.shape[1]) if X.ndim == 2 else 1
+        if n == 0:
+            # transform one dummy row, return every column cut to 0 rows
+            dummy = self._transform_mesh(np.zeros((1, d), x_dtype))
+            return {c: v[:0] for c, v in dummy.items()}
+        with DeviceContext(self.num_workers) as ctx:
+            device = ctx.device
+        chunk = max(1, chunk_rows_for(d, np.dtype(x_dtype).itemsize) // 2)
+        copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+        def _stage(lo: int):
+            """(hi, stager, tensor, event) for chunk lo:hi, staged on the side
+            stream on a card; the event marks its copy done (None on the
+            CPU)."""
+            hi = min(lo + chunk, n)
+            st = RowStager(hi - lo, device)
+
+            def put():
+                return (st.stage_sparse if sparse_in else st.stage)(X[lo:hi], x_dtype)
+
+            if copy_stream is None:
+                return hi, st, put(), None
+            with torch.cuda.stream(copy_stream):
+                xt = put()
+                ready = torch.cuda.Event()
+                ready.record(copy_stream)
+            return hi, st, xt, ready
+
+        outs: Dict[str, List[np.ndarray]] = {}
+        pending = _stage(0)
+        while pending is not None:
+            hi, st, xt, ready = pending
+            if ready is not None:
+                compute = torch.cuda.current_stream(device)
+                compute.wait_event(ready)
+                xt.record_stream(compute)  # made on the side stream, used here
+            dev = self._transform_device(xt)
+            pending = _stage(hi) if hi < n else None
+            for col, v in self._fetch_transform_outputs(st, dev).items():
+                outs.setdefault(col, []).append(v)
+            del xt, dev
+        if all(len(v) == 1 for v in outs.values()):
+            return {c: v[0] for c, v in outs.items()}
+        return {c: np.concatenate(v, axis=0) for c, v in outs.items()}
+
+    def _output_columns(self) -> List[str]:
+        if self.hasParam("predictionCol"):
+            return [self.getOrDefault("predictionCol")]
+        return ["prediction"]
+
+    def _transform(self, dataset: DatasetLike):
+        """Output columns appended to a copy of a pandas DataFrame or of a
+        mapping of columns; for array input, the one output array, or a dict
+        of them when there are several."""
+        pd = sys.modules.get("pandas")  # a DataFrame exists only if pandas is imported
+        is_frame = pd is not None and isinstance(dataset, pd.DataFrame)
+        if is_frame and len(dataset) == 0:
+            # empty input transforms to empty output (Spark semantics)
+            out_df = dataset.copy()
+            for col in self._output_columns():
+                out_df[col] = []
+            return out_df
+        features_col, features_cols = _resolve_feature_params(self)
+        batch = extract_arrays(
+            dataset,
+            features_col=features_col,
+            features_cols=features_cols,
+            dtype=None,
+            supervised=False,
+        )
+        if _is_sparse(batch.X):
+            # stays CSR: _transform_mesh densifies chunk by chunk
+            outputs = self._transform_array(batch.X)
+        else:
+            X = batch.X
+            outputs = self._transform_array(np.asarray(X, dtype=self._out_dtype(X)))
+        if is_frame:
+            out_df = dataset.copy()
+            for col, values in outputs.items():
+                out_df[col] = list(values) if values.ndim == 2 else values
+            return out_df
+        if isinstance(dataset, Mapping):
+            return {**dataset, **outputs}
+        if len(outputs) == 1:
+            return next(iter(outputs.values()))
+        return outputs
+
+
+def chunk_rows_for(d: int, itemsize: int = 4) -> int:
+    """Rows per chunk from the `host_batch_bytes` budget."""
+    from .config import get_config
+
+    return max(1024, int(get_config("host_batch_bytes")) // max(d * itemsize, 1))

@@ -1,8 +1,9 @@
 #
-# Data plane — the port of the host-side input handling of
-# spark_rapids_ml_tpu/data.py: accepted dataset types in, host numpy arrays
-# out.  Accepted: numpy 2-D arrays, (X, y) tuples, scipy CSR matrices,
-# mappings of column name -> numpy array (the pandas-free frame the port
+# Data plane — the port of spark_rapids_ml_tpu/data.py: accepted dataset
+# types in, host numpy arrays out (`extract_arrays`), and `DeviceDataset`,
+# rows staged once on the device and reused across fits.  Accepted: numpy
+# 2-D arrays, (X, y) tuples, scipy CSR matrices, mappings of column
+# name -> numpy array (the pandas-free frame the port
 # also returns from `kneighbors` when pandas is absent), pandas DataFrames,
 # pyarrow Tables and parquet paths.
 #
@@ -13,7 +14,7 @@
 from __future__ import annotations
 
 import os
-from typing import Any, Mapping, Optional, Sequence, Union
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -156,3 +157,85 @@ def extract_arrays(
             X = X.astype(np.float64)
         X = np.ascontiguousarray(X)
     return _ArrayBatch(X=X, y=y, weight=w, row_id=rid)
+
+
+class DeviceDataset:
+    """A dataset staged once onto the device and reused across fits, the
+    counterpart of benchmarking against a cached Spark DataFrame:
+    `fit(DeviceDataset)` skips host extraction and host-to-device staging.
+    Build one with `DeviceDataset.from_host(X, y)` or from any accepted
+    dataset type with `DeviceDataset.persist(dataset, ...)`.  One device,
+    so the rows are exactly the host's (no padding)."""
+
+    def __init__(self, device, X, n_valid: int, y=None, weight=None) -> None:
+        self.device = device
+        self.X = X  # torch.Tensor (n, d)
+        self.y = y  # torch.Tensor (n,) or None
+        self.weight = weight  # torch.Tensor (n,) validity * sample weight
+        self.n_valid = int(n_valid)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n_valid, int(self.X.shape[1]))
+
+    def to_host_batch(self) -> _ArrayBatch:
+        """The rows back on the host."""
+
+        def fetch(t):
+            return None if t is None else t.detach().cpu().numpy()
+
+        return _ArrayBatch(X=fetch(self.X), y=fetch(self.y), weight=fetch(self.weight))
+
+    @classmethod
+    def from_host(
+        cls,
+        X: np.ndarray,
+        y: Optional[np.ndarray] = None,
+        weight: Optional[np.ndarray] = None,
+        num_workers: Optional[int] = None,
+        dtype: Union[np.dtype, type] = np.float32,
+        label_dtype: Union[np.dtype, type, None] = None,
+    ) -> "DeviceDataset":
+        from .parallel import DeviceContext
+        from .parallel.mesh import RowStager
+
+        dtype = np.dtype(dtype)
+        with DeviceContext(num_workers) as ctx:
+            device = ctx.device
+        X = X.tocsr() if _is_sparse(X) else np.asarray(X)
+        st = RowStager(X.shape[0], device)
+        # CSR is densified chunk by chunk on its way to the device
+        Xs = st.stage_sparse(X, dtype) if _is_sparse(X) else st.stage(X, dtype)
+        w = st.mask(dtype, weights=weight)
+        yd = None
+        if y is not None:
+            ldt = np.dtype(label_dtype) if label_dtype is not None else dtype
+            yd = st.stage(np.asarray(y).reshape(-1).astype(ldt), ldt)
+        return cls(device, Xs, st.n_valid, y=yd, weight=w)
+
+    @classmethod
+    def persist(
+        cls,
+        dataset: DatasetLike,
+        features_col: Optional[str] = None,
+        features_cols: Sequence[str] = (),
+        label_col: Optional[str] = None,
+        weight_col: Optional[str] = None,
+        num_workers: Optional[int] = None,
+        dtype: Union[np.dtype, type] = np.float32,
+    ) -> "DeviceDataset":
+        batch = extract_arrays(
+            dataset,
+            features_col=features_col,
+            features_cols=features_cols,
+            label_col=label_col,
+            weight_col=weight_col,
+            supervised=label_col is not None,
+        )
+        return cls.from_host(
+            batch.X,
+            y=batch.y,
+            weight=batch.weight,
+            num_workers=num_workers,
+            dtype=dtype,
+        )

@@ -1,1 +1,1 @@
-from . import knn  # noqa: F401
+from . import classification, knn  # noqa: F401

@@ -1,0 +1,544 @@
+#
+# LogisticRegression: the port of the dense route of
+# spark_rapids_ml_tpu/models/classification.py.  The fit stages rows on the
+# device through the generic staged fit (core.py), computes the label range
+# and the standardization moments there, and runs the host-driven
+# L-BFGS/OWL-QN of ops/logistic.py (one device evaluation per oracle call);
+# transform is the chunked `_transform_mesh` over `binary_predict` /
+# `logreg_predict`.
+#
+# Differences from the JAX package, each deliberate: one solver shape (the
+# host-driven one) at every size; an unsupported Param or value raises
+# (there is no CPU engine to fall back to); CSR input is densified (the ELL
+# kernel is a later item).  `evaluate` (the metrics item) and `cpu()`
+# (scikit-learn) are not ported.  RandomForestClassifier is a later item.
+#
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import numpy as np
+
+from ..core import FitInput, _TpuEstimatorSupervised, _TpuModel
+from ..params import (
+    HasElasticNetParam,
+    HasEnableSparseDataOptim,
+    HasFeaturesCol,
+    HasFeaturesCols,
+    HasFitIntercept,
+    HasLabelCol,
+    HasMaxIter,
+    HasPredictionCol,
+    HasProbabilityCol,
+    HasRawPredictionCol,
+    HasRegParam,
+    HasStandardization,
+    HasTol,
+    HasWeightCol,
+    Param,
+    TypeConverters,
+    _TpuParams,
+)
+from ..utils import _ArrayBatch
+
+
+def _label_range(y, w):
+    """(min, max) label among rows of weight > 0, reduced on the device and
+    fetched in one copy."""
+    import torch
+
+    valid = w > 0
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(valid, y, torch.full_like(y, big)).min()
+    hi = torch.where(valid, y, torch.full_like(y, -1)).max()
+    return torch.stack([lo, hi]).cpu().tolist()
+
+
+def _label_check(y, w):
+    """(is_integral, min_label) among rows of weight > 0, for float
+    labels, reduced on the device."""
+    import torch
+
+    valid = w > 0
+    yf = y.to(torch.float32)
+    integral = torch.where(valid, yf == torch.round(yf), torch.ones_like(valid)).all()
+    mn = torch.where(valid, yf, torch.full_like(yf, float("inf"))).min()
+    return bool(integral), float(mn)
+
+
+class LogisticRegressionClass:
+    """Param mapping (Spark name -> backend name), with regParam carried as
+    C = 1/regParam."""
+
+    @classmethod
+    def _param_mapping(cls) -> Dict[str, Optional[str]]:
+        return {
+            "maxIter": "max_iter",
+            "regParam": "C",
+            "elasticNetParam": "l1_ratio",
+            "tol": "tol",
+            "fitIntercept": "fit_intercept",
+            "threshold": "",
+            "thresholds": None,
+            "standardization": "standardization",
+            "weightCol": "",
+            "aggregationDepth": "",
+            "family": "family",
+            "lowerBoundsOnCoefficients": None,
+            "upperBoundsOnCoefficients": None,
+            "lowerBoundsOnIntercepts": None,
+            "upperBoundsOnIntercepts": None,
+            "maxBlockSizeInMB": "",
+        }
+
+    @classmethod
+    def _param_value_mapping(cls):
+        # C = 1/regParam; 0 means unregularized; a negative regParam is
+        # unsupported
+        return {"regParam": lambda x: 1.0 / x if x > 0.0 else (0.0 if x == 0.0 else None)}
+
+    @classmethod
+    def _get_tpu_params_default(cls) -> Dict[str, Any]:
+        return {
+            "fit_intercept": True,
+            "standardization": False,
+            "verbose": False,
+            "C": 1.0,
+            "penalty": "l2",
+            "l1_ratio": None,
+            "max_iter": 1000,
+            "tol": 0.0001,
+            "family": "auto",
+            "lbfgs_memory": 10,
+            "linesearch_max_iter": 20,
+        }
+
+
+class _LogisticRegressionTpuParams(
+    _TpuParams,
+    HasFeaturesCol,
+    HasFeaturesCols,
+    HasLabelCol,
+    HasPredictionCol,
+    HasProbabilityCol,
+    HasRawPredictionCol,
+    HasEnableSparseDataOptim,
+    HasRegParam,
+    HasElasticNetParam,
+    HasFitIntercept,
+    HasStandardization,
+    HasMaxIter,
+    HasTol,
+    HasWeightCol,
+):
+    """The Params LogisticRegression and its model share."""
+
+    family = Param("_", "family", 'Label distribution: "auto", "binomial", '
+                   '"multinomial".', TypeConverters.toString)
+    threshold = Param("_", "threshold", "binary prediction threshold in [0,1].",
+                      TypeConverters.toFloat)
+    # declared for pyspark API parity; setting any of them raises
+    thresholds = Param("_", "thresholds", "per-class thresholds (unsupported).",
+                       TypeConverters.toListFloat)
+    lowerBoundsOnCoefficients = Param("_", "lowerBoundsOnCoefficients",
+                                      "box constraint (unsupported).",
+                                      TypeConverters.identity)
+    upperBoundsOnCoefficients = Param("_", "upperBoundsOnCoefficients",
+                                      "box constraint (unsupported).",
+                                      TypeConverters.identity)
+    lowerBoundsOnIntercepts = Param("_", "lowerBoundsOnIntercepts",
+                                    "box constraint (unsupported).",
+                                    TypeConverters.identity)
+    upperBoundsOnIntercepts = Param("_", "upperBoundsOnIntercepts",
+                                    "box constraint (unsupported).",
+                                    TypeConverters.identity)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(
+            regParam=0.0,
+            elasticNetParam=0.0,
+            tol=1e-6,
+            maxIter=100,
+            fitIntercept=True,
+            standardization=True,
+            family="auto",
+            threshold=0.5,
+        )
+
+    def setFeaturesCol(self, value: Union[str, List[str]]):
+        if isinstance(value, str):
+            self._set_params(featuresCol=value)
+        else:
+            self._set_params(featuresCols=value)
+        return self
+
+    def setFeaturesCols(self, value: List[str]):
+        return self._set_params(featuresCols=value)
+
+    def setLabelCol(self, value: str):
+        self._set(labelCol=value)
+        return self
+
+    def setPredictionCol(self, value: str):
+        self._set(predictionCol=value)
+        return self
+
+    def setProbabilityCol(self, value: str):
+        self._set(probabilityCol=value)
+        return self
+
+    def setRawPredictionCol(self, value: str):
+        self._set(rawPredictionCol=value)
+        return self
+
+    def setRegParam(self, value: float):
+        return self._set_params(regParam=value)
+
+    def setElasticNetParam(self, value: float):
+        return self._set_params(elasticNetParam=value)
+
+    def setFitIntercept(self, value: bool):
+        return self._set_params(fitIntercept=value)
+
+    def setStandardization(self, value: bool):
+        return self._set_params(standardization=value)
+
+    def setMaxIter(self, value: int):
+        return self._set_params(maxIter=value)
+
+    def setTol(self, value: float):
+        return self._set_params(tol=value)
+
+    def setWeightCol(self, value: str):
+        return self._set_params(weightCol=value)
+
+    def setThreshold(self, value: float):
+        return self._set_params(threshold=value)
+
+    def setFamily(self, value: str):
+        return self._set_params(family=value)
+
+
+class LogisticRegression(
+    LogisticRegressionClass, _TpuEstimatorSupervised, _LogisticRegressionTpuParams
+):
+    """Logistic regression on one GPU, with the JAX package's API.
+
+    Binomial labels use Spark's single-coefficient-vector form; multinomial
+    uses softmax with the full coefficient matrix.  Both run host-driven
+    L-BFGS (OWL-QN when elasticNetParam > 0) with `lbfgs_memory=10`,
+    `linesearch_max_iter=20`; standardization runs on the device and the
+    coefficients are unscaled after the solve.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from spark_rapids_ml_torch import set_default_device
+    >>> from spark_rapids_ml_torch.classification import LogisticRegression
+    >>> set_default_device("cpu")
+    >>> X = np.array([[1.0, 2.0], [1.0, 3.0], [2.0, 1.0], [3.0, 1.0]])
+    >>> y = np.array([1.0, 1.0, 0.0, 0.0])
+    >>> model = LogisticRegression(regParam=0.01).fit((X, y))
+    >>> model.transform(X)["prediction"].tolist()
+    [1, 1, 0, 0]
+    """
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__()
+        self._set_params(**kwargs)
+
+    def _fit_label_dtype(self):
+        return np.dtype(np.int32)
+
+    def _validate_input(self, batch: _ArrayBatch) -> None:
+        if self.getOrDefault("enable_sparse_data_optim") is True:
+            raise NotImplementedError(
+                "enable_sparse_data_optim=True needs the sparse (ELL) kernel, the "
+                "'sparse ELL' entry of item 9 of ROADMAP.md; the port densifies CSR input"
+            )
+        classes = np.unique(batch.y)
+        if not np.all(classes == classes.astype(np.int64)):
+            raise RuntimeError(f"Labels MUST be Integers, but got {classes}")
+        if classes.min() < 0:
+            raise RuntimeError(f"Labels MUST be non-negative, but got {classes}")
+
+    def _validate_device_input(self, ds) -> None:
+        """The label contract of `_validate_input`, on the device over rows of
+        weight > 0, for DeviceDataset fits (before the int32 cast would hide
+        a violation)."""
+        integral, mn = _label_check(ds.y, ds.weight)
+        if not integral:
+            raise RuntimeError("Labels MUST be Integers")
+        if mn < 0:
+            raise RuntimeError(f"Labels MUST be non-negative, but got min {mn}")
+
+    def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
+        import torch
+
+        from ..config import get_config
+        from ..ops.logistic import logreg_fit_host_dispatch
+        from ..ops.stats import standardize, weighted_moments
+
+        if get_config("bf16_features"):
+            raise NotImplementedError(
+                "bf16_features=True (bfloat16 feature storage) is not ported yet; "
+                "see ROADMAP.md, item 4"
+            )
+        p = fit_input.params
+        dtype = np.dtype(fit_input.dtype)
+        n_cols = fit_input.pdesc.n
+        y_min, y_max = _label_range(fit_input.y, fit_input.w)
+
+        # a dataset of one label: Spark's +/-inf intercept, no solve
+        if y_min == y_max:
+            cv = float(y_min)
+            if cv not in (0.0, 1.0):
+                raise RuntimeError(
+                    "class value must be either 1. or 0. when dataset has one label"
+                )
+            return {
+                "coef_": np.zeros((1, n_cols), dtype),
+                "intercept_": np.array([np.inf if cv == 1.0 else -np.inf], dtype),
+                "classes_": [cv],
+                "n_cols": n_cols,
+                "dtype": str(dtype.name),
+                "num_iters": 0,
+                "objective": 0.0,
+            }
+
+        # Spark's numClasses = max(label) + 1, empty classes included
+        n_classes = y_max + 1
+        family = str(self.getOrDefault("family"))
+        binomial = n_classes == 2 and family in ("auto", "binomial")
+
+        C = float(p["C"])
+        reg_param = 1.0 / C if C > 0 else 0.0
+        l1_ratio = p.get("l1_ratio")
+        en = float(l1_ratio) if l1_ratio is not None else float(
+            self.getOrDefault("elasticNetParam")
+        )
+        fit_intercept = bool(p["fit_intercept"])
+        standardization = bool(p.get("standardization", True))
+
+        X, w = fit_input.X, fit_input.w
+        mean = std = None
+        if standardization:
+            mean, std, _ = weighted_moments(X, w)
+            if not fit_intercept:
+                # no intercept to absorb a centring shift: scale only
+                mean = None
+            X = standardize(X, w, torch.zeros_like(std) if mean is None else mean, std)
+        coef, b, loss, n_iter, hist = logreg_fit_host_dispatch(
+            X, w, fit_input.y,
+            n_classes=n_classes,
+            l2=reg_param * (1.0 - en),
+            l1=reg_param * en,
+            fit_intercept=fit_intercept,
+            tol=float(p["tol"]),
+            max_iter=int(p["max_iter"]),
+            history=int(p.get("lbfgs_memory", 10)),
+            ls_max=int(p.get("linesearch_max_iter", 20)),
+            binomial=binomial,
+        )
+        del X
+        if binomial:
+            coef = np.asarray(coef, np.float64).reshape(1, -1)
+            intercept = np.array([float(b)])
+        else:
+            coef = np.asarray(coef, np.float64)
+            intercept = np.asarray(b, np.float64)
+        if standardization:
+            std = std.cpu().numpy().astype(np.float64)
+            coef = np.where(std > 0, coef / std, coef)
+            if mean is not None:
+                # the features were centred: undo the shift in the intercept
+                intercept = intercept - coef @ mean.cpu().numpy().astype(np.float64)
+        # Spark centres multinomial intercepts (softmax is shift-invariant)
+        if fit_intercept and len(intercept) > 1:
+            intercept = intercept - intercept.mean()
+
+        # objectiveHistory: the full objective per iteration, entry 0 the
+        # initial one; a trailing NaN tail is cut so that entry j is
+        # iteration j, and `objective` is its last entry
+        hist = np.asarray(hist, np.float64)[: int(n_iter) + 1]
+        while len(hist) and np.isnan(hist[-1]):
+            hist = hist[:-1]
+        if len(hist):
+            loss = hist[-1]
+        return {
+            "coef_": coef.astype(dtype),
+            "intercept_": intercept.astype(dtype),
+            "classes_": [float(c) for c in range(n_classes)],
+            "n_cols": n_cols,
+            "dtype": str(dtype.name),
+            "num_iters": int(n_iter),
+            "objective": float(loss),
+            "objective_history": [float(v) for v in hist],
+        }
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "LogisticRegressionModel":
+        return LogisticRegressionModel(**attrs)
+
+
+class LogisticRegressionTrainingSummary:
+    """Spark's LogisticRegressionTrainingSummary surface:
+    `objectiveHistory` and `totalIterations`."""
+
+    def __init__(self, objectiveHistory: List[float], totalIterations: int):
+        self.objectiveHistory = list(objectiveHistory)
+        self.totalIterations = int(totalIterations)
+
+
+class LogisticRegressionModel(
+    LogisticRegressionClass, _TpuModel, _LogisticRegressionTpuParams
+):
+    """A fitted logistic regression model."""
+
+    def __init__(self, **attrs: Any) -> None:
+        super().__init__(**attrs)
+        self.coef_: np.ndarray = np.atleast_2d(np.asarray(attrs["coef_"]))
+        self.intercept_: np.ndarray = np.atleast_1d(np.asarray(attrs["intercept_"]))
+        self.classes_: List[float] = [float(c) for c in attrs["classes_"]]
+        self.n_cols: int = int(attrs["n_cols"])
+        self.dtype: str = str(attrs.get("dtype", "float32"))
+        self.num_iters: int = int(attrs.get("num_iters", 0))
+        self.objective: float = float(attrs.get("objective", 0.0))
+        self.objective_history: List[float] = [
+            float(v) for v in attrs.get("objective_history", [])
+        ]
+
+    @property
+    def numClasses(self) -> int:
+        return len(self.classes_)
+
+    @property
+    def hasSummary(self) -> bool:
+        return True
+
+    @property
+    def summary(self) -> LogisticRegressionTrainingSummary:
+        """Training summary: the full objective per L-BFGS iteration (the
+        single final objective for the one-label model)."""
+        return LogisticRegressionTrainingSummary(
+            objectiveHistory=self.objective_history or [self.objective],
+            totalIterations=self.num_iters,
+        )
+
+    @property
+    def coefficients(self) -> np.ndarray:
+        """Binomial models: the single coefficient vector."""
+        if self.coef_.shape[0] == 1:
+            return self.coef_[0]
+        raise RuntimeError("Multinomial model: use coefficientMatrix")
+
+    @property
+    def coefficientMatrix(self) -> np.ndarray:
+        return self.coef_
+
+    @property
+    def intercept(self) -> float:
+        if len(self.intercept_) == 1:
+            return float(self.intercept_[0])
+        raise RuntimeError("Multinomial model: use interceptVector")
+
+    @property
+    def interceptVector(self) -> np.ndarray:
+        return self.intercept_
+
+    def _is_binomial(self) -> bool:
+        return self.coef_.shape[0] == 1
+
+    def _output_columns(self) -> List[str]:
+        return [
+            self.getOrDefault("predictionCol"),
+            self.getOrDefault("probabilityCol"),
+            self.getOrDefault("rawPredictionCol"),
+        ]
+
+    def _transform_array(self, X: np.ndarray) -> Dict[str, np.ndarray]:
+        # a +/-inf intercept (the one-label model) is answered on the host
+        if self._is_binomial() and not np.isfinite(self.intercept_[0]):
+            n = X.shape[0]
+            p1 = 1.0 if self.intercept_[0] > 0 else 0.0
+            dt = X.dtype if hasattr(X, "dtype") else np.float32
+            return {
+                self.getOrDefault("predictionCol"): np.full(n, p1, np.int32),
+                self.getOrDefault("probabilityCol"): np.tile([1.0 - p1, p1], (n, 1)).astype(dt),
+                self.getOrDefault("rawPredictionCol"): np.tile(
+                    [-self.intercept_[0], self.intercept_[0]], (n, 1)).astype(dt),
+            }
+        return super()._transform_array(X)
+
+    def _transform_device(self, Xs) -> Dict[str, Any]:
+        import torch
+
+        from ..ops.logistic import binary_predict, logreg_predict
+        from ..parallel.mesh import _numpy_dtype
+
+        dt = _numpy_dtype(Xs.dtype)
+
+        def on_device(a):
+            return torch.as_tensor(np.asarray(a, dt), device=Xs.device)
+
+        if self._is_binomial():
+            preds, probs, raw = binary_predict(
+                Xs, on_device(self.coef_[0]), on_device(self.intercept_[0]))
+            threshold = float(self.getOrDefault("threshold"))
+            if threshold != 0.5:
+                preds = (probs[:, 1] > threshold).to(torch.int32)
+        else:
+            preds, probs, raw = logreg_predict(
+                Xs, on_device(self.coef_), on_device(self.intercept_))
+        return {
+            self.getOrDefault("predictionCol"): preds,
+            self.getOrDefault("probabilityCol"): probs,
+            self.getOrDefault("rawPredictionCol"): raw,
+        }
+
+    # -- one-sample API, on the host ------------------------------------------
+
+    def _margins(self, value) -> np.ndarray:
+        v = np.asarray(value, np.float64).reshape(-1)
+        if v.shape[0] != self.n_cols:
+            raise ValueError(
+                f"feature vector has {v.shape[0]} entries; model expects "
+                f"{self.n_cols}"
+            )
+        return self.coef_.astype(np.float64) @ v + self.intercept_.astype(np.float64)
+
+    def predictRaw(self, value) -> np.ndarray:
+        """Raw margin vector for one sample (Spark: [-m, m] for binomial)."""
+        m = self._margins(value)
+        if self._is_binomial():
+            return np.array([-m[0], m[0]])
+        return m
+
+    def predictProbability(self, value) -> np.ndarray:
+        m = self._margins(value)
+        if self._is_binomial():
+            p1 = 1.0 / (1.0 + np.exp(-m[0]))
+            return np.array([1.0 - p1, p1])
+        e = np.exp(m - m.max())
+        return e / e.sum()
+
+    def predict(self, value) -> float:
+        probs = self.predictProbability(value)
+        if self._is_binomial():
+            return float(probs[1] > float(self.getOrDefault("threshold")))
+        return float(np.argmax(probs))
+
+    def evaluate(self, dataset):
+        """Not ported yet: the metrics subsystem is item 8 of ROADMAP.md."""
+        raise NotImplementedError(
+            "LogisticRegressionModel.evaluate needs the metrics subsystem, "
+            "item 8 of ROADMAP.md"
+        )
+
+    def cpu(self):
+        """Not ported: it builds a scikit-learn model, and the port's machine
+        has no scikit-learn (ROADMAP.md section 3)."""
+        raise NotImplementedError(
+            "LogisticRegressionModel.cpu() builds a scikit-learn model; the "
+            "port does not (ROADMAP.md section 3)"
+        )

@@ -15,8 +15,13 @@
 #   "default"  TF32: the fastest, and rank-unsafe, as the TPU's default
 #              single bf16 pass is.
 #
-# Only the plain torch forms read it (ops/distances.py `sqdist` and the
-# plain twin of the fused kernel).  The hand-written CUDA kernels ignore
+# `ieee_matmul` is the level of the solvers' and statistics' matmuls
+# (ops/stats.py, ops/logistic.py): always IEEE float32, whatever the conf,
+# as the JAX package's "highest".  Those products are matrix-vector
+# products, bound by memory, so TF32 would buy nothing and cost accuracy.
+#
+# Only the plain torch distance forms read `distance_precision`
+# (ops/distances.py `sqdist` and the plain twin of the fused kernel).  The hand-written CUDA kernels ignore
 # it: float32 runs 3xTF32 on the tensor cores at every level (hi*hi +
 # hi*lo + lo*hi with hi = tf32(x), lo = tf32(x - hi), summed in float32:
 # about float32's accuracy, rank-exact at the port's tolerances), float64
@@ -48,9 +53,7 @@ def distance_precision() -> str:
 
 
 @contextlib.contextmanager
-def matmul_precision() -> Iterator[None]:
-    """Run the enclosed float32 matmuls at the `distance_precision` level."""
-    allow = _ALLOW_TF32[distance_precision()]
+def _tf32(allow: bool) -> Iterator[None]:
     cuda_mm = torch.backends.cuda.matmul
     before = cuda_mm.allow_tf32
     cuda_mm.allow_tf32 = allow
@@ -58,3 +61,13 @@ def matmul_precision() -> Iterator[None]:
         yield
     finally:
         cuda_mm.allow_tf32 = before
+
+
+def matmul_precision():
+    """Run the enclosed float32 matmuls at the `distance_precision` level."""
+    return _tf32(_ALLOW_TF32[distance_precision()])
+
+
+def ieee_matmul():
+    """Run the enclosed float32 matmuls in IEEE float32 (TF32 off)."""
+    return _tf32(False)

@@ -27,6 +27,10 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.zeros(0, dtype=dtype).numpy().dtype
+
+
 class RowStager:
     """Stages host arrays of `n_rows` rows onto `device` in one layout, so
     features, masks and row ids line up."""
@@ -71,9 +75,14 @@ class RowStager:
         return self._assemble(X.shape, dtype,
                               lambda lo, hi: X[lo:hi].toarray().astype(dtype, copy=False))
 
-    def mask(self, dtype=np.float32) -> torch.Tensor:
-        """Validity (1 for every real row; one device adds no padding)."""
-        return torch.ones(self.n_valid, dtype=_torch_dtype(np.dtype(dtype)), device=self.device)
+    def mask(self, dtype=np.float32, weights: Optional[np.ndarray] = None) -> torch.Tensor:
+        """Validity times sample weight for each row: 1 for every real row
+        when `weights` is None (one device adds no padding), else the
+        weights in `dtype`."""
+        if weights is None:
+            return torch.ones(self.n_valid, dtype=_torch_dtype(np.dtype(dtype)),
+                              device=self.device)
+        return self.stage(np.asarray(weights).reshape(-1), dtype)
 
     def row_ids(self) -> torch.Tensor:
         """int32 row positions 0..n_rows-1."""

@@ -1,6 +1,6 @@
 #
 # Param system — the port of the parts of spark_rapids_ml_tpu/params.py the
-# kNN slice uses: a pyspark.ml-style `Param`/`Params` implementation plus
+# kNN and LogisticRegression slices use: a pyspark.ml-style `Param`/`Params` implementation plus
 # the Spark-name -> backend-name mapping layer (`_TpuClass`/`_TpuParams`).
 # The backend param dict keeps the name `_tpu_params` and persists under
 # the same "tpu_params" metadata key, so a model saved by either package
@@ -25,8 +25,22 @@ class TypeConverters:
         return int(value)
 
     @staticmethod
+    def toFloat(value: Any) -> float:
+        return float(value)
+
+    @staticmethod
+    def toBoolean(value: Any) -> bool:
+        if isinstance(value, bool):
+            return value
+        raise TypeError(f"Boolean Param requires value of type bool. Found {type(value)}.")
+
+    @staticmethod
     def toString(value: Any) -> str:
         return str(value)
+
+    @staticmethod
+    def toListFloat(value: Any) -> List[float]:
+        return [float(v) for v in value]
 
     @staticmethod
     def toListString(value: Any) -> List[str]:
@@ -250,6 +264,135 @@ class HasFeaturesCols(Params):
         return self.getOrDefault(self.featuresCols)
 
 
+class HasLabelCol(Params):
+    labelCol = Param("_", "labelCol", "label column name.", TypeConverters.toString)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(labelCol="label")
+
+    def getLabelCol(self) -> str:
+        return self.getOrDefault(self.labelCol)
+
+
+class HasPredictionCol(Params):
+    predictionCol = Param(
+        "_", "predictionCol", "prediction column name.", TypeConverters.toString
+    )
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(predictionCol="prediction")
+
+    def getPredictionCol(self) -> str:
+        return self.getOrDefault(self.predictionCol)
+
+
+class HasProbabilityCol(Params):
+    probabilityCol = Param(
+        "_", "probabilityCol", "class conditional probabilities column name.",
+        TypeConverters.toString,
+    )
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(probabilityCol="probability")
+
+    def getProbabilityCol(self) -> str:
+        return self.getOrDefault(self.probabilityCol)
+
+
+class HasRawPredictionCol(Params):
+    rawPredictionCol = Param(
+        "_", "rawPredictionCol", "raw prediction (confidence) column name.",
+        TypeConverters.toString,
+    )
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(rawPredictionCol="rawPrediction")
+
+    def getRawPredictionCol(self) -> str:
+        return self.getOrDefault(self.rawPredictionCol)
+
+
+class HasEnableSparseDataOptim(Params):
+    """Force the sparse or the dense training layout.  The port has only the
+    dense one: None and False densify CSR input, True raises at fit."""
+
+    enable_sparse_data_optim = Param(
+        "_",
+        "enable_sparse_data_optim",
+        "None (auto), True (force sparse), False (force dense).",
+        TypeConverters.identity,
+    )
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(enable_sparse_data_optim=None)
+
+
+class HasTol(Params):
+    tol = Param("_", "tol", "convergence tolerance for iterative algorithms.",
+                TypeConverters.toFloat)
+
+    def getTol(self) -> float:
+        return self.getOrDefault(self.tol)
+
+
+class HasMaxIter(Params):
+    maxIter = Param("_", "maxIter", "max number of iterations (>= 0).",
+                    TypeConverters.toInt)
+
+    def getMaxIter(self) -> int:
+        return self.getOrDefault(self.maxIter)
+
+
+class HasRegParam(Params):
+    regParam = Param("_", "regParam", "regularization parameter (>= 0).",
+                     TypeConverters.toFloat)
+
+    def getRegParam(self) -> float:
+        return self.getOrDefault(self.regParam)
+
+
+class HasElasticNetParam(Params):
+    elasticNetParam = Param(
+        "_", "elasticNetParam",
+        "ElasticNet mixing: 0 = L2 penalty, 1 = L1 penalty.",
+        TypeConverters.toFloat,
+    )
+
+    def getElasticNetParam(self) -> float:
+        return self.getOrDefault(self.elasticNetParam)
+
+
+class HasFitIntercept(Params):
+    fitIntercept = Param("_", "fitIntercept", "whether to fit an intercept term.",
+                         TypeConverters.toBoolean)
+
+    def getFitIntercept(self) -> bool:
+        return self.getOrDefault(self.fitIntercept)
+
+
+class HasStandardization(Params):
+    standardization = Param(
+        "_", "standardization", "whether to standardize features before fitting.",
+        TypeConverters.toBoolean,
+    )
+
+    def getStandardization(self) -> bool:
+        return self.getOrDefault(self.standardization)
+
+
+class HasWeightCol(Params):
+    weightCol = Param("_", "weightCol", "instance weight column name.",
+                      TypeConverters.toString)
+
+    def getWeightCol(self) -> str:
+        return self.getOrDefault(self.weightCol)
+
+
 class HasIDCol(Params):
     """Propagate a row id through the search."""
 
@@ -284,6 +427,12 @@ class _TpuClass(ABC):
         return {}
 
     @classmethod
+    def _param_value_mapping(cls) -> Dict[str, Callable[[Any], Any]]:
+        """Spark param name -> translation of its value into the backend's;
+        a translation returning None marks an unsupported value."""
+        return {}
+
+    @classmethod
     def _get_tpu_params_default(cls) -> Dict[str, Any]:
         """Backend kernel defaults."""
         return {}
@@ -308,11 +457,17 @@ class _TpuParams(_TpuClass, Params):
     def _sync_spark_defaults_to_tpu(self) -> None:
         """Overlay the Spark-side param *defaults* onto the backend dict so
         precedence is: backend defaults < Spark defaults < explicit sets."""
+        value_map = self._param_value_mapping()
         for sname, mapped in self._param_mapping().items():
             if not mapped:
                 continue
             if self.hasParam(sname) and self.hasDefault(sname) and not self.isSet(sname):
-                self._tpu_params[mapped] = self._defaultParamMap[self.getParam(sname)]
+                v = self._defaultParamMap[self.getParam(sname)]
+                if sname in value_map:
+                    v = value_map[sname](v)
+                    if v is None:
+                        continue
+                self._tpu_params[mapped] = v
 
     @property
     def tpu_params(self) -> Dict[str, Any]:
@@ -338,6 +493,7 @@ class _TpuParams(_TpuClass, Params):
             self._sync_spark_defaults_to_tpu()
             self._spark_defaults_synced = True
         mapping = self._param_mapping()
+        value_map = self._param_value_mapping()
         for k, v in kwargs.items():
             if k == "num_workers":
                 self._num_workers = int(v) if v is not None else None
@@ -352,6 +508,12 @@ class _TpuParams(_TpuClass, Params):
                     if mapped is None:
                         raise ValueError(f"Parameter {k} is not supported.")
                     if mapped:
+                        if k in value_map:
+                            v = value_map[k](v)
+                            if v is None:
+                                raise ValueError(
+                                    f"Value '{kwargs[k]}' for param '{k}' is not supported."
+                                )
                         self._tpu_params[mapped] = v
             elif k in self._tpu_params or k in self._get_tpu_params_default():
                 # backend-only kwarg passed straight through

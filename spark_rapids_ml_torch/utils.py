@@ -1,13 +1,14 @@
 #
 # Utilities — the port of the pieces of spark_rapids_ml_tpu/utils.py the
-# kNN slice uses: the per-class logger and the host batch record.
+# port uses: the per-class logger, the host batch record and the partition
+# layout of a fit.
 #
 from __future__ import annotations
 
 import logging
 import sys
 from dataclasses import dataclass
-from typing import Optional, Type, Union
+from typing import List, Optional, Type, Union
 
 import numpy as np
 
@@ -38,3 +39,21 @@ class _ArrayBatch:
     y: Optional[np.ndarray] = None
     weight: Optional[np.ndarray] = None
     row_id: Optional[np.ndarray] = None
+
+
+@dataclass
+class PartitionDescriptor:
+    """Row layout of a fit: m rows, n features, and (part, rows) per part.
+    One device holds one part."""
+
+    m: int
+    n: int
+    parts_rank_size: List[tuple]
+
+    @classmethod
+    def build(cls, partition_rows: List[int], total_cols: int) -> "PartitionDescriptor":
+        return cls(
+            m=int(sum(partition_rows)),
+            n=int(total_cols),
+            parts_rank_size=[(i, int(r)) for i, r in enumerate(partition_rows)],
+        )

@@ -280,3 +280,61 @@ def test_more_than_one_worker_is_not_ported():
         NearestNeighbors(k=2, num_workers=4).fit(X).kneighbors(Q)
     with DeviceContext(num_workers=1) as ctx:
         assert ctx.device == torch.device("cpu")
+
+
+# ---------------------------------------------------------------------------
+# the generic staged fit's host layer: config keys, labels and weights,
+# weighted masks
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key", ["host_batch_bytes", "dispatch_flops_limit", "bf16_features"])
+def test_logistic_config_keys_match_jax_defaults(key):
+    assert port_config.get_config(key) == jax_config.get_config(key)
+
+
+def _supervised_datasets():
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(10, 3))
+    y = (np.arange(10) % 3).astype(np.float64)
+    wt = rng.uniform(0.5, 2.0, 10)
+    cols = {"a": X[:, 0], "b": X[:, 1], "c": X[:, 2]}
+    return {
+        "tuple": ((X, y), {}),
+        "df_vector_col": (pd.DataFrame({"features": list(X), "label": y, "wt": wt}),
+                          {"features_col": "features"}),
+        "df_scalar_cols": (pd.DataFrame({**cols, "label": y, "wt": wt}),
+                           {"features_cols": ["a", "b", "c"]}),
+    }
+
+
+@pytest.mark.parametrize("name", list(_supervised_datasets()))
+def test_extract_arrays_labels_and_weights_match_jax(name):
+    data, kw = _supervised_datasets()[name]
+    kw = dict(kw, label_col="label", weight_col="wt", supervised=True)
+    a, b = extract_arrays(data, **kw), jax_extract_arrays(data, **kw)
+    np.testing.assert_array_equal(a.X, b.X)
+    np.testing.assert_array_equal(a.y, b.y)
+    assert (a.weight is None) == (b.weight is None) == (name == "tuple")
+    if a.weight is not None:
+        np.testing.assert_array_equal(a.weight, b.weight)
+    # the pandas-free frame carries the same columns
+    if name != "tuple":
+        mapping = {c: np.asarray(list(data[c])) if c == "features" else data[c].to_numpy()
+                   for c in data.columns}
+        m = extract_arrays(mapping, **kw)
+        np.testing.assert_array_equal(m.X, a.X)
+        np.testing.assert_array_equal(m.y, a.y)
+        np.testing.assert_array_equal(m.weight, a.weight)
+    with pytest.raises(ValueError, match="labels|labelCol"):
+        extract_arrays(data[0] if name == "tuple" else data.drop(columns="label"),
+                       **dict(kw, label_col="label"))
+
+
+def test_row_stager_weighted_mask():
+    st = RowStager(6, torch.device("cpu"))
+    w = np.array([0.5, 0.0, 2.0, 1.0, 3.0, 0.25])
+    m = st.mask(np.float32, weights=w)
+    assert m.dtype == torch.float32
+    np.testing.assert_array_equal(m.numpy(), w.astype(np.float32))
+    assert torch.equal(st.mask(np.float64), torch.ones(6, dtype=torch.float64))

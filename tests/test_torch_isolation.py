@@ -64,6 +64,10 @@ def test_port_runs_with_jax_unimportable():
         "_, _, df = NearestNeighbors(k=3).fit(X).kneighbors(X[:5])\n"
         "idx = np.stack(df['indices'])\n"
         "assert (idx[:, 0] == np.arange(5)).all(), idx\n"
+        "from spark_rapids_ml_torch.classification import LogisticRegression\n"
+        "y = (X[:, 0] > 0).astype(np.float64)\n"
+        "pred = LogisticRegression(regParam=0.01).fit((X, y)).transform(X)['prediction']\n"
+        "assert (pred == y).mean() > 0.9\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
