@@ -6,7 +6,8 @@ Run from the root of a checkout:
     python3 chip_smoke.py [--seed 0] [--items 1000000] [--queries 10000]
                           [--dim 128] [--k 32] [--lr-rows 2000000] [--lr-dim 256]
                           [--lr-wide-rows 1000000] [--lr-wide-dim 3000]
-                          [--lr-multi-rows 200000]
+                          [--lr-multi-rows 200000] [--pca-rows 1000000]
+                          [--pca-dim 128] [--g-rows 200000]
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -60,13 +61,37 @@ Phases, each of which makes the script exit non-zero when it fails:
    (1e-5 float32, 1e-10 float64), predictions against host margins, and
    (c) against the same fit on the CPU (coefficients 1e-6, objective
    1e-10);
-6. persistence: the kNN model saved, loaded and asked again (identical
-   results), and the LogisticRegression model of (a) likewise (identical
+6. PCA and LinearRegression through the public entry points (no
+   hand-written kernel: cuBLAS products at IEEE float32, cuSOLVER eigh and
+   QR, the host solve in float64): (d) PCA k=3 at bench.py's 1,000,000 x
+   128 float32 (`_rng(1).standard_normal`), (e) PCA k=3 and (f)
+   LinearRegression (OLS, ridge, elastic-net at the reference benchmark's
+   settings, bench.py:1003-1012) on phase 5's (b) rows, 1,000,000 x 3000
+   ((e) with three columns scaled by 16, 8 and 4 for a spectral gap),
+   (g) float64, 200,000 x 256, sample weights, PCA k=10 and an
+   elastic-net fit, on the card and on the CPU.  Each PCA cell: fits
+   from a DeviceDataset (cold, least of three warm) with the statistics
+   pass and the eigendecomposition timed apart, from numpy (the fused
+   stage-and-solve pass and its prep/accumulate/overlap), (e) also the
+   full solver forced and the fit from numpy with the fused pass off,
+   a transform; held against a float64 eigendecomposition on the host of
+   the covariance summed in float64 (principal-angle cosines and explained
+   variance within 1e-4), and the fused route against the two-phase one.
+   (f): the statistics pass, the host solve and the residual pass timed
+   apart, the statistics of a 65,536-row slice within 1e-5 of a float64
+   host recomputation, the coefficients of every fit within 1e-4 of the
+   host solve of float64 statistics.  (g): the card's fits within 1e-9 of
+   the CPU's.  Beside each device pass its bound, and per route
+   max_memory_allocated;
+7. persistence: the kNN model saved, loaded and asked again (identical
+   results), and the LogisticRegression model of (a), the PCA model of
+   (d) and the LinearRegression model of (f) likewise (identical
    transform outputs).
 
 The last lines of standard output are a JSON object of the logistic
-cells' numbers, a JSON object of the kernels' numbers, the card's name
-and power limit, and
+cells' numbers, one of the PCA and LinearRegression cells' numbers, a
+JSON object of the kernels' numbers, the card's name and power limit,
+and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
 """
@@ -952,13 +977,9 @@ def phase_logistic_cell(device, name: str, X, y, w, classes: int, fit_kw: dict,
             and np.array_equal(model_np.intercept_, model.intercept_)):
         raise AssertionError(f"{name}: the fit from host arrays differs from the DeviceDataset fit")
     rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
-    try:
-        wall_ms, rec["device_busy_share"] = device_busy_share(lambda: fit(ds))
-        log(f"  {name}: one warm fit under torch.profiler: {wall_ms:.3f} ms, the card busy in "
-            f"kernels for {rec['device_busy_share'] or float('nan'):.1%} of it")
-    except Exception as e:  # a failed trace costs the busy share, not the run
-        rec["device_busy_share"] = None
-        log(f"  {name}: torch.profiler failed, device busy share not measured: {e!r}")
+    wall_ms, rec["device_busy_share"] = device_busy_share(lambda: fit(ds))
+    log(f"  {name}: one warm fit under torch.profiler: {wall_ms:.3f} ms, the card busy in "
+        f"kernels for {rec['device_busy_share'] or float('nan'):.1%} of it")
     prologue = (rec["moments_ms"] + rec["standardize_ms"]) / 1e3
     rec["host_ms_per_iter"] = ((rec["fit_warm_s"] - prologue - calls * o["device_ms"] / 1e3)
                                / max(rec["iterations"], 1) * 1e3)
@@ -1033,6 +1054,7 @@ def phase_logistic(device, args) -> dict:
     cells.append(phase_logistic_cell(
         device, f"(b) {args.lr_wide_rows}x{args.lr_wide_dim} float32 binomial", X, y, None, 2,
         dict(bench_kw, maxIter=200), 1_000_000, args.seed, weight_col=False))
+    X_wide = X  # phase 6 reuses these rows
     del X, y, cells[-1]["model"]
 
     n = args.lr_multi_rows
@@ -1060,12 +1082,459 @@ def phase_logistic(device, args) -> dict:
     cells.append(rec)
     for c in cells:
         c.pop("model", None)
-    return {"cells": cells, "model": model_a, "X": X_a}
+    return {"cells": cells, "model": model_a, "X": X_a, "X_wide": X_wide}
 
 
-def phase_persistence(main: dict, logistic: dict) -> None:
+# ---- PCA and LinearRegression -------------------------------------------------
+
+
+def _fp32_bound_ms(nbytes: float, flops: float) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes at the
+    card's memory rate and the IEEE float32 operations at its peak."""
+    t_bytes = nbytes / _PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / _PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _timed_fit(make, data, device):
+    """(seconds, model, GB) of one `make().fit(data)`, the card idle before
+    and after; GB is max_memory_allocated during the fit less what was
+    allocated before it (a DeviceDataset's rows, for one): the memory the
+    route itself takes."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    model = make().fit(data)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0, model,
+            (torch.cuda.max_memory_allocated(device) - base) / 1e9)
+
+
+def float64_stats(Xt, w=None, y=None) -> dict:
+    """Weighted sums over the rows of the device tensor Xt in float64 on the
+    card (a DGEMM over row chunks; TF32 never applies to float64), as host
+    float64 arrays: gram, s1, sw, and with y also sxy, sy, syy.  The
+    reference the port's float32 statistics are held against."""
+    import torch
+
+    n, d = Xt.shape
+    dev, f64 = Xt.device, torch.float64
+    out = {"gram": torch.zeros((d, d), dtype=f64, device=dev),
+           "s1": torch.zeros(d, dtype=f64, device=dev), "sw": torch.zeros((), dtype=f64, device=dev)}
+    if y is not None:
+        out.update(sxy=torch.zeros(d, dtype=f64, device=dev),
+                   sy=torch.zeros((), dtype=f64, device=dev),
+                   syy=torch.zeros((), dtype=f64, device=dev))
+    rows = max(1, (256 << 20) // (d * 8))
+    for lo in range(0, n, rows):
+        x = Xt[lo:lo + rows].to(f64)
+        ww = (torch.ones(x.shape[0], dtype=f64, device=dev) if w is None
+              else w[lo:lo + rows].to(f64))
+        xw = x * ww[:, None]
+        out["gram"].addmm_(xw.T, x)
+        out["s1"] += xw.sum(0)
+        out["sw"] += ww.sum()
+        if y is not None:
+            yy = y[lo:lo + rows].to(f64)
+            out["sxy"].addmv_(xw.T, yy)
+            out["sy"] += (yy * ww).sum()
+            out["syy"] += (yy * yy * ww).sum()
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def host_pca(st: dict, k: int):
+    """(components (k, d), explained variance (k,)) of the float64
+    covariance from `float64_stats`, eigendecomposed on the host in
+    float64."""
+    sw = float(st["sw"])
+    mean = st["s1"] / sw
+    cov = (st["gram"] - sw * np.outer(mean, mean)) / (sw - 1.0)
+    evals, evecs = np.linalg.eigh(cov)
+    return evecs[:, ::-1][:, :k].T, evals[::-1][:k]
+
+
+def pca_agreement(comps, ev, ref_comps, ref_ev) -> tuple:
+    """(the largest |1 - cosine| of the principal angles between the two
+    subspaces, the largest relative difference of the explained
+    variances).  A cosine can pass 1 by a float32 component's norm
+    error."""
+    cos = np.linalg.svd(np.asarray(comps, np.float64) @ np.asarray(ref_comps, np.float64).T,
+                        compute_uv=False)
+    ev_rel = float(np.max(np.abs(np.asarray(ev, np.float64) - ref_ev) / np.abs(ref_ev)))
+    return float(np.abs(1.0 - cos).max()), ev_rel
+
+
+def hold_pca(name: str, what: str, model, ref_comps, ref_ev, tol: float) -> dict:
+    cos_err, ev_err = pca_agreement(model.components_, model.explained_variance_, ref_comps,
+                                    ref_ev)
+    log(f"  {name}: {what}: largest |1 - principal-angle cosine| {cos_err:.3e}, explained variance "
+        f"{ev_err:.3e} relative (limits {tol:g})")
+    if not (np.isfinite(model.components_).all() and cos_err <= tol and ev_err <= tol):
+        raise AssertionError(f"{name}: {what}: the components differ beyond {tol:g}")
+    return {"one_minus_cos": cos_err, "ev_rel": ev_err}
+
+
+def _fused_numbers() -> dict:
+    from spark_rapids_ml_torch import fused
+
+    m = dict(fused.FUSED_METRICS)
+    m.pop("stamp", None)
+    return m
+
+
+def phase_pca_cell(device, name: str, X, k: int, seed: int, ref_tol: float = 1e-4,
+                   wide: bool = False) -> dict:
+    """One PCA cell through the public entry points: the fits from a
+    DeviceDataset (cold, least of three warm) with the statistics pass and
+    the eigendecomposition timed apart, the fit from numpy (the fused pass
+    at this size), a transform, each held against a float64 host
+    eigendecomposition; at `wide`, also the full solver forced, and a fit
+    from numpy with the fused pass off."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch import config as port_config
+    from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_torch.ops import pca as port_pca
+
+    n, d = X.shape
+    rec = {"cell": name, "rows": n, "cols": d, "k": k, "dtype": "float32"}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = DeviceDataset.from_host(X, dtype=np.float32)
+    torch.cuda.synchronize()
+    rec["staging_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_comps, ref_ev = host_pca(float64_stats(ds.X), k)
+    log(f"  {name}: staging {rec['staging_s']:.3f} s ({X.nbytes / rec['staging_s'] / 1e9:.2f} "
+        f"GB/s); float64 reference (card DGEMM + host eigh) {time.perf_counter() - t0:.2f} s")
+
+    def make():
+        return PCA(k=k).setInputCol("features").setOutputCol("pcs")
+
+    rec["fit_cold_s"], model, _ = _timed_fit(make, ds, device)
+    warm = [_timed_fit(make, ds, device) for _ in range(3)]
+    rec["fit_warm_s"] = min(t for t, _, _ in warm)
+    rec["max_memory_allocated_GB"] = {"device_dataset": max(g for _, _, g in warm)}
+    rec["rows_per_s"] = n / rec["fit_warm_s"]
+    dec = dict(port_pca.LAST_SOLVER_DECISION)
+    rec["solver"], rec["solver_reason"] = dec["solver"], dec["reason"]
+    w = ds.weight
+    x_bytes = n * d * 4
+    if rec["solver"] == "full":
+        _, _, cov = port_pca.covariance(ds.X, w)
+        rec["pass_ms"] = cuda_ms(lambda: port_pca.covariance(ds.X, w), reps=3)
+        rec["eigh_ms"] = cuda_ms(lambda: torch.linalg.eigh(cov), reps=3)
+        rec["pass_bound_ms"], rec["pass_bound_by"] = _fp32_bound_ms(x_bytes, 2.0 * n * d * d)
+        log(f"  {name}: full solver ({rec['solver_reason']}): mean + covariance pass "
+            f"{rec['pass_ms']:.3f} ms (bound {rec['pass_bound_ms']:.3f} ms by "
+            f"{rec['pass_bound_by']}, share {rec['pass_bound_ms'] / rec['pass_ms']:.1%}); "
+            f"eigh {rec['eigh_ms']:.3f} ms")
+    else:
+        l, p = dec["l"], dec["power_iters"]
+        rec["randomized_ms"] = cuda_ms(
+            lambda: port_pca.pca_fit_randomized(ds.X, w, k, l, p), reps=3)
+        rec["randomized_bound_ms"], rec["randomized_bound_by"] = _fp32_bound_ms(
+            x_bytes, (4 + 4 * p + 2) * n * d * l)
+        log(f"  {name}: randomized solver ({rec['solver_reason']}, l={l}, power_iters={p}): "
+            f"{rec['randomized_ms']:.3f} ms on the card, {3 + p} passes over X (bound "
+            f"{rec['randomized_bound_ms']:.3f} ms by {rec['randomized_bound_by']}, share "
+            f"{rec['randomized_bound_ms'] / rec['randomized_ms']:.1%})")
+    wall_ms, rec["device_busy_share"] = device_busy_share(lambda: make().fit(ds))
+    log(f"  {name}: fit from a DeviceDataset cold {rec['fit_cold_s']:.3f} s, least of three warm "
+        f"{rec['fit_warm_s']:.4f} s ({rec['rows_per_s']:,.0f} rows/s); memory the fit adds "
+        f"(max_memory_allocated) {rec['max_memory_allocated_GB']['device_dataset']:.2f} GB; one "
+        f"warm fit under "
+        f"torch.profiler {wall_ms:.3f} ms, the card busy {rec['device_busy_share'] or 0:.1%}")
+    rec["check_device_dataset"] = hold_pca(name, "DeviceDataset fit vs the float64 host "
+                                           "eigendecomposition", model, ref_comps, ref_ev,
+                                           ref_tol)
+
+    rec["fit_numpy_s"], model_np, gb = _timed_fit(make, X, device)
+    rec["max_memory_allocated_GB"]["numpy"] = gb
+    rec["fused"] = _fused_numbers()
+    rec["solver_numpy"] = port_pca.LAST_SOLVER_DECISION["solver"]
+    f = rec["fused"]
+    log(f"  {name}: fit from numpy {rec['fit_numpy_s']:.3f} s ({n / rec['fit_numpy_s']:,.0f} "
+        f"rows/s), route: fused {f.get('solver')} ({f.get('passes')} passes, {f.get('chunks')} "
+        f"chunks, {f.get('bytes', 0) / 1e9:.2f} GB; prep {f.get('host_prep_s', 0):.3f} s, "
+        f"accumulate {f.get('device_acc_s', 0):.3f} s, overlap {f.get('overlap_s', 0):.3f} s = "
+        f"{f.get('overlap_fraction', 0):.1%}); memory the fit adds (max_memory_allocated) {gb:.2f} GB")
+    if not f:
+        raise AssertionError(f"{name}: the fit from numpy did not take the fused pass")
+    rec["check_numpy"] = hold_pca(name, "fused fit from numpy vs the float64 host "
+                                  "eigendecomposition", model_np, ref_comps, ref_ev, ref_tol)
+    rec["check_fused_vs_two_phase"] = hold_pca(
+        name, "fused fit vs the two-phase fit on the card", model_np, model.components_,
+        model.explained_variance_.astype(np.float64), ref_tol)
+
+    if wide:
+        port_config.set_config(pca_solver="full")
+        rec["fit_full_s"], m_full, gb = _timed_fit(make, ds, device)
+        rec["max_memory_allocated_GB"]["device_dataset_full"] = gb
+        _, _, cov = port_pca.covariance(ds.X, w)
+        rec["full_pass_ms"] = cuda_ms(lambda: port_pca.covariance(ds.X, w), reps=1)
+        rec["full_eigh_ms"] = cuda_ms(lambda: torch.linalg.eigh(cov), reps=1)
+        del cov
+        port_config.reset_config()
+        b, by = _fp32_bound_ms(x_bytes, 2.0 * n * d * d)
+        rec["full_pass_bound_ms"] = b
+        log(f"  {name}: pca_solver=\"full\" from the DeviceDataset: fit {rec['fit_full_s']:.3f} s; "
+            f"mean + Gram pass {rec['full_pass_ms']:.3f} ms (bound {b:.3f} ms by {by}, 2 n d^2 at "
+            f"{_PEAK_FP32 / 1e12:g} TFLOP/s of IEEE float32: share {b / rec['full_pass_ms']:.1%}); "
+            f"eigh {rec['full_eigh_ms']:.3f} ms; memory the fit adds (max_memory_allocated) {gb:.2f} GB")
+        rec["check_full"] = hold_pca(name, "full solver vs the float64 host eigendecomposition",
+                                     m_full, ref_comps, ref_ev, ref_tol)
+        port_config.set_config(fused_stage_solve="off")
+        rec["fit_numpy_two_phase_s"], m2, gb = _timed_fit(make, X, device)
+        port_config.reset_config()
+        rec["max_memory_allocated_GB"]["numpy_two_phase"] = gb
+        log(f"  {name}: fit from numpy with fused_stage_solve=\"off\" (stage, then the "
+            f"randomized passes on the card): {rec['fit_numpy_two_phase_s']:.3f} s, against "
+            f"{rec['fit_numpy_s']:.3f} s fused; memory the fit adds (max_memory_allocated) {gb:.2f} GB")
+        rec["check_numpy_two_phase"] = hold_pca(name, "two-phase fit from numpy vs the float64 "
+                                                "host eigendecomposition", m2, ref_comps,
+                                                ref_ev, ref_tol)
+
+    rows = min(n, 1_000_000)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(X[:rows])
+    t_tr = time.perf_counter() - t0
+    rec["transform_rows_per_s"] = rows / t_tr
+    sl = slice(0, min(rows, 65536))
+    want = X[sl].astype(np.float64) @ model.components_.astype(np.float64).T
+    tr_err = float(np.abs(out[sl] - want).max() / np.abs(want).max())
+    log(f"  {name}: transform of {rows} rows from numpy {t_tr:.3f} s "
+        f"({rec['transform_rows_per_s']:,.0f} rows/s); against float64 host products "
+        f"{tr_err:.3e} of the largest (limit 1e-5)")
+    if out.shape != (rows, k) or not np.isfinite(out).all() or tr_err > 1e-5:
+        raise AssertionError(f"{name}: transform outputs are wrong")
+    del ds
+    rec["model"] = model
+    return rec
+
+
+_LINREG_SETTINGS = (
+    ("OLS", dict(regParam=0.0, standardization=False)),
+    ("ridge", dict(regParam=1e-5, elasticNetParam=0.0)),
+    ("elastic-net", dict(regParam=1e-5, elasticNetParam=0.5, maxIter=10, tol=1e-30)),
+)
+
+
+def phase_linreg_cell(device, name: str, X, seed: int) -> dict:
+    """LinearRegression at the reference benchmark's three settings: per
+    setting a fit from a DeviceDataset and one from numpy (the fused pass),
+    the statistics pass, the host solve and the residual pass timed apart,
+    the statistics of a 65,536-row slice held against a float64 host
+    recomputation, the coefficients against the host solve of float64
+    statistics."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch.ops import linear as port_linear
+    from spark_rapids_ml_torch.ops.precision import ieee_matmul
+    from spark_rapids_ml_torch.regression import LinearRegression
+
+    n, d = X.shape
+    rng = np.random.default_rng(seed)
+    beta = torch.as_tensor(rng.standard_normal(d).astype(np.float32), device=device)
+    noise = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=device)
+    base = DeviceDataset.from_host(X, dtype=np.float32)
+    with ieee_matmul():
+        yt = base.X @ beta + 0.1 * noise
+    y = yt.cpu().numpy()
+    ds = DeviceDataset(base.device, base.X, n, y=yt, weight=base.weight)
+    rec = {"cell": name, "rows": n, "cols": d, "dtype": "float32", "settings": []}
+
+    # the statistics of a slice against a float64 host recomputation
+    sl = slice(0, min(n, 65536))
+    g, sxy = (t.cpu().numpy() for t in port_linear.linreg_sufficient_stats(
+        ds.X[sl], ds.weight[sl], yt[sl])[:2])
+    x64 = X[sl].astype(np.float64)
+    hg, hsxy = x64.T @ x64, x64.T @ y[sl].astype(np.float64)
+    rec["slice_gram_rel"] = float(np.abs(g - hg).max() / np.abs(hg).max())
+    rec["slice_sxy_rel"] = float(np.abs(sxy - hsxy).max() / np.abs(hsxy).max())
+    log(f"  {name}: statistics of a {sl.stop}-row slice against a float64 host recomputation: "
+        f"gram {rec['slice_gram_rel']:.3e}, sxy {rec['slice_sxy_rel']:.3e} of the largest "
+        f"(limit 1e-5)")
+    if rec["slice_gram_rel"] > 1e-5 or rec["slice_sxy_rel"] > 1e-5:
+        raise AssertionError(f"{name}: the sufficient statistics differ from the host's")
+
+    stats = port_linear.linreg_sufficient_stats(ds.X, ds.weight, yt)
+    rec["stats_ms"] = cuda_ms(lambda: port_linear.linreg_sufficient_stats(ds.X, ds.weight, yt),
+                              reps=2)
+    rec["stats_bound_ms"], by = _fp32_bound_ms(n * d * 4, 2.0 * n * d * d + 2.0 * n * d)
+    host_stats = [t.cpu().numpy() for t in stats[:3]] + [t.item() for t in stats[3:]]
+    del stats
+    ref = float64_stats(ds.X, None, yt)
+    log(f"  {name}: statistics pass (Gram, moments, cross terms) {rec['stats_ms']:.3f} ms on the "
+        f"card (bound {rec['stats_bound_ms']:.3f} ms by {by}, 2 n d^2 at {_PEAK_FP32 / 1e12:g} "
+        f"TFLOP/s of IEEE float32: share {rec['stats_bound_ms'] / rec['stats_ms']:.1%})")
+    models = {}
+    for label, kw in _LINREG_SETTINGS:
+        s = {"setting": label, **kw}
+
+        def make(kw=kw):
+            return LinearRegression(**kw)
+
+        s["fit_device_dataset_s"], m_ds, s["max_memory_allocated_GB_device_dataset"] = \
+            _timed_fit(make, ds, device)
+        est = make()
+        p = est._tpu_params
+        solve_kw = dict(reg_param=float(p["alpha"]), elasticnet_param=float(p["l1_ratio"]),
+                        fit_intercept=bool(p["fit_intercept"]),
+                        standardization=bool(p["standardization"]), tol=float(p["tol"]),
+                        max_iter=int(p["max_iter"]))
+        t0 = time.perf_counter()
+        coef, b0, _ = port_linear.solve_linear_host(*host_stats, **solve_kw)
+        s["host_solve_s"] = time.perf_counter() - t0
+        coef_t = torch.as_tensor(coef, device=device).to(torch.float32)
+        b_t = torch.tensor(b0, dtype=torch.float32, device=device)
+        s["residual_ms"] = cuda_ms(
+            lambda: port_linear.linreg_residual_sse(ds.X, ds.weight, yt, coef_t, b_t), reps=3)
+        s["residual_bound_ms"] = n * d * 4 / _PEAK_BYTES_PER_S * 1e3
+        s["fit_numpy_s"], m_np, s["max_memory_allocated_GB_numpy"] = _timed_fit(make, (X, y),
+                                                                                device)
+        s["fused"] = _fused_numbers()
+        if not s["fused"]:
+            raise AssertionError(f"{name} {label}: the fit from numpy did not take the fused pass")
+        rcoef, rb0, _ = port_linear.solve_linear_host(
+            ref["gram"], ref["sxy"], ref["s1"], float(ref["sw"]), float(ref["sy"]),
+            float(ref["syy"]), **solve_kw)
+        nrm = np.linalg.norm(rcoef)
+        s["coef_rel_device_dataset"] = float(np.linalg.norm(m_ds.coef_ - rcoef) / nrm)
+        s["coef_rel_numpy"] = float(np.linalg.norm(m_np.coef_ - rcoef) / nrm)
+        s["coef_rel_fused_vs_two_phase"] = float(np.linalg.norm(m_np.coef_ - m_ds.coef_) / nrm)
+        s["rmse"], s["r2"], s["n_iter"] = m_ds.summary.rootMeanSquaredError, m_ds.summary.r2, \
+            m_ds.summary.totalIterations
+        f = s["fused"]
+        log(f"  {name} {label}: fit from a DeviceDataset {s['fit_device_dataset_s']:.3f} s "
+            f"({n / s['fit_device_dataset_s']:,.0f} rows/s): statistics {rec['stats_ms']:.1f} ms, "
+            f"host solve {s['host_solve_s']:.3f} s (float64, d = {d}), residual pass "
+            f"{s['residual_ms']:.3f} ms (bound {s['residual_bound_ms']:.3f} ms by bytes, share "
+            f"{s['residual_bound_ms'] / s['residual_ms']:.1%}); memory the fit adds "
+            f"(max_memory_allocated) {s['max_memory_allocated_GB_device_dataset']:.2f} GB")
+        log(f"  {name} {label}: fit from numpy (fused) {s['fit_numpy_s']:.3f} s: {f['chunks']} "
+            f"chunks, {f['bytes'] / 1e9:.2f} GB, prep {f['host_prep_s']:.3f} s, accumulate "
+            f"{f['device_acc_s']:.3f} s, overlap {f['overlap_s']:.3f} s "
+            f"({f['overlap_fraction']:.1%}); memory the fit adds (max_memory_allocated) "
+            f"{s['max_memory_allocated_GB_numpy']:.2f} GB")
+        log(f"  {name} {label}: coefficients against the host solve of float64 statistics: "
+            f"DeviceDataset {s['coef_rel_device_dataset']:.3e}, numpy {s['coef_rel_numpy']:.3e}, "
+            f"fused vs two-phase {s['coef_rel_fused_vs_two_phase']:.3e} (limit 1e-4); rmse "
+            f"{s['rmse']:.6g}, r2 {s['r2']:.9f}, {s['n_iter']} iterations")
+        if (max(s["coef_rel_device_dataset"], s["coef_rel_numpy"],
+                s["coef_rel_fused_vs_two_phase"]) > 1e-4 or not np.isfinite(s["rmse"])
+                or not abs(m_ds.intercept - rb0) <= 1e-4 * max(1.0, abs(rb0))):
+            raise AssertionError(f"{name} {label}: the coefficients differ from the host's")
+        rec["settings"].append(s)
+        models[label] = m_ds
+    wall_ms, rec["device_busy_share_ridge"] = device_busy_share(
+        lambda: LinearRegression(**_LINREG_SETTINGS[1][1]).fit(ds))
+    log(f"  {name}: one warm ridge fit under torch.profiler {wall_ms:.3f} ms, the card busy "
+        f"{rec['device_busy_share_ridge'] or 0:.1%} (the rest: the host solve)")
+    rec["model"] = models["OLS"]
+    return rec
+
+
+def phase_float64_cell(device, n: int, seed: int) -> dict:
+    """(g): float64 with sample weights, PCA k=10 and an elastic-net
+    LinearRegression, fitted on the card and on the CPU."""
+    from spark_rapids_ml_torch import DeviceDataset, set_default_device
+    from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_torch.regression import LinearRegression
+
+    d = 256
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((n, d)) * np.geomspace(4.0, 0.25, d)
+    y = X @ rng.standard_normal(d) + 2.0 + 0.5 * rng.standard_normal(n)
+    w = rng.uniform(0.2, 2.0, n)
+    name = f"(g) {n}x{d} float64, weights"
+    rec = {"cell": name, "rows": n, "cols": d, "dtype": "float64"}
+    lr_kw = dict(regParam=1e-3, elasticNetParam=0.5, float32_inputs=False)
+    frame = {"features": X, "label": y, "wt": w}
+    fits = {}
+    for where in (device, "cpu"):
+        set_default_device(where)
+        t0 = time.perf_counter()
+        ds = DeviceDataset.from_host(X, y=y, weight=w, dtype=np.float64)
+        pca = PCA(k=10, float32_inputs=False).fit(ds)
+        lr_ds = LinearRegression(**lr_kw).fit(ds)
+        lr_fused = LinearRegression(**lr_kw).setWeightCol("wt").fit(frame)
+        fits[str(where)] = (time.perf_counter() - t0, pca, lr_ds, lr_fused)
+        del ds
+    set_default_device(device)
+    (t_card, p_g, l_g, f_g), (t_cpu, p_c, l_c, f_c) = fits[str(device)], fits["cpu"]
+
+    def rel(a, b):
+        return float(np.abs(np.asarray(a) - np.asarray(b)).max() / np.abs(np.asarray(b)).max())
+
+    rec.update(
+        card_s=t_card, cpu_s=t_cpu,
+        pca_components_rel=rel(p_g.components_, p_c.components_),
+        pca_ev_rel=rel(p_g.explained_variance_, p_c.explained_variance_),
+        linreg_coef_rel=rel(l_g.coef_, l_c.coef_),
+        linreg_fused_coef_rel=rel(f_g.coef_, f_c.coef_),
+        linreg_rmse_rel=max(abs(a.summary.rootMeanSquaredError / b.summary.rootMeanSquaredError
+                                - 1.0) for a, b in ((l_g, l_c), (f_g, f_c))),
+        linreg_r2_rel=max(abs(a.summary.r2 / b.summary.r2 - 1.0)
+                          for a, b in ((l_g, l_c), (f_g, f_c))),
+    )
+    worst = max(rec[k] for k in ("pca_components_rel", "pca_ev_rel", "linreg_coef_rel",
+                                 "linreg_fused_coef_rel", "linreg_rmse_rel", "linreg_r2_rel"))
+    log(f"  {name}: PCA k=10 (DeviceDataset) and LinearRegression (elasticNetParam=0.5, "
+        f"regParam=1e-3; DeviceDataset and fused from a frame) on the card {t_card:.2f} s and on "
+        f"the CPU {t_cpu:.2f} s; card vs CPU: components {rec['pca_components_rel']:.3e}, "
+        f"explained variance {rec['pca_ev_rel']:.3e}, coefficients {rec['linreg_coef_rel']:.3e} "
+        f"(fused {rec['linreg_fused_coef_rel']:.3e}), rmse {rec['linreg_rmse_rel']:.3e}, r2 "
+        f"{rec['linreg_r2_rel']:.3e} relative (limit 1e-9); {l_g.summary.totalIterations} "
+        f"FISTA iterations")
+    if not worst <= 1e-9:
+        raise AssertionError(f"{name}: the card's fits differ from the CPU's beyond 1e-9")
+    return rec
+
+
+def phase_pca_linear(device, args, wide_X) -> dict:
+    """(d) PCA k=3 at bench.py's 1M x 128, (e) PCA k=3 and (f)
+    LinearRegression at the reference benchmark's 1M x 3000, (g) float64
+    with weights, card against CPU."""
+    cells = []
+    t0 = time.perf_counter()
+    X_d = np.random.default_rng(1).standard_normal((args.pca_rows, args.pca_dim)).astype(
+        np.float32)
+    log(f"  (d) data {X_d.shape} float32 from bench.py's _rng(1).standard_normal: "
+        f"{time.perf_counter() - t0:.2f} s")
+    cells.append(phase_pca_cell(device, f"(d) PCA k=3 {args.pca_rows}x{args.pca_dim}", X_d, 3,
+                                args.seed))
+    pca_model = cells[-1].pop("model")
+
+    # (e): phase 5's (b) rows with three columns scaled by 16, 8 and 4, a
+    # clear spectral gap, so that the top three components are defined (an
+    # i.i.d. normal matrix has a flat spectrum); powers of two, so that
+    # dividing again gives (f) the (b) rows bit for bit
+    scale = np.array([16.0, 8.0, 4.0], np.float32)
+    wide_X[:, :3] *= scale
+    n, d = wide_X.shape
+    cells.append(phase_pca_cell(device, f"(e) PCA k=3 {n}x{d}", wide_X, 3, args.seed, wide=True))
+    cells[-1].pop("model")
+    wide_X[:, :3] /= scale
+    cells.append(phase_linreg_cell(device, f"(f) LinearRegression {n}x{d}", wide_X,
+                                   args.seed + 41))
+    linreg_model = cells[-1].pop("model")
+    cells.append(phase_float64_cell(device, args.g_rows, args.seed + 51))
+    return {"cells": cells, "pca_model": pca_model, "X_d": X_d, "linreg_model": linreg_model,
+            "X_f": wide_X}
+
+
+def phase_persistence(main: dict, logistic: dict, pca_linear: dict) -> None:
     from spark_rapids_ml_torch.classification import LogisticRegressionModel
+    from spark_rapids_ml_torch.feature import PCAModel
     from spark_rapids_ml_torch.knn import NearestNeighborsModel
+    from spark_rapids_ml_torch.regression import LinearRegressionModel
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "nn_model")
@@ -1092,6 +1561,19 @@ def phase_persistence(main: dict, logistic: dict) -> None:
         f"identical: {same}")
     if not same:
         raise AssertionError("the loaded LogisticRegressionModel answers differently")
+    for label, cls, model, X in (
+            ("PCAModel of (d)", PCAModel, pca_linear["pca_model"], pca_linear["X_d"]),
+            ("LinearRegressionModel of (f)", LinearRegressionModel, pca_linear["linreg_model"],
+             pca_linear["X_f"])):
+        X = X[:100_000]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "model")
+            model.save(path)
+            loaded = cls.load(path)
+        same = np.array_equal(model.transform(X), loaded.transform(X))
+        log(f"  {label} save + load; transform of {len(X)} rows after load identical: {same}")
+        if not same:
+            raise AssertionError(f"the loaded {label} answers differently")
 
 
 def phase_build(args) -> None:
@@ -1133,6 +1615,9 @@ def main() -> int:
     ap.add_argument("--lr-wide-rows", type=int, default=1_000_000)
     ap.add_argument("--lr-wide-dim", type=int, default=3000)
     ap.add_argument("--lr-multi-rows", type=int, default=200_000)
+    ap.add_argument("--pca-rows", type=int, default=1_000_000)
+    ap.add_argument("--pca-dim", type=int, default=128)
+    ap.add_argument("--g-rows", type=int, default=200_000)
     args = ap.parse_args()
 
     import torch
@@ -1177,11 +1662,17 @@ def main() -> int:
         "width, (c) softmax + OWL-QN + weights in float64")
     logistic = phase_logistic(device, args)
 
-    log("phase 6: persistence")
-    phase_persistence(main_out, logistic)
+    log("phase 6: PCA and LinearRegression: (d) PCA k=3 at bench.py's 1M x 128, (e) PCA k=3 "
+        "and (f) LinearRegression at the reference benchmark's 1M x 3000, (g) float64 with "
+        "weights, card against CPU")
+    pca_linear = phase_pca_linear(device, args, logistic.pop("X_wide"))
+
+    log("phase 7: persistence")
+    phase_persistence(main_out, logistic, pca_linear)
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
+    print(json.dumps({"pca_linear": pca_linear["cells"]}))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

@@ -5,9 +5,11 @@
 # PyTorch, and the JAX package's one Pallas kernel is a CUDA C++ kernel
 # written for sm_90a (ops/fused_knn.py, ops/csrc/fused_knn.cu).
 #
-# Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`) and
-# LogisticRegression (`spark_rapids_ml_torch.classification`), with the
-# generic staged fit, the chunked transform and `DeviceDataset`.
+# Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`),
+# LogisticRegression (`spark_rapids_ml_torch.classification`), PCA
+# (`spark_rapids_ml_torch.feature`) and LinearRegression
+# (`spark_rapids_ml_torch.regression`), with the generic staged fit, the
+# fused stage-and-solve pass, the chunked transform and `DeviceDataset`.
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
 # `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without
@@ -19,8 +21,10 @@ __version__ = "0.1.0"
 
 from . import config  # noqa: F401
 from .data import DeviceDataset  # noqa: F401
-from .models import classification, knn  # noqa: F401
+from .models import classification, feature, knn, regression  # noqa: F401
 from .parallel import get_default_device, set_default_device  # noqa: F401
 
 _sys.modules[__name__ + ".knn"] = knn
 _sys.modules[__name__ + ".classification"] = classification
+_sys.modules[__name__ + ".feature"] = feature
+_sys.modules[__name__ + ".regression"] = regression

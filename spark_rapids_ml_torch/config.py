@@ -1,6 +1,7 @@
 #
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
-# keys the exact-kNN and LogisticRegression slices read.  The confs live in a process-global dict,
+# keys the exact-kNN, LogisticRegression, PCA and LinearRegression slices
+# read.  The confs live in a process-global dict,
 # overridable from the environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or
 # `set_config()`.  Key names and defaults match the JAX package, except
 # where a comment says otherwise; later slices add their keys here.
@@ -38,6 +39,31 @@ _DEFAULTS: Dict[str, Any] = {
     # bfloat16 feature storage for the L-BFGS matvecs.  Not ported yet:
     # True raises NotImplementedError (models/classification.py).
     "bf16_features": False,
+    # Host bytes of one chunk of the fused stage-and-solve pass
+    # (fused.py `fused_chunk_rows`): the unit of host prep and of the
+    # host-to-device copy the device accumulates.
+    "staging_chunk_bytes": 256 * 1024 * 1024,
+    # How many prepared chunks (cast, padded, in pinned host buffers) the
+    # fused pass's producer thread may run ahead of the device; 1 = no
+    # thread.  Each level costs one chunk of pinned host memory.
+    "staging_pipeline_depth": 2,
+    # Precision of the sufficient-statistics products (PCA covariance,
+    # the LinearRegression Gram): ops/precision.py `stats_precision`.
+    # "highest" and "high" = IEEE float32 (TF32 off), "high_compensated"
+    # adds Kahan carries to the chunk accumulators, "default" = TF32.
+    "stats_precision": "highest",
+    # Fused stage-and-solve for PCA and LinearRegression fits from host
+    # arrays (fused.py): "auto" fuses once the staged bytes reach
+    # fused.py `_AUTO_MIN_BYTES`, "on" always, "off" never.  A
+    # DeviceDataset and CSR input always take the two-phase path.
+    "fused_stage_solve": "auto",
+    # PCA eigensolver (ops/pca.py `resolve_pca_solver`): "full" (the d x d
+    # covariance + eigh), "randomized" (the Halko range-finder, l = k +
+    # pca_oversamples columns), or "auto".
+    "pca_solver": "auto",
+    "pca_oversamples": 10,
+    # Power (subspace) iterations of the randomized range-finder.
+    "pca_power_iters": 2,
 }
 
 _ENV_PREFIX = "SPARK_RAPIDS_ML_TORCH_"

@@ -13,7 +13,9 @@ import numpy as np
 from .core import _ReadWriteMixin
 from .data import _is_sparse
 from .models.classification import LogisticRegressionModel
+from .models.feature import PCAModel
 from .models.knn import NearestNeighborsModel
+from .models.regression import LinearRegressionModel
 
 
 def model_params(model: Any) -> Dict[str, Any]:
@@ -70,4 +72,47 @@ def logreg_model_to_reference_attributes(model: LogisticRegressionModel) -> Dict
         "num_iters": int(model.num_iters),
         "objective": float(model.objective),
         "objective_history": list(model.objective_history),
+    }
+
+
+def pca_model_from_reference(attrs: Dict[str, Any], params: Dict[str, Any]) -> PCAModel:
+    """A port `PCAModel` from the JAX model's attributes and param maps."""
+    model = PCAModel(**dict(attrs))
+    _ReadWriteMixin._restore_params(model, params)
+    return model
+
+
+def pca_model_to_reference_attributes(model: PCAModel) -> Dict[str, Any]:
+    """The attributes the JAX `PCAModel(**attrs)` takes."""
+    return {
+        "mean_": np.array(model.mean_),
+        "components_": np.array(model.components_),
+        "explained_variance_": np.array(model.explained_variance_),
+        "explained_variance_ratio_": np.array(model.explained_variance_ratio_),
+        "singular_values_": np.array(model.singular_values_),
+        "n_cols": int(model.n_cols),
+        "dtype": str(model.dtype),
+    }
+
+
+def linreg_model_from_reference(attrs: Dict[str, Any],
+                                params: Dict[str, Any]) -> LinearRegressionModel:
+    """A port `LinearRegressionModel` from the JAX model's attributes and
+    param maps."""
+    model = LinearRegressionModel(**dict(attrs))
+    _ReadWriteMixin._restore_params(model, params)
+    return model
+
+
+def linreg_model_to_reference_attributes(model: LinearRegressionModel) -> Dict[str, Any]:
+    """The attributes the JAX `LinearRegressionModel(**attrs)` takes."""
+    return {
+        "coef_": np.array(model.coef_),
+        "intercept_": float(model.intercept_),
+        "n_iter_": int(model.n_iter_),
+        "rmse_": float(model.rmse_),
+        "mse_": float(model.mse_),
+        "r2_": float(model.r2_),
+        "n_cols": int(model.n_cols),
+        "dtype": str(model.dtype),
     }

@@ -13,16 +13,20 @@
 #   _TpuCaller / _TpuEstimator / _TpuModel   the estimator and model bases
 #
 # The generic staged fit (`_TpuEstimator._fit`): extract host arrays ->
-# validate -> stage them on the device (`_stage_fit_input`), or take a
-# DeviceDataset's tensors as they are (`_stage_from_device`) -> the
+# validate -> for dense host arrays and an estimator that fits from
+# sufficient statistics (PCA, LinearRegression), the fused stage-and-solve
+# pass when the conf `fused_stage_solve` routes there (`_maybe_fit_fused`,
+# fused.py) -> else stage them on the device (`_stage_fit_input`), or take
+# a DeviceDataset's tensors as they are (`_stage_from_device`) -> the
 # estimator's `_fit_array` -> model.  The generic transform
 # (`_TpuModel._transform`): extract -> `_transform_mesh`, which runs the
 # model's `_transform_device` over row chunks sized by `host_batch_bytes`,
 # the next chunk's host-to-device copy on a side stream while the current
 # one computes.
 #
-# Left for later slices: Spark DataFrames, parquet streaming, the fused
-# stage-and-solve, the baseline fold, fitMultiple, the CPU fallback, the
+# Left for later slices: Spark DataFrames, parquet streaming (and the
+# fused pass straight from parquet), the baseline fold, fitMultiple, the
+# CPU fallback, the
 # sparse (ELL) staging, and the resilience (retry, OOM halving) and
 # telemetry seams.  `fit_report()` returns None until then.
 #
@@ -254,6 +258,9 @@ class _TpuCaller(_TpuParams, _ReadWriteMixin):
         (runs before any label dtype cast)."""
 
     def _fit_label_dtype(self) -> Optional[np.dtype]:
+        # Labels are staged in float32 even under float64 features, as the
+        # JAX package does; its float64 fits, and so the port's parity with
+        # them, depend on it.  Kept as it is on purpose.
         return np.dtype(np.float32)
 
     def _stage_fit_input(self, batch: _ArrayBatch) -> FitInput:
@@ -336,6 +343,40 @@ class _TpuEstimator(Estimator, _TpuCaller):
     def _validate_input(self, batch: _ArrayBatch) -> None:
         """Validate the raw host batch before dtype casting and staging."""
 
+    # -- fused stage-and-solve (fused.py) ------------------------------------
+
+    def _supports_fused_stats(self) -> bool:
+        """Whether this estimator fits from sufficient statistics that can
+        be folded chunk by chunk while the rows stage (PCA and
+        LinearRegression say yes)."""
+        return False
+
+    def _fit_fused(self, batch: _ArrayBatch) -> Dict[str, Any]:
+        """Fused fit of a dense host batch (estimators that declare
+        `_supports_fused_stats` implement it)."""
+        raise NotImplementedError(f"{type(self).__name__} implements no _fit_fused")
+
+    def _maybe_fit_fused(self, batch: _ArrayBatch) -> Optional[Dict[str, Any]]:
+        """The model's attributes from the fused stage-and-solve pass when
+        the conf `fused_stage_solve` routes this fit there, else None (the
+        two-phase path): an estimator without the capability, CSR input, or
+        the conf "off" or, under "auto", below `fused._AUTO_MIN_BYTES`.  A
+        pass that fails raises; nothing falls back to the two-phase path."""
+        if not self._supports_fused_stats() or _is_sparse(batch.X):
+            return None
+        from .fused import fused_enabled, fused_mode
+
+        est_bytes = (int(batch.X.shape[0]) * int(batch.X.shape[1])
+                     * np.dtype(self._out_dtype(batch.X)).itemsize)
+        if not fused_enabled(est_bytes):
+            return None
+        self.logger.info(
+            "Fused stage-and-solve: accumulating sufficient statistics on the "
+            f"device while the rows stage (fused_stage_solve={fused_mode()}, "
+            f"~{est_bytes / 2**20:.0f} MiB)."
+        )
+        return self._fit_fused(batch)
+
     # -- fit orchestration ---------------------------------------------------
 
     def _run_fit_kernel(self, fit_input: FitInput) -> Dict[str, Any]:
@@ -368,14 +409,19 @@ class _TpuEstimator(Estimator, _TpuCaller):
 
     def _fit(self, dataset: DatasetLike) -> "_TpuModel":
         t0 = time.time()
+        attrs = None
         if isinstance(dataset, DeviceDataset):
             fit_input = self._stage_from_device(dataset)
         else:
             batch = self._extract(dataset)
             self._validate_input(batch)
-            fit_input = self._stage_fit_input(batch)
+            attrs = self._maybe_fit_fused(batch)
+            if attrs is None:
+                fit_input = self._stage_fit_input(batch)
             del batch
-        attrs = self._run_fit_kernel(fit_input)
+        if attrs is None:
+            attrs = self._run_fit_kernel(fit_input)
+            del fit_input
         model = self._create_model(attrs)
         self._copyValues(model)
         model._num_workers = self._num_workers

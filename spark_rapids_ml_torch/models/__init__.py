@@ -1,1 +1,1 @@
-from . import classification, knn  # noqa: F401
+from . import classification, feature, knn, regression  # noqa: F401

@@ -1,6 +1,7 @@
 #
 # Matmul precision for distance forms whose output is a ranking (kNN
-# neighbour ids): the port of spark_rapids_ml_tpu/ops/precision.py.
+# neighbour ids) and for the sufficient statistics of PCA and
+# LinearRegression: the port of spark_rapids_ml_tpu/ops/precision.py.
 #
 # The conf key `distance_precision` keeps the JAX package's names, mapped
 # onto what the card offers for a float32 matmul:
@@ -28,6 +29,22 @@
 # runs IEEE FMA in float64.  float64 matmuls are never affected.  The level
 # is set around each matmul and restored after it, never for the whole
 # process.
+#
+# The conf key `stats_precision` sets the level of the sufficient-statistics
+# products (PCA covariance and projected moments, the LinearRegression Gram
+# and cross terms, ops/stats.py, ops/pca.py, ops/linear.py):
+#
+#   "highest"           IEEE float32 (TF32 off).  The default.
+#   "high"              also IEEE float32, for the reason given above: the
+#                       TPU's three bf16 passes (about 2^-14) have no cuBLAS
+#                       counterpart reachable from PyTorch.
+#   "high_compensated"  IEEE float32 products, and each chunk accumulator
+#                       carries a Kahan compensation term (ops/stats.py),
+#                       so the error across chunks stays bounded however
+#                       many chunks a pass folds.
+#   "default"           TF32.
+#
+# float64 statistics are never affected.
 #
 from __future__ import annotations
 
@@ -71,3 +88,29 @@ def matmul_precision():
 def ieee_matmul():
     """Run the enclosed float32 matmuls in IEEE float32 (TF32 off)."""
     return _tf32(False)
+
+
+_STATS_ALLOW_TF32 = dict(_ALLOW_TF32, high_compensated=False)
+
+
+def stats_precision() -> str:
+    """The checked `stats_precision` level ("highest", "high",
+    "high_compensated" or "default")."""
+    name = str(get_config("stats_precision")).lower()
+    if name not in _STATS_ALLOW_TF32:
+        raise ValueError(
+            f"stats_precision must be one of {sorted(_STATS_ALLOW_TF32)}; got {name!r}"
+        )
+    return name
+
+
+def stats_compensated() -> bool:
+    """Whether the chunk accumulators carry a Kahan compensation term per
+    accumulated array (`stats_precision="high_compensated"`)."""
+    return str(get_config("stats_precision")).lower() == "high_compensated"
+
+
+def stats_matmul():
+    """Run the enclosed float32 statistics matmuls at the `stats_precision`
+    level."""
+    return _tf32(_STATS_ALLOW_TF32[stats_precision()])

@@ -1,10 +1,11 @@
 #
 # Param system — the port of the parts of spark_rapids_ml_tpu/params.py the
-# kNN and LogisticRegression slices use: a pyspark.ml-style `Param`/`Params` implementation plus
-# the Spark-name -> backend-name mapping layer (`_TpuClass`/`_TpuParams`).
-# The backend param dict keeps the name `_tpu_params` and persists under
-# the same "tpu_params" metadata key, so a model saved by either package
-# loads in the other.
+# kNN, LogisticRegression, PCA and LinearRegression slices use: a
+# pyspark.ml-style `Param`/`Params` implementation plus the Spark-name ->
+# backend-name mapping layer (`_TpuClass`/`_TpuParams`).  The backend param
+# dict keeps the name `_tpu_params` and persists under the same
+# "tpu_params" metadata key, so a model saved by either package loads in
+# the other.
 #
 from __future__ import annotations
 
@@ -391,6 +392,24 @@ class HasWeightCol(Params):
 
     def getWeightCol(self) -> str:
         return self.getOrDefault(self.weightCol)
+
+
+class HasOutputCol(Params):
+    outputCol = Param("_", "outputCol", "output column name.", TypeConverters.toString)
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._setDefault(outputCol=self.uid + "__output")
+
+    def getOutputCol(self) -> str:
+        return self.getOrDefault(self.outputCol)
+
+
+class HasInputCol(Params):
+    inputCol = Param("_", "inputCol", "input column name.", TypeConverters.toString)
+
+    def getInputCol(self) -> str:
+        return self.getOrDefault(self.inputCol)
 
 
 class HasIDCol(Params):

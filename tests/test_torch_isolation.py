@@ -68,6 +68,13 @@ def test_port_runs_with_jax_unimportable():
         "y = (X[:, 0] > 0).astype(np.float64)\n"
         "pred = LogisticRegression(regParam=0.01).fit((X, y)).transform(X)['prediction']\n"
         "assert (pred == y).mean() > 0.9\n"
+        "from spark_rapids_ml_torch.feature import PCA\n"
+        "from spark_rapids_ml_torch.regression import LinearRegression\n"
+        "from spark_rapids_ml_torch import config\n"
+        "config.set_config(fused_stage_solve='on')\n"
+        "assert PCA(k=2).fit(X).transform(X).shape == (50, 2)\n"
+        "yl = X @ np.arange(4.0) + 1.0\n"
+        "assert abs(LinearRegression().fit((X, yl)).intercept - 1.0) < 1e-4\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
