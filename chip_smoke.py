@@ -7,7 +7,8 @@ Run from the root of a checkout:
                           [--dim 128] [--k 32] [--lr-rows 2000000] [--lr-dim 256]
                           [--lr-wide-rows 1000000] [--lr-wide-dim 3000]
                           [--lr-multi-rows 200000] [--pca-rows 1000000]
-                          [--pca-dim 128] [--g-rows 200000]
+                          [--pca-dim 128] [--g-rows 200000] [--h-rows 100000000]
+                          [--j-rows 300000] [--k-rows 200000] [--k-dbscan-rows 50000]
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -86,12 +87,38 @@ Phases, each of which makes the script exit non-zero when it fails:
 7. persistence: the kNN model saved, loaded and asked again (identical
    results), and the LogisticRegression model of (a), the PCA model of
    (d) and the LinearRegression model of (f) likewise (identical
-   transform outputs).
+   transform outputs);
+8. KMeans and DBSCAN through the public entry points (no hand-written
+   kernel: IEEE float32 cuBLAS products, `index_add_` and torch
+   elementwise ops): (h) KMeans k=20 on BASELINE.json's 100,000,000 x 64
+   float32 (standard normal rows made on the card, bench.py's
+   `seed=0, maxIter=20`, k-means||), (i) the reference benchmark's
+   kmeans_k1000_iter30 (`tol=1e-20, maxIter=30, initMode="random"`) on
+   phase 5's (b) rows, 1,000,000 x 3000, from a DeviceDataset and from
+   numpy, with a transform of 1,000,000 rows from numpy, (j) DBSCAN on
+   bench.py's 300,000 x 16 blobs (60 centres, std 0.6, eps 1.2,
+   min_samples 5) at the default byte cap and at 4096 MB, and in float64,
+   (k) float64: KMeans k=10 on 200,000 x 256 with weights and DBSCAN on
+   50,000 rows of blobs, on the card and on the CPU.  Each KMeans cell:
+   the fit, the layers of a Lloyd pass (assign, update, and a one-hot
+   matmul update beside it), the row norms, the seeding and the shift
+   fetch, each beside its bound; held: trainingCost within 1e-5 of a
+   float64 recomputation, the first three iterations from the fit's own
+   initial centres against float64 on the card (each update within 1e-4
+   of the float64 update of the same assignment; every row the float64
+   distances assign elsewhere a near tie, 1e-5; at (h) an independent
+   float64 Lloyd within 1e-4), the cost of every pass non-increasing
+   (1e-6).  (j): sweeps, a pass beside its bounds, clusters and noise;
+   held: the two caps give equal labels, and the float32 labels against
+   float64 (ARI 0.999, or no more than N / 10,000 rows in another cluster,
+   each in or next to a pair that float32 rounding decides).  (k): the
+   card's centres within 1e-9 of the CPU's, the labels equal.  Then the
+   KMeans model of (h) and a DBSCAN model saved and loaded.
 
 The last lines of standard output are a JSON object of the logistic
-cells' numbers, one of the PCA and LinearRegression cells' numbers, a
-JSON object of the kernels' numbers, the card's name and power limit,
-and
+cells' numbers, one of the PCA and LinearRegression cells' numbers, one
+of the clustering cells' numbers, a JSON object of the kernels' numbers,
+the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
 """
@@ -1576,6 +1603,567 @@ def phase_persistence(main: dict, logistic: dict, pca_linear: dict) -> None:
             raise AssertionError(f"the loaded {label} answers differently")
 
 
+# ---- KMeans and DBSCAN ---------------------------------------------------------
+
+
+def _blocks(n: int, rows: int):
+    for lo in range(0, n, rows):
+        yield slice(lo, min(lo + rows, n))
+
+
+def _share(bound_ms: float, ms: float) -> str:
+    return f"bound {bound_ms:.3f} ms, share {bound_ms / ms:.1%}"
+
+
+def _sqdist64(Xb, C64):
+    """(rows, k) float64 squared distances of a block (cast on the card)."""
+    import torch
+
+    Xb = Xb.double()
+    d2 = torch.addmm((Xb * Xb).sum(1)[:, None], Xb, C64.T, alpha=-2.0)
+    return d2.add_((C64 * C64).sum(1)).clamp_(min=0.0)
+
+
+def cost64(X, w, C, rows: int) -> float:
+    """The weighted cost of centres C over the card's rows X, in float64
+    (DGEMM over row blocks): the reference for `trainingCost`."""
+    import torch
+
+    C64 = torch.as_tensor(C, device=X.device).double()
+    total = torch.zeros((), dtype=torch.float64, device=X.device)
+    for b in _blocks(X.shape[0], rows):
+        total += (_sqdist64(X[b], C64).min(dim=1).values * w[b].double()).sum()
+    return float(total)
+
+
+def lloyd_vs_float64(X, w, C0, iters: int, rows: int) -> dict:
+    """`iters` Lloyd iterations of the port from C0 (its `assign`,
+    `lloyd_pass` and centre update, in X's dtype) against float64 on the
+    card, per iteration:
+    - step: the float64 update over the port's own assignment, from the
+      port's current centres: the update's arithmetic (centres_rel_step);
+    - assignment: the float64 nearest centre from the same centres: the
+      rows assigned differently (flips_step) and the largest relative gap
+      of their two float64 distances (a flip is right only at a near tie);
+    - trajectory: an independent float64 Lloyd from C0 (centres_rel,
+      flips against it)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import kmeans as km
+
+    n = X.shape[0]
+    k, d = C0.shape
+    C32, C64 = C0.to(X.dtype), C0.double()
+    x2 = km.row_norms(X)
+    unweighted = bool((w == 1).all())
+    z = dict(dtype=torch.float64, device=X.device)
+
+    def mean(s, c, old):
+        return torch.where(c[:, None] > 0, s / torch.where(c > 0, c, 1.0)[:, None], old)
+
+    out = {"centres_rel_step": [], "flips_step": [], "flip_gap_max": [], "centres_rel": [],
+           "flips": []}
+    for _ in range(iters):
+        sums, counts = km.lloyd_pass(X, w, C32, x2, rows, unweighted)[:2]
+        s_step, c_step = torch.zeros((k, d), **z), torch.zeros(k, **z)
+        s64, c64 = torch.zeros((k, d), **z), torch.zeros(k, **z)
+        flips_step = torch.zeros((), dtype=torch.int64, device=X.device)
+        flips = torch.zeros((), dtype=torch.int64, device=X.device)
+        gap = torch.zeros((), **z)
+        C32d = C32.double()
+        for b in _blocks(n, rows):
+            Xb, wb = X[b].double(), w[b].double()
+            lab32 = km.assign(X[b], C32, x2[b])[0]
+            d2 = _sqdist64(X[b], C32d)
+            lab_same = d2.argmin(dim=1)
+            flip = lab_same != lab32
+            flips_step += flip.sum()
+            if bool(flip.any()):
+                a = d2[flip].gather(1, lab32[flip][:, None])[:, 0]
+                m = d2[flip].gather(1, lab_same[flip][:, None])[:, 0]
+                gap = torch.maximum(gap, ((a - m) / m.clamp_min(1e-300)).max())
+            s_step.index_add_(0, lab32, Xb * wb[:, None])
+            c_step.index_add_(0, lab32, wb)
+            lab64 = _sqdist64(X[b], C64).argmin(dim=1)
+            flips += (lab64 != lab32).sum()
+            s64.index_add_(0, lab64, Xb * wb[:, None])
+            c64.index_add_(0, lab64, wb)
+        step = mean(s_step, c_step, C32d)
+        C32, _ = km._lloyd_center_update(C32, sums, counts)
+        C64 = mean(s64, c64, C64)
+        out["centres_rel_step"].append(float((C32.double() - step).abs().max() / step.abs().max()))
+        out["flips_step"].append(int(flips_step))
+        out["flip_gap_max"].append(float(gap))
+        out["centres_rel"].append(float((C32.double() - C64).abs().max() / C64.abs().max()))
+        out["flips"].append(int(flips))
+    return out
+
+
+def kmeans_layers(X, w, C, seed_args, rows: int) -> dict:
+    """The layers of one Lloyd pass timed apart with CUDA events at the
+    fit's centres and block rows, and the seeding and the shift fetch on
+    the host's clock, each beside its bound."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import kmeans as km
+
+    n, d = X.shape
+    k = C.shape[0]
+    isz = X.element_size()
+    unweighted = bool((w == 1).all())
+    x2 = km.row_norms(X)
+    blocks = list(_blocks(n, rows))
+    out = {"block_rows": rows, "blocks_per_pass": len(blocks)}
+    out["row_norms_ms"] = cuda_ms(lambda: km.row_norms(X), reps=2)
+    out["row_norms_bound_ms"] = n * d * isz / _PEAK_BYTES_PER_S * 1e3
+    out["assign_ms"] = cuda_ms(lambda: [km.assign(X[b], C, x2[b]) for b in blocks], reps=3)
+    # the function: X and x2 read once, labels (int64) and distances written
+    out["assign_bound_ms"], out["assign_bound_by"] = _fp32_bound_ms(
+        n * d * isz + n * (isz + 8 + isz), 2.0 * n * d * k)
+    labels = torch.cat([km.assign(X[b], C, x2[b])[0] for b in blocks])
+
+    def update():
+        for b in blocks:
+            part = torch.zeros((k, d), dtype=X.dtype, device=X.device)
+            part.index_add_(0, labels[b], X[b] if unweighted else X[b] * w[b][:, None])
+            torch.zeros(k, dtype=X.dtype, device=X.device).index_add_(0, labels[b], w[b])
+
+    def update_onehot():
+        for b in blocks:
+            onehot = torch.nn.functional.one_hot(labels[b], k).to(X.dtype) * w[b][:, None]
+            onehot.T @ X[b]
+
+    out["update_ms"] = cuda_ms(update, reps=3)
+    out["update_bound_ms"] = (n * d * isz + n * (8 + isz)) / _PEAK_BYTES_PER_S * 1e3
+    from spark_rapids_ml_torch.ops.precision import ieee_matmul
+
+    with ieee_matmul():
+        out["update_onehot_matmul_ms"] = cuda_ms(update_onehot, reps=2)
+    del labels
+    prev = torch.full((n,), -1, dtype=torch.int32, device=X.device)
+    out["pass_ms"] = cuda_ms(lambda: km.lloyd_pass(X, w, C, x2, rows, unweighted, prev), reps=3)
+    del prev
+    out["pass_bound_ms"], out["pass_bound_by"] = _fp32_bound_ms(
+        n * d * isz + n * isz, 2.0 * n * d * k)
+    # the shift fetch: one scalar to the host, the card idle
+    shift2 = ((C - C) ** 2).sum(1).max()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        float(shift2)
+    out["shift_fetch_ms"] = (time.perf_counter() - t0) * 10.0
+    Xs, ws, k_, seed, init = seed_args
+    km._seed(Xs, ws, k_, seed, init, 2, 2.0)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    km._seed(Xs, ws, k_, seed, init, 2, 2.0)
+    torch.cuda.synchronize()
+    out["seed_ms"] = (time.perf_counter() - t0) * 1e3
+    out["seed_rows"] = int(Xs.shape[0])
+    return out
+
+
+def phase_kmeans_cell(device, name: str, X, w, k: int, fit_kw: dict, host_X=None,
+                      hold_trajectory: bool = True) -> dict:
+    """One KMeans cell through the public entry points, from the rows of
+    the DeviceDataset-like (X, w) on the card: the fit (and, with
+    `host_X`, a fit from numpy and a transform from numpy), its layers
+    beside their bounds, and the checks: trainingCost against a float64
+    recomputation (1e-5); the first three iterations from the fit's own
+    initial centres against float64 (`lloyd_vs_float64`): every update
+    within 1e-4 of the float64 update of the same assignment, every row
+    the float64 distances assign elsewhere a near tie (1e-5), and with
+    `hold_trajectory` an independent float64 Lloyd within 1e-4; the cost of
+    every pass non-increasing."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch.clustering import KMeans
+    from spark_rapids_ml_torch.ops import kmeans as km
+
+    n, d = X.shape
+    rec = {"cell": name, "rows": n, "cols": d, "k": k, "dtype": "float32", "params": fit_kw}
+    ds = DeviceDataset(device, X, n, weight=w)
+
+    def make():
+        return KMeans(k=k, **fit_kw)
+
+    rec["fit_s"], model, gb = _timed_fit(make, ds, device)
+    fit = dict(km.LAST_FIT)
+    rec.update(n_iter=model.n_iter_, moved=fit["moved"], stepwise=fit["stepwise"],
+               seed_stride=fit["stride"],
+               seed_rows=fit["init_rows"], rows_per_s=n / rec["fit_s"],
+               max_memory_allocated_GB=gb,
+               fit_memory_total_GB=torch.cuda.max_memory_allocated(device) / 1e9)
+    costs = fit["costs"]
+    rec["costs"] = costs
+    log(f"  {name}: fit from a DeviceDataset {rec['fit_s']:.3f} s ({rec['rows_per_s']:,.0f} "
+        f"rows/s), {model.n_iter_} iterations (rows moved per pass {fit['moved']}), stepwise "
+        f"branch {fit['stepwise']} (seeding on "
+        f"{fit['init_rows']} rows, stride {fit['stride']}), {fit['rows']} rows per block; "
+        f"memory the fit adds {gb:.2f} GB (max_memory_allocated {rec['fit_memory_total_GB']:.2f}"
+        f" GB with the rows)")
+    C = torch.tensor(model.cluster_centers_, device=device)
+    p = make()._tpu_params
+    seed, init = int(p["random_state"]), str(p["init"])
+    # the rows the fit seeded on
+    Xs, ws = ((X[::fit["stride"]].contiguous(), w[::fit["stride"]].contiguous())
+              if fit["stride"] > 1 else (X, w))
+    L = kmeans_layers(X, w, C, (Xs, ws, k, seed, init), fit["rows"])
+    rec["layers"] = L
+    log(f"  {name}: one Lloyd pass {L['pass_ms']:.3f} ms ({_share(L['pass_bound_ms'], L['pass_ms'])}"
+        f" by {L['pass_bound_by']}): assign {L['assign_ms']:.3f} ms ("
+        f"{_share(L['assign_bound_ms'], L['assign_ms'])} by {L['assign_bound_by']}), update "
+        f"(index_add_) {L['update_ms']:.3f} ms ({_share(L['update_bound_ms'], L['update_ms'])} by "
+        f"bytes; a one-hot matmul update would take {L['update_onehot_matmul_ms']:.3f} ms); "
+        f"{L['blocks_per_pass']} blocks; row norms once per fit {L['row_norms_ms']:.3f} ms "
+        f"({_share(L['row_norms_bound_ms'], L['row_norms_ms'])}); seeding {L['seed_ms']:.3f} ms on "
+        f"{L['seed_rows']} rows; shift fetch {L['shift_fetch_ms']:.4f} ms; final cost = one pass")
+    wall_ms, rec["device_busy_share"] = device_busy_share(lambda: make().fit(ds))
+    log(f"  {name}: one fit under torch.profiler {wall_ms:.1f} ms, the card busy in kernels "
+        f"{rec['device_busy_share'] or 0:.1%} of it")
+
+    # checks
+    ref = cost64(X, w, C, fit["rows"])
+    rec["cost_rel_float64"] = abs(model.summary.trainingCost - ref) / ref
+    rises = [(b - a) / a for a, b in zip(costs, costs[1:])]
+    rec["cost_largest_rise"] = max(rises) if rises else 0.0
+    C0 = km._seed(Xs, ws, k, seed, init, 2, 2.0)  # the fit's own initial centres
+    del Xs, ws
+    lv = lloyd_vs_float64(X, w, C0, 3, fit["rows"])
+    rec["three_iterations_vs_float64"] = lv
+    log(f"  {name}: trainingCost {model.summary.trainingCost!r} vs float64 recomputation "
+        f"{ref!r}: {rec['cost_rel_float64']:.3e} relative (limit 1e-5); the cost of the "
+        f"{len(costs)} passes: largest relative rise {rec['cost_largest_rise']:.3e} (limit 1e-6, "
+        f"rounding of the float32 distances)")
+    log(f"  {name}: three iterations from the fit's initial centres against float64 on the "
+        f"card: each update against the float64 update of the same assignment "
+        f"{lv['centres_rel_step']} relative (limit 1e-4); rows the float64 distances assign "
+        f"elsewhere {lv['flips_step']}, their largest relative gap {lv['flip_gap_max']} (limit "
+        f"1e-5: a near tie); an independent float64 Lloyd: centres {lv['centres_rel']} relative "
+        f"(limit 1e-4{'' if hold_trajectory else ' not held here: a flipped row moves a centre of about n / k rows by a share of its norm'}), rows assigned "
+        f"differently {lv['flips']}")
+    if (not np.isfinite(model.cluster_centers_).all() or model.cluster_centers_.shape != (k, d)
+            or rec["cost_rel_float64"] > 1e-5 or max(lv["centres_rel_step"]) > 1e-4
+            or max(lv["flip_gap_max"]) > 1e-5
+            or (hold_trajectory and max(lv["centres_rel"]) > 1e-4)
+            or rec["cost_largest_rise"] > 1e-6):
+        raise AssertionError(f"{name}: the KMeans fit fails its checks")
+
+    if host_X is not None:
+        rec["fit_numpy_s"], model_np, gb = _timed_fit(make, host_X, device)
+        rec["max_memory_allocated_GB_numpy"] = gb
+        same = (np.array_equal(model_np.cluster_centers_, model.cluster_centers_)
+                and model_np.inertia_ == model.inertia_)
+        rec["numpy_fit_bit_equal"] = same
+        rec["numpy_fit_cost_rel"] = abs(model_np.inertia_ - model.inertia_) / model.inertia_
+        rec["numpy_fit_centres_rel"] = float(
+            np.abs(model_np.cluster_centers_ - model.cluster_centers_).max()
+            / np.abs(model.cluster_centers_).max())
+        log(f"  {name}: fit from numpy (staging included) {rec['fit_numpy_s']:.3f} s "
+            f"({n / rec['fit_numpy_s']:,.0f} rows/s), memory it adds {gb:.2f} GB; against the "
+            f"DeviceDataset fit: bit-equal {same}, cost {rec['numpy_fit_cost_rel']:.3e}, centres "
+            f"{rec['numpy_fit_centres_rel']:.3e} relative")
+        rows = min(n, 1_000_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lab = model.transform(host_X[:rows])
+        t_tr = time.perf_counter() - t0
+        rec["transform_rows_per_s"] = rows / t_tr
+        want = torch.cat([km.assign(X[b], C.to(X.dtype))[0]
+                          for b in _blocks(rows, fit["rows"])]).cpu().numpy()
+        agree = float((lab == want).mean())
+        rec["transform_agree"] = agree
+        log(f"  {name}: transform of {rows} rows from numpy {t_tr:.3f} s "
+            f"({rec['transform_rows_per_s']:,.0f} rows/s); labels equal to the card's assign "
+            f"over the fit's blocks on {agree:.6f} of rows (limit 0.999: other row counts may "
+            f"take other cuBLAS kernels, which can move a near tie)")
+        if lab.dtype != np.int32 or agree < 0.999:
+            raise AssertionError(f"{name}: transform labels are wrong")
+    rec["model"] = model
+    return rec
+
+
+def make_blobs(n: int, d: int, centres: int, std: float, seed: int):
+    """scikit-learn's `make_blobs` (the card has no scikit-learn): centres
+    uniform in (-10, 10)^d, n // centres rows each (the first n % centres
+    take one more), gaussian with `std`, rows shuffled."""
+    rng = np.random.default_rng(seed)
+    cent = rng.uniform(-10.0, 10.0, (centres, d))
+    sizes = np.full(centres, n // centres)
+    sizes[: n % centres] += 1
+    idx = np.repeat(np.arange(centres), sizes)
+    X = cent[idx] + std * rng.standard_normal((n, d))
+    perm = rng.permutation(n)
+    return X[perm], idx[perm]
+
+
+def adjusted_rand(a, b) -> float:
+    """Adjusted Rand index of two labelings (noise, -1, a label like any)."""
+    _, ai = np.unique(a, return_inverse=True)
+    _, bi = np.unique(b, return_inverse=True)
+    _, nij = np.unique(ai.astype(np.int64) * (bi.max() + 1) + bi, return_counts=True)
+
+    def pairs(x):
+        x = np.asarray(x, np.float64)
+        return (x * (x - 1) / 2).sum()
+
+    s, sa, sb = pairs(nij), pairs(np.bincount(ai)), pairs(np.bincount(bi))
+    expected = sa * sb / pairs([len(a)])
+    top = (sa + sb) / 2
+    return 1.0 if top == expected else float((s - expected) / (top - expected))
+
+
+def partition_differences(a, c) -> np.ndarray:
+    """Rows of labeling `a` that do not sit in the cluster of `c` that shares
+    the most rows with their cluster of `a` (noise, -1, matched to noise)."""
+    m = int(c.max()) + 2
+    keys = (a.astype(np.int64) + 1) * m + (c.astype(np.int64) + 1)
+    uk, cnt = np.unique(keys, return_counts=True)
+    partner = np.full(int(a.max()) + 2, -1)  # by label + 1; noise stays -1
+    for la in np.unique(a[a >= 0]):
+        sel = (uk // m) == la + 1
+        partner[la + 1] = uk[sel][np.argmax(cnt[sel])] % m - 1
+    return np.flatnonzero(partner[a + 1] != c)
+
+
+def _f32_slack(x2_a, x2_b, d: int):
+    """A bound on the float32 rounding of x2_a - 2 a.b + x2_b (the
+    matmul identity): (2 d + 4) u (x2_a + x2_b), u = 2^-24."""
+    return (2 * d + 4) * 2.0 ** -24 * (x2_a + x2_b)
+
+
+def near_threshold_rows(Xt, eps: float, rows: int = 512):
+    """Rows of the card's rows Xt in a pair whose float64 squared distance
+    lies within the float32 rounding bound of eps^2 (a pair float32 may
+    decide either way), as a bool tensor."""
+    import torch
+
+    X64 = Xt.double()
+    x2 = (X64 * X64).sum(1)
+    e2, d = eps * eps, X64.shape[1]
+    out = torch.zeros(X64.shape[0], dtype=torch.bool, device=Xt.device)
+    for b in _blocks(X64.shape[0], rows):
+        d2 = torch.addmm(x2[b][:, None], X64[b], X64.T, alpha=-2.0).add_(x2)
+        out[b] = ((d2 - e2).abs() <= _f32_slack(x2[b][:, None], x2, d)).any(dim=1)
+    return out
+
+
+def explained_by_near_ties(Xt, diff, eps: float) -> int:
+    """How many of the rows `diff` sit in such a near-threshold pair or
+    have a float64 eps-neighbour (within the slack) that does: a degree,
+    and so a core mark, that float32 rounding may decide."""
+    near = near_threshold_rows(Xt, eps)
+    X64 = Xt.double()
+    x2 = (X64 * X64).sum(1)
+    explained = 0
+    for r in diff.tolist():
+        d2 = x2[r] - 2.0 * (X64 @ X64[r]) + x2
+        nb = d2 <= eps * eps + _f32_slack(x2[r], x2, X64.shape[1])
+        explained += int(bool(near[r]) or bool((near & nb).any()))
+    return explained
+
+
+def phase_dbscan_cell(device, name: str, X, eps: float, min_samples: int) -> dict:
+    """DBSCAN through the public entry points at the default byte cap and
+    at 4096 MB: time, sweeps, time per pass beside its bounds, clusters and
+    noise; held: the float32 labels against a float64 run on the card
+    (ARI >= 0.999)."""
+    import torch
+
+    from spark_rapids_ml_torch.clustering import DBSCAN
+    from spark_rapids_ml_torch.ops import dbscan as db
+
+    n, d = X.shape
+    rec = {"cell": name, "rows": n, "cols": d, "eps": eps, "min_samples": min_samples, "runs": {}}
+    # one pass over all N^2 pairs: the function reads X once and does 2 N^2 d
+    # operations; the torch form also writes and reads the N^2 float32 distances
+    rec["pass_bound_ms"] = 2.0 * n * n * d / _PEAK_FP32 * 1e3
+    rec["pass_materialised_bound_ms"] = 2.0 * n * n * 4 / _PEAK_BYTES_PER_S * 1e3
+    labels = {}
+    for cap, dtype in ((None, np.float32), (4096, np.float32), (4096, np.float64)):
+        key = f"{'default' if cap is None else cap} MB {np.dtype(dtype).name}"
+        kw = dict(eps=eps, min_samples=min_samples, float32_inputs=dtype == np.float32)
+        if cap:
+            kw["max_mbytes_per_batch"] = cap
+        t, model, gb = _timed_fit(lambda: DBSCAN(**kw), X, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        lab = model.transform(X.astype(dtype))
+        torch.cuda.synchronize()
+        r = dict(db.LAST_RUN, seconds=time.perf_counter() - t0,
+                 max_memory_allocated_GB=(torch.cuda.max_memory_allocated(device) - base) / 1e9)
+        r["passes"] = r["sweeps"] + 2
+        r["clusters"] = int(lab.max() + 1)
+        r["noise_share"] = float((lab == -1).mean())
+        # one pass timed alone on the card
+        Xt = torch.tensor(X.astype(dtype), device=device)
+        x2 = (Xt * Xt).sum(1)
+        valid = torch.ones(n, dtype=Xt.dtype, device=device)
+        lab0 = torch.full((n,), n, dtype=torch.int32, device=device)
+        e = torch.tensor(eps, dtype=Xt.dtype, device=device)
+        one_pass = lambda: db._reduce(Xt, x2, valid, lab0, e * e, n, r["block"])  # noqa: E731
+        r["pass_ms"] = cuda_ms(one_pass, reps=1)
+        if cap is not None and dtype == np.float32:
+            wall, r["device_busy_share"] = device_busy_share(lambda: model.transform(X))
+        else:
+            wall, r["device_busy_share_one_pass"] = device_busy_share(one_pass)
+        del Xt, x2, valid, lab0
+        rec["runs"][key] = r
+        labels[key] = lab
+        log(f"  {name}, cap {key}: {r['seconds']:.2f} s, {r['sweeps']} sweeps ({r['passes']} "
+            f"passes of {r['tiles_per_pass']} tiles of {r['block']} columns), a pass "
+            f"{r['pass_ms']:.1f} ms on the card (bound {rec['pass_bound_ms']:.1f} ms by "
+            f"operations, share {rec['pass_bound_ms'] / r['pass_ms']:.1%}; the written and read "
+            f"N^2 distances {rec['pass_materialised_bound_ms']:.1f} ms, share "
+            f"{rec['pass_materialised_bound_ms'] / r['pass_ms']:.1%}); {r['clusters']} clusters, "
+            f"noise {r['noise_share']:.4f}; memory the transform adds "
+            f"{r['max_memory_allocated_GB']:.2f} GB; card busy "
+            f"{r.get('device_busy_share', r.get('device_busy_share_one_pass')) or 0:.1%}"
+            f"{'' if 'device_busy_share' in r else ' (one pass)'}")
+    a, b, c = labels.values()
+    rec["ari_float32_vs_float64"] = adjusted_rand(a, c)
+    diff = partition_differences(a, c)
+    rec["rows_differ_float32_vs_float64"] = int(diff.size)
+    rec["caps_equal"] = bool(np.array_equal(a, b))
+    # a row may differ only where float32 rounding decides a pair at eps
+    rec["rows_differ_explained"] = explained_by_near_ties(
+        torch.tensor(X, device=device), diff, eps) if diff.size else 0
+    log(f"  {name}: float32 (default cap) vs float64 labels: ARI "
+        f"{rec['ari_float32_vs_float64']:.6f} (limit 0.999), {diff.size} rows in another "
+        f"cluster, {rec['rows_differ_explained']} of them in or next to a pair whose float64 "
+        f"squared distance lies within float32's rounding bound of eps^2; the two caps give "
+        f"equal labels: {rec['caps_equal']}")
+    if not rec["caps_equal"] or rec["rows_differ_explained"] < diff.size or (
+            rec["ari_float32_vs_float64"] < 0.999 and diff.size > max(1, n // 10_000)):
+        raise AssertionError(f"{name}: DBSCAN labels fail their checks")
+    return rec
+
+
+def phase_clustering_float64(device, n: int, n_dbscan: int, seed: int) -> dict:
+    """(k): float64, KMeans k=10 on n x 256 rows of ten blobs with sample
+    weights, and DBSCAN on n_dbscan rows of ten 16-wide blobs (std 0.3,
+    eps 1.2) and 500 uniform rows, on the card and on the CPU: the same
+    centres (1e-9) and the same labels."""
+    import torch
+
+    from spark_rapids_ml_torch import set_default_device
+    from spark_rapids_ml_torch.clustering import DBSCAN, KMeans
+
+    d, k = 256, 10
+    rng = np.random.default_rng(seed)
+    cent = rng.uniform(-5.0, 5.0, (k, d))
+    X = cent[rng.integers(k, size=n)] + rng.standard_normal((n, d))
+    w = rng.uniform(0.2, 2.0, n)
+    blobs, _ = make_blobs(n_dbscan - 500, 16, k, 0.3, seed=seed + 1)
+    Xd = np.concatenate([blobs, rng.uniform(-10.0, 10.0, (500, 16))])
+    name = f"(k) KMeans k={k} on {n}x{d} (weights) and DBSCAN on {n_dbscan}x16 blobs, float64"
+    rec = {"cell": name, "rows": n, "cols": d, "dtype": "float64"}
+    out = {}
+    for where, on_card in ((device, True), ("cpu", False)):
+        set_default_device(where)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        m = KMeans(k=k, seed=0, float32_inputs=False).setWeightCol("wt").fit(
+            {"features": X, "wt": w})
+        t_km = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lab = DBSCAN(eps=1.2, min_samples=5, float32_inputs=False).fit(Xd).transform(Xd)
+        out[on_card] = (m, lab, t_km, time.perf_counter() - t0)
+        if on_card:
+            rec["max_memory_allocated_GB"] = torch.cuda.max_memory_allocated(device) / 1e9
+            _, rec["device_busy_share_kmeans"] = device_busy_share(
+                lambda: KMeans(k=k, seed=0, float32_inputs=False).setWeightCol("wt").fit(
+                    {"features": X, "wt": w}))
+    set_default_device(device)
+    (mg, lg, tg, tdg), (mc, lc, tc, tdc) = out[True], out[False]
+    Cg, Cc = mg.cluster_centers_, mc.cluster_centers_
+    dist = np.sqrt(((Cg[:, None] - Cc[None]) ** 2).sum(-1))
+    match = dist.argmin(axis=1)
+    rec.update(card_kmeans_s=tg, cpu_kmeans_s=tc, card_dbscan_s=tdg, cpu_dbscan_s=tdc,
+               centres_rel=float(dist.min(axis=1).max() / np.abs(Cc).max()),
+               cost_rel=abs(mg.inertia_ - mc.inertia_) / mc.inertia_,
+               dbscan_labels_equal=bool(np.array_equal(lg, lc)),
+               dbscan_clusters=int(lg.max() + 1), dbscan_noise=int((lg == -1).sum()))
+    log(f"  {name}: KMeans card {tg:.2f} s ({mg.n_iter_} iterations), CPU {tc:.2f} s "
+        f"({mc.n_iter_}); centres {rec['centres_rel']:.3e} and cost {rec['cost_rel']:.3e} "
+        f"relative (limit 1e-9); DBSCAN card {tdg:.2f} s, CPU {tdc:.2f} s, labels equal "
+        f"{rec['dbscan_labels_equal']} ({rec['dbscan_clusters']} clusters, "
+        f"{rec['dbscan_noise']} noise rows); max_memory_allocated "
+        f"{rec['max_memory_allocated_GB']:.2f} GB; card busy in a KMeans fit "
+        f"{rec['device_busy_share_kmeans'] or 0:.1%}")
+    if (sorted(match) != list(range(k)) or rec["centres_rel"] > 1e-9 or rec["cost_rel"] > 1e-9
+            or not rec["dbscan_labels_equal"] or rec["dbscan_clusters"] != k):
+        raise AssertionError(f"{name}: the card's clustering differs from the CPU's")
+    return rec
+
+
+def phase_clustering(device, args, wide_X) -> dict:
+    """(h) KMeans k=20 at BASELINE.json's 100M x 64, (i) the reference
+    benchmark's kmeans_k1000_iter30 on phase 5's 1M x 3000 rows, (j) DBSCAN
+    on bench.py's 300k x 16 blobs, (k) float64 card against CPU; then the
+    KMeans and DBSCAN models saved and loaded."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch.clustering import DBSCAN, DBSCANModel, KMeansModel
+
+    cells = []
+    torch.cuda.empty_cache()
+    n = args.h_rows
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    X = torch.randn((n, 64), generator=gen, device=device, dtype=torch.float32)
+    w = torch.ones(n, device=device)
+    torch.cuda.synchronize()
+    log(f"  (h) data {tuple(X.shape)} float32 standard normal, made on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+    cells.append(phase_kmeans_cell(device, f"(h) KMeans k=20 {n}x64", X, w, 20,
+                                   dict(seed=0, maxIter=20)))
+    km_model, X_h = cells[-1].pop("model"), X[:100_000].cpu().numpy()
+    del X, w
+    torch.cuda.empty_cache()
+
+    Xi = wide_X
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = DeviceDataset.from_host(Xi, dtype=np.float32)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    log(f"  (i) phase 5's (b) rows {Xi.shape} staged into a DeviceDataset: {t_stage:.2f} s "
+        f"({Xi.nbytes / t_stage / 1e9:.2f} GB/s)")
+    cells.append(phase_kmeans_cell(
+        device, f"(i) kmeans_k1000_iter30 {Xi.shape[0]}x{Xi.shape[1]}", ds.X, ds.weight, 1000,
+        dict(tol=1e-20, maxIter=30, initMode="random"), host_X=Xi, hold_trajectory=False))
+    cells[-1]["staging_s"] = t_stage
+    cells[-1].pop("model")
+    del ds
+    torch.cuda.empty_cache()
+
+    Xj, _ = make_blobs(args.j_rows, 16, 60, 0.6, seed=9)
+    Xj = Xj.astype(np.float32)
+    cells.append(phase_dbscan_cell(device, f"(j) DBSCAN {args.j_rows}x16 blobs", Xj, 1.2, 5))
+    torch.cuda.empty_cache()
+    cells.append(phase_clustering_float64(device, args.k_rows, args.k_dbscan_rows,
+                                          args.seed + 61))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        km_model.save(os.path.join(tmp, "km"))
+        loaded = KMeansModel.load(os.path.join(tmp, "km"))
+        DBSCAN(eps=1.2, min_samples=5).fit(Xj).save(os.path.join(tmp, "db"))
+        db = DBSCANModel.load(os.path.join(tmp, "db"))
+    same = np.array_equal(km_model.transform(X_h), loaded.transform(X_h))
+    log(f"  KMeansModel of (h) save + load; transform of {len(X_h)} rows after load identical: "
+        f"{same}; DBSCANModel save + load keeps eps {db.getEps()} and min_samples "
+        f"{db.getMinSamples()}")
+    if not same or db.getEps() != 1.2 or db.getMinSamples() != 5:
+        raise AssertionError("the loaded clustering models differ")
+    return {"cells": cells}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -1618,6 +2206,10 @@ def main() -> int:
     ap.add_argument("--pca-rows", type=int, default=1_000_000)
     ap.add_argument("--pca-dim", type=int, default=128)
     ap.add_argument("--g-rows", type=int, default=200_000)
+    ap.add_argument("--h-rows", type=int, default=100_000_000)
+    ap.add_argument("--j-rows", type=int, default=300_000)
+    ap.add_argument("--k-rows", type=int, default=200_000)
+    ap.add_argument("--k-dbscan-rows", type=int, default=50_000)
     args = ap.parse_args()
 
     import torch
@@ -1670,9 +2262,15 @@ def main() -> int:
     log("phase 7: persistence")
     phase_persistence(main_out, logistic, pca_linear)
 
+    log("phase 8: KMeans and DBSCAN: (h) KMeans k=20 at BASELINE.json's 100M x 64, (i) the "
+        "reference benchmark's kmeans_k1000_iter30 at 1M x 3000, (j) DBSCAN on bench.py's "
+        "300k x 16 blobs, (k) float64, card against CPU")
+    clustering = phase_clustering(device, args, pca_linear.pop("X_f"))
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
+    print(json.dumps({"clustering": clustering["cells"]}))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

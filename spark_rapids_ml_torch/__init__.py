@@ -7,8 +7,9 @@
 #
 # Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`),
 # LogisticRegression (`spark_rapids_ml_torch.classification`), PCA
-# (`spark_rapids_ml_torch.feature`) and LinearRegression
-# (`spark_rapids_ml_torch.regression`), with the generic staged fit, the
+# (`spark_rapids_ml_torch.feature`), LinearRegression
+# (`spark_rapids_ml_torch.regression`), and KMeans and DBSCAN
+# (`spark_rapids_ml_torch.clustering`), with the generic staged fit, the
 # fused stage-and-solve pass, the chunked transform and `DeviceDataset`.
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
@@ -21,10 +22,11 @@ __version__ = "0.1.0"
 
 from . import config  # noqa: F401
 from .data import DeviceDataset  # noqa: F401
-from .models import classification, feature, knn, regression  # noqa: F401
+from .models import classification, clustering, feature, knn, regression  # noqa: F401
 from .parallel import get_default_device, set_default_device  # noqa: F401
 
 _sys.modules[__name__ + ".knn"] = knn
 _sys.modules[__name__ + ".classification"] = classification
+_sys.modules[__name__ + ".clustering"] = clustering
 _sys.modules[__name__ + ".feature"] = feature
 _sys.modules[__name__ + ".regression"] = regression

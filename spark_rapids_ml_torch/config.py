@@ -1,7 +1,7 @@
 #
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
-# keys the exact-kNN, LogisticRegression, PCA and LinearRegression slices
-# read.  The confs live in a process-global dict,
+# keys the exact-kNN, LogisticRegression, PCA, LinearRegression and
+# clustering slices read.  The confs live in a process-global dict,
 # overridable from the environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or
 # `set_config()`.  Key names and defaults match the JAX package, except
 # where a comment says otherwise; later slices add their keys here.
@@ -31,10 +31,11 @@ _DEFAULTS: Dict[str, Any] = {
     # Host staging budget in bytes: rows per chunk of the chunked
     # transform (core.py `_TpuModel._transform_mesh`, `chunk_rows_for`).
     "host_batch_bytes": 512 * 1024 * 1024,
-    # Accepted for the JAX package's conf surface and read by nothing: it
-    # sizes the JAX package's single-program solver against a TPU dispatch
-    # deadline, and the port always runs the host-driven solver
-    # (ops/logistic.py `logreg_fit_host_dispatch`).
+    # The JAX package's per-program operation budget.  LogisticRegression
+    # does not read it (the port always runs the host-driven solver,
+    # ops/logistic.py `logreg_fit_host_dispatch`); KMeans reads it for the
+    # JAX package's gate (ops/kmeans.py `kmeans_fit_auto`), which decides
+    # whether seeding sees every row or a strided subsample.
     "dispatch_flops_limit": 2e12,
     # bfloat16 feature storage for the L-BFGS matvecs.  Not ported yet:
     # True raises NotImplementedError (models/classification.py).

@@ -13,6 +13,7 @@ import numpy as np
 from .core import _ReadWriteMixin
 from .data import _is_sparse
 from .models.classification import LogisticRegressionModel
+from .models.clustering import KMeansModel
 from .models.feature import PCAModel
 from .models.knn import NearestNeighborsModel
 from .models.regression import LinearRegressionModel
@@ -113,6 +114,26 @@ def linreg_model_to_reference_attributes(model: LinearRegressionModel) -> Dict[s
         "rmse_": float(model.rmse_),
         "mse_": float(model.mse_),
         "r2_": float(model.r2_),
+        "n_cols": int(model.n_cols),
+        "dtype": str(model.dtype),
+    }
+
+
+def kmeans_model_from_reference(attrs: Dict[str, Any], params: Dict[str, Any]) -> KMeansModel:
+    """A port `KMeansModel` from the JAX model's attributes and param maps.
+    (A DBSCAN model carries only params: `_restore_params` on a fresh
+    `DBSCANModel` carries it.)"""
+    model = KMeansModel(**dict(attrs))
+    _ReadWriteMixin._restore_params(model, params)
+    return model
+
+
+def kmeans_model_to_reference_attributes(model: KMeansModel) -> Dict[str, Any]:
+    """The attributes the JAX `KMeansModel(**attrs)` takes."""
+    return {
+        "cluster_centers_": np.array(model.cluster_centers_),
+        "inertia_": float(model.inertia_),
+        "n_iter_": int(model.n_iter_),
         "n_cols": int(model.n_cols),
         "dtype": str(model.dtype),
     }

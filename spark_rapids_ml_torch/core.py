@@ -171,6 +171,13 @@ class _Writer:
             os.remove(npz_path)  # stale arrays from a previous overwrite-save
         if arrays:
             np.savez(npz_path, **arrays)
+        # the JAX package keeps a fit's drift fingerprint beside the arrays;
+        # the port writes none yet, so one left by an earlier save of the
+        # path would attach itself to this model when the JAX package loads
+        # it
+        fp_path = os.path.join(path, "drift_baseline.bin")
+        if os.path.exists(fp_path):
+            os.remove(fp_path)
 
 
 def _load_metadata(path: str) -> Dict[str, Any]:

@@ -1,1 +1,1 @@
-from . import classification, feature, knn, regression  # noqa: F401
+from . import classification, clustering, feature, knn, regression  # noqa: F401

@@ -26,4 +26,6 @@ def sqdist(
         x2 = (X * X).sum(dim=1)
     with matmul_precision():
         qx = Q @ X.T
-    return torch.clamp_min(q2 - 2.0 * qx + x2, 0.0)
+    # in place, in the JAX form's order: (q2 - 2 qx) + x2, then the clamp;
+    # -2 qx is exact, so the roundings are those of q2 - 2.0 * qx + x2
+    return qx.mul_(-2.0).add_(q2).add_(x2).clamp_(min=0.0)

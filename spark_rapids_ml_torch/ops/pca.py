@@ -66,6 +66,20 @@ def _descending(evals: torch.Tensor, evecs: torch.Tensor):
     return evals.flip(0), evecs.flip(1)
 
 
+def _nan_outputs(mean: torch.Tensor, wsum: torch.Tensor, k: int):
+    """The outputs of a fit whose weights sum to 1 or less: the covariance
+    divides by wsum - 1 <= 0, and the JAX package returns NaN components,
+    variances, ratios and singular values beside the mean (its eigh of a
+    non-finite matrix); the port returns the same instead of letting
+    cuSOLVER or LAPACK raise."""
+    if float(wsum) - 1.0 > 0.0:
+        return None
+    d = mean.shape[0]
+    nan = torch.full((k,), float("nan"), dtype=mean.dtype, device=mean.device)
+    return mean, torch.full((k, d), float("nan"), dtype=mean.dtype, device=mean.device), \
+        nan, nan.clone(), nan.clone()
+
+
 def covariance(X: torch.Tensor, w: torch.Tensor):
     """(mean, wsum, cov): the weighted mean and the covariance
     A^T A / (wsum - 1) of the centred, weighted rows, summed over row
@@ -84,8 +98,12 @@ def pca_fit(X: torch.Tensor, w: torch.Tensor, k: int):
 
     Returns (mean (d,), components (k, d), explained_variance (k,),
     explained_variance_ratio (k,), singular_values (k,)) on X's device, in
-    X's dtype."""
+    X's dtype; all but the mean NaN when the weights sum to 1 or less, as
+    the JAX package returns."""
     mean, wsum, cov = covariance(X, w)
+    degenerate = _nan_outputs(mean, wsum, k)
+    if degenerate is not None:
+        return degenerate
     evals, evecs = _descending(*torch.linalg.eigh(cov))
     components = _svd_flip(evecs[:, :k].T)
     explained_variance = torch.clamp(evals[:k], min=0.0)
@@ -162,6 +180,9 @@ def pca_fit_randomized(X: torch.Tensor, w: torch.Tensor, k: int, l: int,
     ratio) comes from the per-column sums of squares; no d x d matrix is
     made.  `omega` (d, l) replaces the default `sketch(d, l)`."""
     mean, wsum = _weighted_mean(X, w)
+    degenerate = _nan_outputs(mean, wsum, k)
+    if degenerate is not None:
+        return degenerate
     d = X.shape[1]
     if omega is None:
         omega = sketch(d, l)

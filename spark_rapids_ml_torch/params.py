@@ -1,6 +1,6 @@
 #
 # Param system — the port of the parts of spark_rapids_ml_tpu/params.py the
-# kNN, LogisticRegression, PCA and LinearRegression slices use: a
+# kNN, LogisticRegression, PCA, LinearRegression and clustering slices use: a
 # pyspark.ml-style `Param`/`Params` implementation plus the Spark-name ->
 # backend-name mapping layer (`_TpuClass`/`_TpuParams`).  The backend param
 # dict keeps the name `_tpu_params` and persists under the same
@@ -392,6 +392,25 @@ class HasWeightCol(Params):
 
     def getWeightCol(self) -> str:
         return self.getOrDefault(self.weightCol)
+
+
+class HasSeed(Params):
+    seed = Param("_", "seed", "random seed.", TypeConverters.toInt)
+
+    def __init__(self) -> None:
+        super().__init__()
+        # the JAX package's per-class default: crc32 of the class name
+        # (Python's hash() is salted per process, crc32 is not)
+        import zlib
+
+        self._setDefault(seed=zlib.crc32(type(self).__name__.encode()) & 0x7FFFFFFF)
+
+    def getSeed(self) -> int:
+        return self.getOrDefault(self.seed)
+
+    def setSeed(self, value: int) -> "HasSeed":
+        self._set(seed=value)
+        return self
 
 
 class HasOutputCol(Params):

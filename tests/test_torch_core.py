@@ -221,6 +221,29 @@ def test_cross_load_sparse_from_jax(tmp_path):
     np.testing.assert_array_equal(_knn(loaded, Q)[0], _knn(ref, Q)[0])
 
 
+def test_overwrite_save_leaves_no_stale_drift_baseline(tmp_path):
+    """The JAX package fits PCA with its drift baseline on and saves it; the
+    port overwrite-saves another PCA model to the same path.  The JAX
+    package then loads the port's components with no fingerprint: the old
+    model's `drift_baseline.bin` is gone."""
+    from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_tpu.feature import PCA as JaxPCA
+    from spark_rapids_ml_tpu.feature import PCAModel as JaxPCAModel
+
+    rng = np.random.default_rng(14)
+    path = str(tmp_path / "model")
+    jax_config.set_config(drift_baseline="on")
+    ref = JaxPCA(k=2).fit(rng.normal(size=(500, 6)).astype(np.float32))
+    ref.save(path)
+    assert os.path.exists(os.path.join(path, "drift_baseline.bin"))
+    mine = PCA(k=2).fit(rng.normal(size=(500, 6)).astype(np.float32) * 3.0 + 1.0)
+    mine.write().overwrite().save(path)
+    assert not os.path.exists(os.path.join(path, "drift_baseline.bin"))
+    loaded = JaxPCAModel.load(path)
+    assert getattr(loaded, "_drift_baseline", None) is None
+    np.testing.assert_array_equal(loaded.components_, mine.components_)
+
+
 # ---------------------------------------------------------------------------
 # one-device staging
 # ---------------------------------------------------------------------------

@@ -75,6 +75,12 @@ def test_port_runs_with_jax_unimportable():
         "assert PCA(k=2).fit(X).transform(X).shape == (50, 2)\n"
         "yl = X @ np.arange(4.0) + 1.0\n"
         "assert abs(LinearRegression().fit((X, yl)).intercept - 1.0) < 1e-4\n"
+        "from spark_rapids_ml_torch.clustering import DBSCAN, KMeans\n"
+        "Xc = np.concatenate([X[:25] - 20.0, X[25:] + 20.0])\n"
+        "lab = KMeans(k=2, seed=1).fit(Xc).transform(Xc)\n"
+        "assert len(set(lab[:25])) == 1 and lab[0] != lab[-1]\n"
+        "lab = DBSCAN(eps=10.0, min_samples=3).fit(Xc).transform(Xc)\n"
+        "assert lab.tolist() == [0] * 25 + [1] * 25, lab\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

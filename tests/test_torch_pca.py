@@ -403,6 +403,35 @@ def test_what_raises():
         est.fit(X).cpu()
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("d", [6, 300])
+def test_one_row_of_weight_gives_the_jax_nan_model(d, dtype):
+    """One row of weight > 0: the covariance divides by wsum - 1 = 0.  Both
+    packages return the row as the mean and NaN components, variances,
+    ratios and singular values (d = 300 takes the randomized solver under
+    "auto", d = 6 the full one), with the fused pass off."""
+    X = np.random.default_rng(15).normal(size=(1, d)).astype(dtype)
+    f32 = dtype == np.float32
+    for cfg in (port_config, jax_config):
+        cfg.set_config(fused_stage_solve="off")
+    mine = PCA(k=2, float32_inputs=f32).fit(X)
+    assert port_pca.LAST_SOLVER_DECISION["solver"] == ("full" if d == 6 else "randomized")
+    with jax.enable_x64(not f32):
+        ref = JaxPCA(k=2, float32_inputs=f32).fit(X)
+    mine_attrs, ref_attrs = mine._get_model_attributes(), ref._get_model_attributes()
+    assert set(mine_attrs) == set(ref_attrs)
+    for name, want in ref_attrs.items():
+        got = mine_attrs[name]
+        if not isinstance(want, np.ndarray):
+            assert got == want, name
+            continue
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        if name == "mean_":
+            np.testing.assert_allclose(got, want, rtol=1e-6 if f32 else 1e-15)
+        else:
+            assert np.isnan(got).all() and np.isnan(want).all(), name
+
+
 def test_csr_fits_as_its_dense_form():
     """CSR input is densified onto the two-phase path, also with the fused
     pass on: the same model as the dense rows, bit for bit."""
