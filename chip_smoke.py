@@ -8,11 +8,12 @@ Run from the root of a checkout:
                           [--lr-wide-rows 1000000] [--lr-wide-dim 3000]
                           [--lr-multi-rows 200000] [--pca-rows 1000000]
                           [--pca-dim 128] [--g-rows 200000] [--h-rows 100000000]
-                          [--j-rows 300000] [--k-rows 200000] [--k-dbscan-rows 50000]
+                          [--j-rows 300000] [--k-rows 200000] [--k-dbscan-rows 20000]
 
 Phases, each of which makes the script exit non-zero when it fails:
 
-1. card: the GPU's name and power limit, the torch and CUDA versions, the
+1. card: the GPU's name and power limit, the torch and CUDA versions,
+   whether pandas and pyarrow import (and their versions), the
    build of every CUDA kernel of the port from the sources in the checkout
    (nvcc, one process per source, all started together) and its time, each
    kernel's registers, spills and shared memory (ptxas), and the tensor-core
@@ -99,7 +100,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    bench.py's 300,000 x 16 blobs (60 centres, std 0.6, eps 1.2,
    min_samples 5) at the default byte cap and at 4096 MB, and in float64,
    (k) float64: KMeans k=10 on 200,000 x 256 with weights and DBSCAN on
-   50,000 rows of blobs, on the card and on the CPU.  Each KMeans cell:
+   20,000 rows of blobs, on the card and on the CPU.  Each KMeans cell:
    the fit, the layers of a Lloyd pass (assign, update, and a one-hot
    matmul update beside it), the row norms, the seeding and the shift
    fetch, each beside its bound; held: trainingCost within 1e-5 of a
@@ -114,10 +115,45 @@ Phases, each of which makes the script exit non-zero when it fails:
    each in or next to a pair that float32 rounding decides).  (k): the
    card's centres within 1e-9 of the CPU's, the labels equal.  Then the
    KMeans model of (h) and a DBSCAN model saved and loaded.
+9. RandomForestClassifier and RandomForestRegressor through the public
+   entry points (no hand-written kernel: the histogram is `scatter_add_`
+   over row chunks, the rest torch ops): (l) the reference benchmark's
+   random_forest_classifier_50t_d13 (numTrees=50, maxDepth=13,
+   maxBins=128, bench.py:1013-1016) and (m) random_forest_regressor_30t_d6
+   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed) on
+   phase 5's (b) rows, 1,000,000 x 3000; (n) BASELINE.json's classifier
+   (maxDepth=16, bench.py:221-224) on (h)'s 100,000,000 x 64 standard
+   normal rows with a linear label, its 100 trees cut to 4;
+   (o) float64 with weights in [0.2, 2), bootstrap and a feature subset
+   (gini, entropy and variance), card against CPU.  Each of (l)-(n): fits
+   from a DeviceDataset and from numpy (at (l) 10 of the 50 trees: the
+   same first trees), a transform of 1,000,000 rows, the
+   card's busy share over a one-tree fit, and two trees (one at (n))
+   grown by ops/forest.py `forest_fit` from draws the phase makes, with
+   each layer (prep: the edges' sort and digitize; per tree: histogram,
+   split search, routing and frontier, leaf statistics) timed with CUDA
+   events beside its bytes bound, and the split search of one level
+   timed in the fit's form (XLA-CPU rounding) and with torch.cumsum and
+   plain arithmetic; held: (1) the root's and level 1's
+   split on those trees equals the argmax of float64 gains from a
+   `torch.bincount` histogram, or has a gain within 1e-6 of the argmax's
+   relative to it; (2) every split node's count equals its children's
+   and (3) every tree's leaves its root, exactly below 2^24 (the weights
+   are integers), else 1e-6; (4) transform against the numpy predictor on
+   10,000 rows (labels equal but at ties within 1e-6, probabilities 1e-6,
+   regression 1e-5); the bin edges of four columns against a host sort
+   and their bin ids against a count.  (o): (5) the card's trees equal the
+   CPU's from the same draws (structure and thresholds exactly, leaf
+   statistics, gains and counts 1e-9, predictions equal; a near tie that
+   flips named, its gain gap held to 1e-12, and the nodes under it and the
+   rows through it left out).  (m): whether two card fits
+   from one seed give equal trees, reported.  Then the (l) and (m) models
+   saved and loaded.
 
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
-of the clustering cells' numbers, a JSON object of the kernels' numbers,
+of the clustering cells' numbers, one of the forest cells' numbers
+({"forest": [...]}), a JSON object of the kernels' numbers,
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -125,6 +161,7 @@ No JAX is imported.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1081,7 +1118,7 @@ def phase_logistic(device, args) -> dict:
     cells.append(phase_logistic_cell(
         device, f"(b) {args.lr_wide_rows}x{args.lr_wide_dim} float32 binomial", X, y, None, 2,
         dict(bench_kw, maxIter=200), 1_000_000, args.seed, weight_col=False))
-    X_wide = X  # phase 6 reuses these rows
+    X_wide, y_wide = X, y  # phases 6, 8 and 9 reuse these rows, phase 9 their labels
     del X, y, cells[-1]["model"]
 
     n = args.lr_multi_rows
@@ -1109,7 +1146,7 @@ def phase_logistic(device, args) -> dict:
     cells.append(rec)
     for c in cells:
         c.pop("model", None)
-    return {"cells": cells, "model": model_a, "X": X_a, "X_wide": X_wide}
+    return {"cells": cells, "model": model_a, "X": X_a, "X_wide": X_wide, "y_wide": y_wide}
 
 
 # ---- PCA and LinearRegression -------------------------------------------------
@@ -2164,6 +2201,710 @@ def phase_clustering(device, args, wide_X) -> dict:
     return {"cells": cells}
 
 
+# ---- RandomForest --------------------------------------------------------------
+
+
+class LayerTimer:
+    """The `timer=` of ops/forest.py `forest_fit`: CUDA events around each
+    layer, summed by layer name (device milliseconds between the events,
+    which is the layer's kernels when the host keeps ahead of the card)."""
+
+    def __init__(self) -> None:
+        self.spans: dict = {}
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self.spans.setdefault(name, []).append((start, end))
+
+    def totals(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        return {name: {"ms": sum(s.elapsed_time(e) for s, e in ev), "calls": len(ev)}
+                for name, ev in self.spans.items()}
+
+
+def forest_draws(n: int, d: int, n_trees: int, depth: int, max_active: int, max_features: int,
+                 dtype, device, seed: int) -> list:
+    """The phase's own draws for `n_trees` trees, from a generator of its
+    own: Poisson(1) row weights and, where features are subsampled, a
+    standard Gumbel matrix per level."""
+    import torch
+
+    from spark_rapids_ml_torch.ops.forest import TreeDraws
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tiny, top = torch.finfo(dtype).tiny, 1.0 - torch.finfo(dtype).eps
+
+    def gumbel(a):
+        u = torch.rand((a, d), generator=gen, dtype=dtype, device=device).clamp_(tiny, top)
+        return -torch.log(-torch.log(u))
+
+    out = []
+    for _ in range(n_trees):
+        w = torch.poisson(torch.ones(n, dtype=dtype, device=device), generator=gen)
+        g = ([gumbel(min(1 << lv, max_active)) for lv in range(depth)]
+             if max_features < d else None)
+        out.append(TreeDraws(w, g))
+    return out
+
+
+def hist64(Xb, labels, v, n_bins: int, n_classes: int):
+    """(d, B, S) float64 histogram of the rows' weights `v` by feature and
+    bin, by `torch.bincount` over blocks of features (not the fit's
+    scatter): S = n_classes class counts, or (w, w y, w y^2) for
+    regression (n_classes 0)."""
+    import torch
+
+    m, d = Xb.shape
+    S = n_classes or 3
+    out = torch.empty((d, n_bins, S), dtype=torch.float64, device=Xb.device)
+    fb = max(1, (1 << 30) // (16 * m))
+    chans = None if n_classes else (v, v * labels, v * labels * labels)
+    for f0 in range(0, d, fb):
+        f1 = min(f0 + fb, d)
+        nb = (f1 - f0) * n_bins
+        idx = Xb[:, f0:f1].long() + torch.arange(f1 - f0, device=Xb.device) * n_bins
+        if n_classes:
+            flat = (idx * S + labels[:, None]).flatten()
+            h = torch.bincount(flat, weights=v[:, None].expand(m, f1 - f0).flatten(),
+                               minlength=nb * S).view(f1 - f0, n_bins, S)
+        else:
+            flat = idx.flatten()
+            h = torch.stack([torch.bincount(flat, weights=c[:, None].expand(m, f1 - f0).flatten(),
+                                            minlength=nb) for c in chans], dim=-1)
+            h = h.view(f1 - f0, n_bins, S)
+        out[f0:f1] = h
+        del idx, flat, h
+    return out
+
+
+def gains64(H, n_classes: int, entropy: bool, min_instances: float):
+    """float64 impurity decrease of every (feature, bin) split of one node
+    from its (d, B, S) histogram (-inf where a child is too small), and the
+    node's impurity."""
+    import torch
+
+    def impurity(st):
+        if not n_classes:
+            n = st[..., 0]
+            mean = st[..., 1] / n.clamp_min(1e-300)
+            return torch.where(n > 0, (st[..., 2] / n.clamp_min(1e-300) - mean * mean)
+                               .clamp_min(0.0), 0.0), n
+        n = st.sum(-1)
+        p = st / n.clamp_min(1e-300)[..., None]
+        if entropy:
+            imp = -torch.where(p > 0, p * torch.log(p), 0.0).sum(-1)
+        else:
+            imp = 1.0 - (p * p).sum(-1)
+        return torch.where(n > 0, imp, 0.0), n
+
+    cum = H.cumsum(1)
+    total = cum[:, -1]
+    left, right = cum[:, :-1], total[:, None] - cum[:, :-1]
+    ip, n_parent = impurity(total[0])
+    il, nl = impurity(left)
+    ir, nr = impurity(right)
+    gain = ip - (nl * il + nr * ir) / n_parent
+    ok = (nl >= min_instances) & (nr >= min_instances)
+    return torch.where(ok, gain, float("-inf")), float(ip)
+
+
+def hold_splits(name, trees, draws, Xb, edges, labels, valid, n_classes, entropy, max_features,
+                min_instances: float = 1.0) -> list:
+    """Check 1: the root's and level 1's chosen split against the argmax
+    of the float64 gains of a histogram recomputed by `hist64`, under the
+    tree's own draws; a split that is not that argmax must have a float64
+    gain within 1e-6 of the argmax's, relative to it (the largest gap is
+    reported, and also relative to the node's impurity)."""
+    import torch
+
+    d = Xb.shape[1]
+    out = []
+    for t, dr in enumerate(draws):
+        v = dr.weights.double() * valid.double()
+        lc = int(trees.left_child[t, 0])
+        nodes = [(0, 0, 0, None)]
+        if trees.feature[t, 0] >= 0:
+            f0 = int(trees.feature[t, 0])
+            b0 = int(torch.searchsorted(edges[:, f0].contiguous(),
+                                        torch.tensor([float(trees.threshold[t, 0])],
+                                                     dtype=edges.dtype, device=edges.device)))
+            go_left = Xb[:, f0].long() <= b0
+            nodes += [(lc, 1, 0, go_left), (lc + 1, 1, 1, ~go_left)]
+        for node, level, slot, rows in nodes:
+            f_t = int(trees.feature[t, node])
+            if f_t < 0:
+                continue
+            vv = v if rows is None else v * rows
+            G, ip = gains64(hist64(Xb, labels, vv, edges.shape[0] + 1, n_classes), n_classes,
+                            entropy, min_instances)
+            if max_features < d:
+                g = dr.gumbels[level][slot]
+                G = torch.where((g >= torch.sort(g).values[d - max_features])[:, None], G,
+                                float("-inf"))
+            best = int(torch.argmax(G.flatten()))
+            f_b, b_b = divmod(best, G.shape[1])
+            thr = torch.tensor([float(trees.threshold[t, node])], dtype=edges.dtype,
+                               device=edges.device)
+            b_t = int(torch.searchsorted(edges[:, f_t].contiguous(), thr))
+            g_best, g_t = float(G[f_b, b_b]), float(G[f_t, b_t])
+            same = f_t == f_b and float(edges[b_b, f_b]) == float(trees.threshold[t, node])
+            rec = {"tree": t, "node": node, "chosen": [f_t, b_t], "float64_argmax": [f_b, b_b],
+                   "equal": same, "gap_rel_impurity": (g_best - g_t) / max(ip, 1e-300),
+                   "gap_rel_gain": (g_best - g_t) / max(abs(g_best), 1e-300),
+                   "gain_float64": g_best, "node_impurity": ip,
+                   "recorded_gain_rel": (abs(float(trees.gain[t, node]) - g_t)
+                                         / max(abs(g_t), 1e-300))}
+            out.append(rec)
+            if not same and rec["gap_rel_gain"] > 1e-6:
+                raise AssertionError(f"{name}: tree {t} node {node} split {f_t}/{b_t} is not the "
+                                     f"float64 argmax {f_b}/{b_b}: {rec}")
+    n_equal = sum(r["equal"] for r in out)
+    worst = max((r["gap_rel_gain"] for r in out), default=0.0)
+    worst_imp = max((r["gap_rel_impurity"] for r in out), default=0.0)
+    log(f"  {name}: check 1, {len(out)} splits of the root and level 1 against the float64 "
+        f"argmax of a bincount histogram: {n_equal} equal; the largest gain gap {worst:.3e} of "
+        f"the best gain (limit 1e-6), {worst_imp:.3e} of the node's impurity")
+    return out
+
+
+def hold_counts(name: str, trees, classification: bool, exact: bool) -> dict:
+    """Checks 2 and 3 on every tree: a split node's count against its
+    children's (a child's count where it was on a frontier, else the weight
+    of its leaf statistics), and each tree's leaves against its root:
+    exactly where the weights are integers and the counts below 2^24, else
+    1e-6 relative."""
+    leaf_w = trees.leaf_stats.sum(-1) if classification else trees.leaf_stats[..., 0]
+    leaf_w = leaf_w.astype(np.float64)
+    count = trees.count.astype(np.float64)
+    worst_node, worst_tree = 0.0, 0.0
+    for t in range(trees.feature.shape[0]):
+        f, lc = trees.feature[t], trees.left_child[t]
+        weight = np.where(count[t] > 0, count[t], leaf_w[t])
+        split = np.flatnonzero(f >= 0)
+        kids = weight[lc[split]] + weight[lc[split] + 1]
+        worst_node = max(worst_node, float(np.max(np.abs(kids - count[t, split])
+                                                  / count[t, split])) if len(split) else 0.0)
+        reach = np.zeros(len(f), bool)
+        reach[0] = True
+        for i in range(len(f)):
+            if reach[i] and f[i] >= 0:
+                reach[lc[i]] = reach[lc[i] + 1] = True
+        leaves = leaf_w[t][reach & (f < 0)].sum()
+        worst_tree = max(worst_tree, abs(leaves - count[t, 0]) / count[t, 0])
+    limit = 0.0 if exact else 1e-6
+    log(f"  {name}: checks 2-3 on {trees.feature.shape[0]} trees: split node count vs its "
+        f"children's {worst_node:.3e}, leaves vs root {worst_tree:.3e} relative (limit "
+        f"{'exact' if exact else '1e-6'})")
+    if worst_node > limit or worst_tree > limit:
+        raise AssertionError(f"{name}: node counts do not add up")
+    return {"count_vs_children_rel": worst_node, "leaves_vs_root_rel": worst_tree}
+
+
+def hold_prep(name: str, X, w, edges, Xb, seed: int) -> None:
+    """The fit's bin edges of four columns against a host recomputation
+    (numpy's order statistics of the column at the same quantile
+    positions) and their bin ids against a count of the edges below each
+    value on the card: both exact."""
+    import torch
+
+    n, d = X.shape
+    B = edges.shape[0] + 1
+    # four columns, one at 100M rows (a host partition of 1e8 values takes seconds)
+    cols = np.random.default_rng(seed).choice(d, size=min(4, d, max(1, 40_000_000 // n)),
+                                              replace=False)
+    ok = (w > 0).cpu().numpy()
+    n_eff = int(ok.sum())
+    q = np.clip((np.arange(1, B, dtype=np.int64) * n_eff) // B, 0, n - 1)
+    for f in cols:
+        col = X[:, f].cpu().numpy()
+        want = np.partition(np.where(ok, col, np.inf), q)[q]
+        want = np.where(np.isfinite(want), want, np.finfo(col.dtype).max)
+        if not np.array_equal(edges[:, f].cpu().numpy(), want):
+            raise AssertionError(f"{name}: bin edges of column {f} differ from the host's")
+        for b in _blocks(n, 1 << 22):
+            ids = (X[b, f, None] > edges[None, :, f]).sum(1)
+            if not torch.equal(ids, Xb[b, f].long()):
+                raise AssertionError(f"{name}: bin ids of column {f} are wrong")
+    log(f"  {name}: prep held: the edges of columns {cols.tolist()} equal the host's order "
+        f"statistics, their bin ids a count of the edges below each value")
+
+
+def forest_bounds(n: int, d: int, S: int, B: int, depth: int, max_active: int, itemsize: int,
+                  bin_bytes: int, classification: bool) -> dict:
+    """Bytes bounds (ms at 3.35 TB/s) of one tree's layers, summed over its
+    levels: the histogram reads the bin ids, the row slot (int64) and the
+    rows' weighted statistics once and writes the (A B, d, S) table once;
+    the split search reads that table once; the routing reads one bin id,
+    the slot and the node of each row and writes slot and node; the leaf
+    statistics read each row's node, class or channels and weight once.
+    Prep: the sort reads X and writes the edges; digitize reads X and
+    writes the bin ids."""
+    widths = [min(1 << lv, max_active) for lv in range(depth)]
+    # a row's weight and int64 class id, or its three weighted channels
+    row_stats = (8 + itemsize) if classification else 3 * itemsize
+    hist = sum(n * d * bin_bytes + n * 8 + n * row_stats + a * B * d * S * itemsize
+               for a in widths)
+    split = sum(a * B * d * S * itemsize for a in widths)
+    route = depth * n * (bin_bytes + 4 * 8)
+    leaf = n * (8 + row_stats)
+    ms = 1e3 / _PEAK_BYTES_PER_S
+    return {"histogram": hist * ms, "split": split * ms, "route": route * ms,
+            "leaf": leaf * ms, "prep.edges": n * d * itemsize * ms,
+            "prep.digitize": n * d * (itemsize + bin_bytes) * ms}
+
+
+def plain_best_splits(hist, criterion: int, min_instances: float, fmask):
+    """ops/forest.py `_best_splits` with `torch.cumsum` and plain multiply
+    and add in place of its XLA-CPU rounding (the cumsum blocked in 16s,
+    the fused multiply-adds emulated): what that rounding costs the split
+    layer."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import forest as pf
+
+    def impurity(st):
+        if criterion == pf.VARIANCE:
+            n = st[..., 0]
+            sn = n.clamp_min(1e-12)
+            mean = st[..., 1] / sn
+            return torch.where(n > 0, (st[..., 2] / sn - mean * mean).clamp_min(0.0), 0.0), n
+        n = st.sum(-1)
+        p = st / n.clamp_min(1e-12)[..., None]
+        imp = (1.0 - (p * p).sum(-1) if criterion == pf.GINI
+               else -torch.where(p > 0, p * torch.log(p), 0.0).sum(-1))
+        return torch.where(n > 0, imp, 0.0), n
+
+    A, d, B, S = hist.shape
+    cum = hist.cumsum(2)
+    total, left = cum[:, :, -1, :], cum[:, :, : B - 1, :]
+    right = total[:, :, None, :] - left
+    ip, n_parent = impurity(total[:, 0, :])
+    il, nl = impurity(left)
+    ir, nr = impurity(right)
+    gain = ip[:, None, None] - (nl * il + nr * ir) / n_parent.clamp_min(1e-12)[:, None, None]
+    gain = torch.where((nl >= min_instances) & (nr >= min_instances), gain, float("-inf"))
+    if fmask is not None:
+        gain = torch.where(fmask[:, :, None], gain, float("-inf"))
+    flat = gain.reshape(A, -1)
+    best = torch.argmax(flat, dim=1)
+    return best, flat.gather(1, best[:, None])[:, 0], n_parent, nl
+
+
+def time_split_forms(device, Xb, labels, n_bins: int, n_classes: int, criterion: int, K: int,
+                     A: int, seed: int) -> dict:
+    """The split search of one level of A nodes, the fit's form (XLA-CPU
+    rounding) against `plain_best_splits`, on the histogram of the cell's
+    bin ids with rows dealt to the A nodes at random and a random feature
+    subset of K: device ms of each (CUDA events, mean of 3 after a warm
+    run) and on how many nodes the two choose the same split."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import forest as pf
+
+    n, d = Xb.shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    slot = torch.randint(0, A, (n,), generator=gen, device=device)
+    if n_classes:
+        values, classes, S = torch.ones(n, device=device), labels, n_classes
+    else:
+        yf = labels.float()
+        values, classes, S = torch.stack([torch.ones_like(yf), yf, yf * yf], 1), None, 3
+    hist = pf._histogram(Xb, slot, A, n_bins, values, classes, S)
+    g = torch.rand((A, d), generator=gen, device=device)
+    fmask = (g >= torch.sort(g, dim=1).values[:, d - K, None]) if K < d else None
+    del slot, values
+    forms = {"xla_rounding": pf._best_splits, "plain": plain_best_splits}
+    out = {"nodes": A}
+    best = {}
+    for form, fn in forms.items():
+        best[form] = fn(hist, criterion, 1.0, fmask)[0]
+        out[f"{form}_ms"] = cuda_ms(lambda: fn(hist, criterion, 1.0, fmask), 3, warm=False)
+    out["same_split_nodes"] = int((best["xla_rounding"] == best["plain"]).sum())
+    return out
+
+
+def phase_forest_cell(device, name: str, X, y, make, host_X, host_y, n_classes: int,
+                      entropy: bool, check_trees: int, seed: int, transform_rows: int,
+                      numpy_trees=None) -> dict:
+    """One RandomForest cell through the public entry points, from the rows
+    X, labels y on the card (a DeviceDataset of weight 1) and from numpy
+    (`host_X`, `host_y`; `numpy_trees` cuts that fit's trees, which are
+    the first trees of the other fit): both fits, a transform of `transform_rows` rows
+    from numpy, the card's busy share over a one-tree fit, the layers of
+    `check_trees` trees grown by ops/forest.py `forest_fit` from draws made
+    here (the fit's params, its `timer=`) beside their bounds, and checks
+    1-4 (check 1 on those trees, 2-3 on every tree of the fit, 4 on 10,000
+    rows)."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch.models.tree import _resolve_max_features
+    from spark_rapids_ml_torch.ops import forest as pf
+
+    n, d = X.shape
+    w = torch.ones(n, dtype=X.dtype, device=device)
+    ds = DeviceDataset(device, X, n, y=y, weight=w)
+    est = make()
+    p = est._tpu_params
+    depth, B, n_trees = int(p["max_depth"]), int(p["n_bins"]), int(p["n_estimators"])
+    classification = n_classes > 0
+    K = _resolve_max_features(p["max_features"], d, classification)
+    rec = {"cell": name, "rows": n, "cols": d, "dtype": str(X.dtype).replace("torch.", ""),
+           "trees": n_trees, "max_depth": depth, "max_bins": B, "features_per_node": K,
+           "classes": n_classes}
+
+    rec["fit_s"], model, gb = _timed_fit(make, ds, device)
+    rec.update(rows_per_s=n / rec["fit_s"], tree_s=rec["fit_s"] / n_trees,
+               max_memory_beyond_X_GB=gb, split_nodes=int((model.feature >= 0).sum()))
+    log(f"  {name}: fit from a DeviceDataset {rec['fit_s']:.3f} s ({rec['rows_per_s']:,.0f} rows/s,"
+        f" {rec['tree_s']:.3f} s a tree), {rec['split_nodes']} split nodes in {n_trees} trees; "
+        f"memory the fit adds beyond X {gb:.2f} GB")
+    # Poisson weights are integers: counts are exact while below 2^24
+    rec["counts"] = hold_counts(name, model, classification, exact=2 * n < (1 << 24))
+
+    t_np = numpy_trees or n_trees
+    rec["fit_numpy_s"], model_np, gb_np = _timed_fit(lambda: make(numTrees=t_np),
+                                                     (host_X, host_y), device)
+    rec.update(numpy_trees=t_np, rows_per_s_numpy=n / rec["fit_numpy_s"],
+               tree_s_numpy=rec["fit_numpy_s"] / t_np, max_memory_numpy_GB=gb_np)
+    same = all(np.array_equal(getattr(model, k)[:t_np], getattr(model_np, k))
+               for k in ("feature", "threshold", "left_child", "leaf_stats", "count"))
+    rec["numpy_fit_trees_equal"] = same
+    log(f"  {name}: fit from numpy of {t_np} trees (staging included) {rec['fit_numpy_s']:.3f} s "
+        f"({rec['rows_per_s_numpy']:,.0f} rows/s, {rec['tree_s_numpy']:.3f} s a tree), memory it "
+        f"adds {gb_np:.2f} GB; the same seed's trees equal the DeviceDataset fit's: {same}")
+    del model_np
+
+    rows = min(n, transform_rows)
+    Xt = host_X[:rows]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.transform(Xt)
+    rec["transform_rows"] = rows
+    rec["transform_rows_per_s"] = rows / (time.perf_counter() - t0)
+    # check 4: transform against the numpy predictor on 10,000 rows
+    rows4 = min(rows, 10_000)
+    host = model.cpu()
+    if classification:
+        pred = out["prediction"][:rows4]
+        want = host.predict(Xt[:rows4])
+        probs = out["probability"][:rows4]
+        err = float(np.abs(probs - host.predict_proba(Xt[:rows4])).max())
+        top2 = np.sort(probs, axis=1)[:, -2:]
+        tie = (top2[:, 1] - top2[:, 0]) <= 1e-6
+        bad = int(((pred != want) & ~tie).sum())
+        rec["check4"] = {"labels_differ": int((pred != want).sum()), "at_ties": int(tie.sum()),
+                         "prob_max_abs": err}
+        ok4 = bad == 0 and err <= 1e-6
+    else:
+        want = host.predict(Xt[:rows4])
+        err = float(np.abs(out[:rows4] - want).max() / np.abs(want).max())
+        rec["check4"] = {"pred_max_rel": err}
+        ok4 = err <= 1e-5
+    log(f"  {name}: transform of {rows} rows from numpy {rows / rec['transform_rows_per_s']:.3f} s "
+        f"({rec['transform_rows_per_s']:,.0f} rows/s); check 4, against the numpy predictor on "
+        f"{rows4} rows: {rec['check4']} (labels equal but at ties within 1e-6, probabilities "
+        f"1e-6; regression 1e-5 of the largest prediction)")
+    if not ok4:
+        raise AssertionError(f"{name}: transform disagrees with the numpy predictor")
+
+    wall_ms, rec["device_busy_share"] = device_busy_share(lambda: make(numTrees=1).fit(ds))
+    log(f"  {name}: a one-tree fit under torch.profiler {wall_ms:.1f} ms, the card busy in "
+        f"kernels {rec['device_busy_share'] or 0:.1%} of it")
+
+    # the layers, and check 1, on trees grown from the phase's own draws
+    draws = forest_draws(n, d, check_trees, depth, int(p["max_active_nodes"]), K, X.dtype,
+                         device, seed)
+    timer = LayerTimer()
+    crit = est._criterion()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trees = pf.forest_fit(X, y, w, 0, n_trees=check_trees, max_depth=depth, n_bins=B,
+                          criterion=crit, n_classes=n_classes, max_features=K,
+                          min_instances=float(p["min_samples_leaf"]),
+                          min_info_gain=float(p["min_impurity_decrease"]), bootstrap=True,
+                          subsample=1.0, max_active=int(p["max_active_nodes"]), draws=draws,
+                          timer=timer)
+    wall = time.perf_counter() - t0
+    tot = timer.totals()
+    S = n_classes or 3
+    bounds = forest_bounds(n, d, S, B, depth, int(p["max_active_nodes"]), X.element_size(),
+                           pf.bin_dtype(B).itemsize, classification)
+    layers = {}
+    for layer, v in tot.items():
+        per_tree = not layer.startswith("prep")
+        ms = v["ms"] / (check_trees if per_tree else 1)
+        layers[layer] = {"ms_per_tree" if per_tree else "ms": ms, "calls": v["calls"],
+                         "bound_ms": bounds[layer], "share_of_bound": bounds[layer] / ms}
+    tree_ms = sum(layers[k]["ms_per_tree"] for k in ("histogram", "split", "route", "leaf"))
+    for k in ("histogram", "split", "route", "leaf"):
+        layers[k]["share_of_tree"] = layers[k]["ms_per_tree"] / tree_ms
+    rec["layers"] = layers
+    rec["layered_run_s"] = wall
+    log(f"  {name}: layers over {check_trees} trees grown from the phase's draws ({wall:.3f} s):"
+        + "".join(f"\n    {k}: {v.get('ms_per_tree', v.get('ms')):.3f} ms"
+                  f"{' a tree' if 'ms_per_tree' in v else ''}, {v['calls']} calls, bound "
+                  f"{v['bound_ms']:.3f} ms by bytes ({v['share_of_bound']:.2%})"
+                  + (f", {v['share_of_tree']:.1%} of a tree" if 'share_of_tree' in v else "")
+                  for k, v in layers.items()))
+    edges = pf.compute_bin_edges(X, B, valid=w)
+    Xb = pf.digitize(X, edges)
+    hold_prep(name, X, w, edges, Xb, seed)
+    labels = y.long() if classification else y.double()
+    rec["check1"] = hold_splits(name, trees, draws, Xb, edges, labels, w, n_classes, entropy, K)
+    hold_counts(name + " (phase's draws)", trees, classification, exact=2 * n < (1 << 24))
+    A = min(1 << (depth - 1), int(p["max_active_nodes"]))
+    rec["split_forms"] = time_split_forms(device, Xb, y.long() if classification else y, B,
+                                          n_classes, crit, K, A, seed)
+    log(f"  {name}: the split search of one level of {A} nodes, the fit's XLA-CPU rounding "
+        f"against torch.cumsum and plain arithmetic: {rec['split_forms']}")
+    del Xb, edges, draws
+    rec["model"] = model
+    return rec
+
+
+def _below(left_a, left_b, i: int) -> list:
+    """Table ids under node i in either of two trees' `left_child` rows."""
+    out, todo = set(), [i]
+    while todo:
+        j = todo.pop()
+        for lc in (left_a, left_b):
+            if lc[j] >= 0:
+                kids = {int(lc[j]), int(lc[j]) + 1} - out
+                out |= kids
+                todo.extend(kids)
+    return sorted(out)
+
+
+def phase_forest_float64(device, n: int, seed: int) -> dict:
+    """(o) float64, non-integer weights in [0.2, 2), bootstrap and a feature
+    subset: a gini and an entropy classifier on ten blobs and a regressor
+    on a smooth label, each grown by ops/forest.py `forest_fit` on the card
+    and on the CPU from the same draws (made here on the host): check 5.
+    Where the two trees differ at a node (level order) that no earlier
+    difference is above, the two chose different splits at a near tie: the
+    node is named and its gain gap held to 1e-12 relative, and the nodes
+    under it (in either tree) are left out.  Every other node: structure
+    and thresholds equal, leaf statistics, gains and counts within 1e-9
+    (the flipped nodes' counts and leaf statistics included); the
+    predictions of the whole forests equal on the rows of 10,000 that pass
+    through no flipped node.  The frontier is never capped at depth 8 with
+    256 nodes, so a node's table id follows from its parent's alone and the
+    nodes outside a flipped subtree line up."""
+    import torch
+
+    from spark_rapids_ml_torch import set_default_device
+    from spark_rapids_ml_torch.classification import RandomForestClassificationModel
+    from spark_rapids_ml_torch.ops import forest as pf
+    from spark_rapids_ml_torch.ops.forest import TreeDraws
+    from spark_rapids_ml_torch.regression import RandomForestRegressionModel
+
+    rng = np.random.default_rng(seed)
+    d, depth, B, T, K, A = 64, 8, 128, 3, 8, 256
+    cent = rng.uniform(-4, 4, (10, d))
+    blob = rng.integers(0, 10, n)
+    X = cent[blob] + rng.normal(size=(n, d))
+    w = rng.uniform(0.2, 2.0, n)
+    y_reg = np.sin(X[:, 0]) + 0.5 * X[:, 1] * X[:, 2] + 0.1 * rng.normal(size=n)
+    draws = [TreeDraws(rng.poisson(1.0, n).astype(np.float64),
+                       [rng.gumbel(size=(min(1 << lv, A), d)) for lv in range(depth)])
+             for _ in range(T)]
+    Xq = X[:10_000]
+    recs = []
+    for label, crit, y, C in (("gini", pf.GINI, blob, 10), ("entropy", pf.ENTROPY, blob, 10),
+                              ("variance", pf.VARIANCE, y_reg, 0)):
+        out, secs = {}, {}
+        for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            out[where] = pf.forest_fit(
+                *(torch.from_numpy(np.asarray(a, np.float64)).to(dev) for a in (X, y, w)), 0,
+                n_trees=T, max_depth=depth, n_bins=B, criterion=crit, n_classes=C,
+                max_features=K, min_instances=1.0, min_info_gain=0.0, bootstrap=True,
+                subsample=1.0, max_active=A, draws=draws)
+            secs[where] = time.perf_counter() - t0
+        card, cpu = out["card"], out["cpu"]
+        rec = {"cell": f"(o) float64 {label} {n}x{d}", "card_s": secs["card"],
+               "cpu_s": secs["cpu"], "flips": []}
+        held = np.ones(card.feature.shape, bool)  # nodes held at 1e-9
+        for t in range(T):
+            differs = ((card.feature[t] != cpu.feature[t]) | (card.threshold[t] != cpu.threshold[t])
+                       | (card.left_child[t] != cpu.left_child[t]))
+            for i in np.flatnonzero(differs):
+                if not held[t, i]:
+                    continue  # under an earlier flip
+                gap = abs(card.gain[t, i] - cpu.gain[t, i]) / max(abs(cpu.gain[t, i]), 1e-300)
+                below = _below(card.left_child[t], cpu.left_child[t], int(i))
+                rec["flips"].append({"tree": t, "node": int(i), "gain_gap_rel": float(gap),
+                                     "nodes_below": len(below)})
+                if gap > 1e-12:
+                    raise AssertionError(f"(o) {label}: tree {t} differs at node {i} beyond a "
+                                         f"near tie (gain gap {gap:.3e})")
+                held[t, below] = False
+        flipped = np.zeros_like(held)
+        for f in rec["flips"]:
+            flipped[f["tree"], f["node"]] = True
+        rel = {}
+        for k, mask in (("leaf_stats", held), ("gain", held & ~flipped), ("count", held)):
+            a, b = getattr(card, k)[mask], getattr(cpu, k)[mask]
+            rel[k] = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        rec.update({f"{k}_rel": v for k, v in rel.items()},
+                   nodes_held=int(held.sum()), nodes=int(held.size))
+        # rows through a flipped node: their leaf in the CPU's tree is that
+        # node or under it (the nodes above a flip are equal in both trees)
+        leaves = pf.forest_apply(torch.from_numpy(Xq), torch.from_numpy(cpu.feature).long(),
+                                 torch.from_numpy(cpu.threshold),
+                                 torch.from_numpy(cpu.left_child).long(), depth).numpy()
+        rows = np.ones(len(Xq), bool)
+        for f in rec["flips"]:
+            t, i = f["tree"], f["node"]
+            sub = [i] + _below(card.left_child[t], cpu.left_child[t], i)
+            rows &= ~np.isin(leaves[t], sub)
+        # each whole forest's transform on its own device
+        preds = {}
+        for where, dev, tr in (("card", device, card), ("cpu", "cpu", cpu)):
+            attrs = dict(tr._asdict(), max_depth=depth, n_cols=d, dtype="float64")
+            if C:
+                attrs["num_classes"] = C
+            model = (RandomForestClassificationModel if C else RandomForestRegressionModel)(**attrs)
+            model._float32_inputs = False  # transform in float64
+            set_default_device(dev)
+            o = model.transform(Xq)
+            preds[where] = (o["prediction"] if C else o)[rows]
+        set_default_device(device)
+        rec["rows_compared"] = int(rows.sum())
+        rec["predictions_equal"] = bool(
+            np.array_equal(preds["card"], preds["cpu"]) if C
+            else np.max(np.abs(preds["card"] - preds["cpu"]), initial=0.0)
+            <= 1e-9 * np.abs(preds["cpu"]).max(initial=0.0))
+        log(f"  {rec['cell']}: card {secs['card']:.2f} s, CPU {secs['cpu']:.2f} s; near-tie flips "
+            f"{rec['flips']}; on {rec['nodes_held']} of {rec['nodes']} nodes (all but those under "
+            f"a flip) structure and thresholds equal, leaf_stats {rel['leaf_stats']:.3e}, gain "
+            f"{rel['gain']:.3e}, count {rel['count']:.3e} relative (limit 1e-9); predictions on "
+            f"the {rec['rows_compared']} of {len(Xq)} rows through no flipped node equal: "
+            f"{rec['predictions_equal']}")
+        if max(rel.values()) > 1e-9 or not rec["predictions_equal"]:
+            raise AssertionError(f"(o) {label}: the card's forest differs from the CPU's")
+        recs.append(rec)
+    return {"cells": recs}
+
+
+# (n): BASELINE.json configs[3]'s rows; its 100 trees cut to what the
+# script's time allows (about 3.2 s a tree on an H100)
+RF_N_ROWS, RF_N_TREES = 100_000_000, 4
+
+
+def phase_forest(device, args, wide_X, wide_y) -> dict:
+    """(l) the reference benchmark's random_forest_classifier_50t_d13 and
+    (m) random_forest_regressor_30t_d6 on phase 5's (b) rows, 1M x 3000,
+    (n) BASELINE.json's RandomForestClassifier on 100M x 64 (trees cut),
+    (o) float64 card against CPU; then a classifier and a regressor saved
+    and loaded."""
+    import torch
+
+    from spark_rapids_ml_torch.classification import (
+        RandomForestClassificationModel,
+        RandomForestClassifier,
+    )
+    from spark_rapids_ml_torch.regression import RandomForestRegressionModel, RandomForestRegressor
+
+    cells = []
+    torch.cuda.empty_cache()
+    n, d = wide_X.shape
+    t0 = time.perf_counter()
+    Xl = torch.from_numpy(wide_X).to(device)
+    yl = torch.from_numpy(wide_y).to(device)
+    torch.cuda.synchronize()
+    log(f"  (l), (m): phase 5's (b) rows {wide_X.shape} on the card: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def rfc(**kw):
+        return RandomForestClassifier(**{**dict(numTrees=50, maxDepth=13,
+                                                maxBins=128, seed=0), **kw})
+
+    # the fit from numpy grows 10 of the 50 trees (the same first trees):
+    # staging and a tree cost the same as in the 50-tree fit, and the other
+    # 40 trees would add a minute to the script
+    cells.append(phase_forest_cell(device, f"(l) random_forest_classifier_50t_d13 {n}x{d}", Xl,
+                                   yl, rfc, wide_X, wide_y, 2, False, 2, args.seed + 71,
+                                   1_000_000, numpy_trees=10))
+    clf_model = cells[-1].pop("model")
+
+    # (m): a label made from the seed, a nonlinear function of a few columns
+    # plus noise, computed on the card
+    gen = torch.Generator(device=device).manual_seed(args.seed + 72)
+    ym = (2.0 * Xl[:, 0] + torch.sin(3.0 * Xl[:, 1]) + Xl[:, 2] * Xl[:, 3]
+          + 0.5 * torch.randn(n, generator=gen, device=device))
+    ym_host = ym.cpu().numpy()
+
+    def rfr(**kw):
+        return RandomForestRegressor(**{**dict(numTrees=30, maxDepth=6,
+                                               maxBins=128, seed=0), **kw})
+
+    cells.append(phase_forest_cell(device, f"(m) random_forest_regressor_30t_d6 {n}x{d}", Xl, ym,
+                                   rfr, wide_X, ym_host, 0, False, 2, args.seed + 73,
+                                   1_000_000))
+    # check 6: the DeviceDataset fit and the fit from numpy are two card fits
+    # from one seed; the regression channels sum with atomics
+    log(f"  (m): two card fits from one seed give equal trees: "
+        f"{cells[-1]['numpy_fit_trees_equal']} (reported, not required)")
+    reg_model = cells[-1].pop("model")
+    X_keep = wide_X[:10_000]
+    del Xl, yl, ym
+    torch.cuda.empty_cache()
+
+    # (n): phase 8's (h) rows again (standard normal, made on the card from
+    # the same seed), labels from a seed-defined linear rule
+    nn_ = RF_N_ROWS
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    Xn = torch.randn((nn_, 64), generator=gen, device=device, dtype=torch.float32)
+    a = torch.randn(64, generator=gen, device=device)
+    yn = ((Xn @ a + 0.5 * torch.randn(nn_, generator=gen, device=device)) > 0).float()
+    torch.cuda.synchronize()
+    t_make = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Xn_host, yn_host = Xn.cpu().numpy(), yn.cpu().numpy()
+    log(f"  (n) data {tuple(Xn.shape)} float32 made on the card {t_make:.2f} s, copied to the "
+        f"host for the fit from numpy {time.perf_counter() - t0:.2f} s")
+
+    def rfn(**kw):
+        return RandomForestClassifier(**{**dict(numTrees=RF_N_TREES, maxDepth=16, seed=0),
+                                         **kw})
+
+    cells.append(phase_forest_cell(device, f"(n) RandomForestClassifier depth 16 {nn_}x64, "
+                                   f"{RF_N_TREES} of BASELINE's 100 trees", Xn, yn, rfn,
+                                   Xn_host, yn_host, 2, False, 1, args.seed + 74, 1_000_000))
+    cells[-1].pop("model")
+    del Xn, yn, Xn_host, yn_host
+    torch.cuda.empty_cache()
+
+    cells.extend(phase_forest_float64(device, 200_000, args.seed + 75)["cells"])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clf_model.save(os.path.join(tmp, "rfc"))
+        reg_model.save(os.path.join(tmp, "rfr"))
+        c2 = RandomForestClassificationModel.load(os.path.join(tmp, "rfc"))
+        r2 = RandomForestRegressionModel.load(os.path.join(tmp, "rfr"))
+    same = (np.array_equal(clf_model.transform(X_keep)["prediction"],
+                           c2.transform(X_keep)["prediction"])
+            and np.array_equal(reg_model.transform(X_keep), r2.transform(X_keep)))
+    log(f"  the (l) and (m) models save + load; transform of {len(X_keep)} rows after load "
+        f"identical: {same}")
+    if not same:
+        raise AssertionError("the loaded forest models answer differently")
+    return {"cells": cells}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -2209,7 +2950,7 @@ def main() -> int:
     ap.add_argument("--h-rows", type=int, default=100_000_000)
     ap.add_argument("--j-rows", type=int, default=300_000)
     ap.add_argument("--k-rows", type=int, default=200_000)
-    ap.add_argument("--k-dbscan-rows", type=int, default=50_000)
+    ap.add_argument("--k-dbscan-rows", type=int, default=20_000)
     args = ap.parse_args()
 
     import torch
@@ -2222,10 +2963,14 @@ def main() -> int:
     from spark_rapids_ml_torch import set_default_device
 
     t_start = time.perf_counter()
+
+    def stage(msg: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {msg}")
+
     device = torch.device("cuda:0")
     set_default_device(device)
 
-    log("phase 1: card")
+    stage("phase 1: card")
     card = card_line()
     log(f"  {card}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
@@ -2239,38 +2984,55 @@ def main() -> int:
         log(f"  import pandas {pandas.__version__}: {time.perf_counter() - t0:.3f} s")
     except ImportError:
         log("  pandas is not installed: results are dicts of numpy columns")
+    # the parquet fits (ROADMAP.md section 1, item 1) read through pyarrow
+    t0 = time.perf_counter()
+    try:
+        import pyarrow
+
+        log(f"  import pyarrow {pyarrow.__version__}: {time.perf_counter() - t0:.3f} s")
+    except ImportError:
+        log("  pyarrow is not installed: the parquet fits cannot run on this machine")
     phase_build(args)
 
-    log("phase 2: kernels vs their plain versions on the card")
+    stage("phase 2: kernels vs their plain versions on the card")
     phase_kernels_vs_plain(device, args.seed)
 
-    log(f"phase 3: main path, {args.items} x {args.dim} items, {args.queries} queries, k={args.k}")
+    stage(f"phase 3: main path, {args.items} x {args.dim} items, {args.queries} queries, "
+          f"k={args.k}")
     main_out = phase_main_path(device, args)
 
-    log("phase 4: float64 path, a fifth of the items and queries; then the main shape")
+    stage("phase 4: float64 path, a fifth of the items and queries; then the main shape")
     f64 = phase_float64_path(device, args)
 
-    log("phase 5: LogisticRegression: (a) bench.py's headline, (b) the reference benchmark's "
+    stage(f"phase 5: LogisticRegression: (a) bench.py's headline, (b) the reference benchmark's "
         "width, (c) softmax + OWL-QN + weights in float64")
     logistic = phase_logistic(device, args)
 
-    log("phase 6: PCA and LinearRegression: (d) PCA k=3 at bench.py's 1M x 128, (e) PCA k=3 "
+    stage(f"phase 6: PCA and LinearRegression: (d) PCA k=3 at bench.py's 1M x 128, (e) PCA k=3 "
         "and (f) LinearRegression at the reference benchmark's 1M x 3000, (g) float64 with "
         "weights, card against CPU")
     pca_linear = phase_pca_linear(device, args, logistic.pop("X_wide"))
 
-    log("phase 7: persistence")
+    stage("phase 7: persistence")
     phase_persistence(main_out, logistic, pca_linear)
 
-    log("phase 8: KMeans and DBSCAN: (h) KMeans k=20 at BASELINE.json's 100M x 64, (i) the "
+    stage(f"phase 8: KMeans and DBSCAN: (h) KMeans k=20 at BASELINE.json's 100M x 64, (i) the "
         "reference benchmark's kmeans_k1000_iter30 at 1M x 3000, (j) DBSCAN on bench.py's "
         "300k x 16 blobs, (k) float64, card against CPU")
-    clustering = phase_clustering(device, args, pca_linear.pop("X_f"))
+    wide_X = pca_linear.pop("X_f")
+    clustering = phase_clustering(device, args, wide_X)
+
+    stage("phase 9: RandomForest: (l) the reference benchmark's random_forest_classifier_50t_d13"
+          " and (m) random_forest_regressor_30t_d6 at 1M x 3000, (n) BASELINE.json's classifier "
+          f"at {RF_N_ROWS} x 64 ({RF_N_TREES} trees), (o) float64, card against CPU")
+    forest = phase_forest(device, args, wide_X, logistic.pop("y_wide"))
+    del wide_X
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
     print(json.dumps({"clustering": clustering["cells"]}))
+    print(json.dumps({"forest": forest["cells"]}))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

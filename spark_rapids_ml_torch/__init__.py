@@ -6,11 +6,12 @@
 # written for sm_90a (ops/fused_knn.py, ops/csrc/fused_knn.cu).
 #
 # Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`),
-# LogisticRegression (`spark_rapids_ml_torch.classification`), PCA
-# (`spark_rapids_ml_torch.feature`), LinearRegression
-# (`spark_rapids_ml_torch.regression`), and KMeans and DBSCAN
-# (`spark_rapids_ml_torch.clustering`), with the generic staged fit, the
-# fused stage-and-solve pass, the chunked transform and `DeviceDataset`.
+# LogisticRegression and RandomForestClassifier
+# (`spark_rapids_ml_torch.classification`), PCA
+# (`spark_rapids_ml_torch.feature`), LinearRegression and
+# RandomForestRegressor (`spark_rapids_ml_torch.regression`), and KMeans and
+# DBSCAN (`spark_rapids_ml_torch.clustering`), with the generic staged fit,
+# the fused stage-and-solve pass, the chunked transform and `DeviceDataset`.
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
 # `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without

@@ -12,11 +12,12 @@ import numpy as np
 
 from .core import _ReadWriteMixin
 from .data import _is_sparse
-from .models.classification import LogisticRegressionModel
+from .models.classification import LogisticRegressionModel, RandomForestClassificationModel
 from .models.clustering import KMeansModel
 from .models.feature import PCAModel
 from .models.knn import NearestNeighborsModel
-from .models.regression import LinearRegressionModel
+from .models.regression import LinearRegressionModel, RandomForestRegressionModel
+from .models.tree import _RandomForestModel
 
 
 def model_params(model: Any) -> Dict[str, Any]:
@@ -137,3 +138,30 @@ def kmeans_model_to_reference_attributes(model: KMeansModel) -> Dict[str, Any]:
         "n_cols": int(model.n_cols),
         "dtype": str(model.dtype),
     }
+
+
+_RF_ARRAYS = ("feature", "threshold", "leaf_stats", "gain", "count", "left_child")
+
+
+def rf_model_from_reference(attrs: Dict[str, Any], params: Dict[str, Any]) -> _RandomForestModel:
+    """A port RandomForest model from the JAX model's attributes and param
+    maps: a `RandomForestClassificationModel` where the attributes carry
+    `num_classes` (every JAX classifier fit sets it), else a
+    `RandomForestRegressionModel`."""
+    cls = (RandomForestClassificationModel if "num_classes" in attrs
+           else RandomForestRegressionModel)
+    model = cls(**dict(attrs))
+    _ReadWriteMixin._restore_params(model, params)
+    return model
+
+
+def rf_model_to_reference_attributes(model: _RandomForestModel) -> Dict[str, Any]:
+    """The attributes the JAX `RandomForestClassificationModel(**attrs)` or
+    `RandomForestRegressionModel(**attrs)` takes: the forest's arrays as
+    numpy, and its scalars."""
+    out: Dict[str, Any] = {k: np.array(getattr(model, k)) for k in _RF_ARRAYS}
+    out.update(max_depth=int(model.max_depth), n_cols=int(model.n_cols),
+               dtype=str(model.dtype))
+    if isinstance(model, RandomForestClassificationModel):
+        out["num_classes"] = int(model.num_classes)
+    return out

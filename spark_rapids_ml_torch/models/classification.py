@@ -11,7 +11,13 @@
 # host-driven one) at every size; an unsupported Param or value raises
 # (there is no CPU engine to fall back to); CSR input is densified (the ELL
 # kernel is a later item).  `evaluate` (the metrics item) and `cpu()`
-# (scikit-learn) are not ported.  RandomForestClassifier is a later item.
+# (scikit-learn) are not ported.
+#
+# RandomForestClassifier: the port of the JAX package's
+# RandomForestClassifier and RandomForestClassificationModel over the
+# shared layer of models/tree.py (ops/forest.py's histogram builder); the
+# model's `cpu()` is the pure-numpy `_NumpyForestPredictor`, ported.
+# `evaluate` (the metrics item) raises.
 #
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..params import (
     _TpuParams,
 )
 from ..utils import _ArrayBatch
+from .tree import _NumpyForestPredictor, _RandomForestEstimator, _RandomForestModel
 
 
 def _label_range(y, w):
@@ -541,4 +548,137 @@ class LogisticRegressionModel(
         raise NotImplementedError(
             "LogisticRegressionModel.cpu() builds a scikit-learn model; the "
             "port does not (ROADMAP.md section 3)"
+        )
+
+
+# ---------------------------------------------------------------------------
+# RandomForestClassifier
+# ---------------------------------------------------------------------------
+
+
+class RandomForestClassifier(
+    _RandomForestEstimator, HasProbabilityCol, HasRawPredictionCol
+):
+    """Random forest classifier on one GPU, with the JAX package's API: the
+    ops/forest.py histogram builder grows `numTrees` trees on the staged
+    rows, one at a time.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from spark_rapids_ml_torch import set_default_device
+    >>> from spark_rapids_ml_torch.classification import RandomForestClassifier
+    >>> set_default_device("cpu")
+    >>> X = np.array([[0.0], [0.1], [0.9], [1.0]])
+    >>> y = np.array([0.0, 0.0, 1.0, 1.0])
+    >>> model = RandomForestClassifier(numTrees=5, seed=7, bootstrap=False).fit((X, y))
+    >>> model.transform(X)["prediction"].tolist()
+    [0, 0, 1, 1]
+    """
+
+    def setProbabilityCol(self, value: str):
+        self._set(probabilityCol=value)
+        return self
+
+    def setRawPredictionCol(self, value: str):
+        self._set(rawPredictionCol=value)
+        return self
+
+    def _is_classification(self) -> bool:
+        return True
+
+    def _validate_input(self, batch: _ArrayBatch) -> None:
+        y = np.asarray(batch.y)
+        classes = np.unique(y)
+        if np.any(classes < 0) or not np.allclose(classes, np.round(classes)):
+            raise ValueError(
+                "Labels must be non-negative integers 0..numClasses-1, got "
+                f"{classes[:10]}"
+            )
+
+    def _validate_device_input(self, ds) -> None:
+        """The label contract of `_validate_input`, on the device over rows of
+        weight > 0, for DeviceDataset fits."""
+        integral, mn = _label_check(ds.y, ds.weight)
+        if not integral or mn < 0:
+            raise ValueError(
+                "Labels must be non-negative integers 0..numClasses-1"
+            )
+
+    def _num_stat_classes(self, fit_input: FitInput) -> int:
+        # labels are validated >= 0, so the largest one gives the count (one
+        # scalar fetched from the device)
+        C = int(fit_input.y.max().item()) + 1
+        self._n_classes_ = C
+        return C
+
+    def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
+        attrs = super()._fit_array(fit_input)
+        attrs["num_classes"] = self._n_classes_
+        return attrs
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "RandomForestClassificationModel":
+        return RandomForestClassificationModel(**attrs)
+
+
+class RandomForestClassificationModel(
+    _RandomForestModel, HasProbabilityCol, HasRawPredictionCol
+):
+    """A fitted random forest classifier."""
+
+    def __init__(self, **attrs: Any) -> None:
+        super().__init__(**attrs)
+        self.num_classes: int = int(attrs.get("num_classes",
+                                              self.leaf_stats.shape[-1]))
+
+    @property
+    def numClasses(self) -> int:
+        return self.num_classes
+
+    def _output_columns(self) -> List[str]:
+        return [
+            self.getOrDefault("predictionCol"),
+            self.getOrDefault("probabilityCol"),
+            self.getOrDefault("rawPredictionCol"),
+        ]
+
+    def _transform_device(self, Xs) -> Dict[str, Any]:
+        import torch
+
+        leaves, stats = self._leaves_and_stats(Xs)  # (T, n), (T, L, C)
+        # per-tree leaf class-count distributions, normalized per tree then
+        # summed (Spark rawPrediction semantics)
+        counts = stats.gather(1, leaves[:, :, None].expand(-1, -1, stats.shape[2]))
+        sums = torch.clamp_min(counts.sum(dim=2, keepdim=True), 1e-12)
+        raw = (counts / sums).sum(dim=0)  # (n, C)
+        probs = raw / self.numTrees
+        preds = torch.argmax(raw, dim=1).to(torch.int32)
+        return {
+            self.getOrDefault("predictionCol"): preds,
+            self.getOrDefault("probabilityCol"): probs,
+            self.getOrDefault("rawPredictionCol"): raw,
+        }
+
+    def cpu(self) -> _NumpyForestPredictor:
+        """Pure-numpy predictor over the model's arrays."""
+        return _NumpyForestPredictor(self, classification=True)
+
+    # -- one-sample API, on the host (the numpy predictor) ---------------------
+
+    def predictProbability(self, value) -> np.ndarray:
+        return self.cpu().predict_proba(self._check_width(value))[0]
+
+    def predictRaw(self, value) -> np.ndarray:
+        # rawPrediction = per-tree normalized class votes summed
+        return self.predictProbability(value) * self.numTrees
+
+    def predict(self, value) -> float:
+        return float(np.argmax(self.predictProbability(value)))
+
+    def evaluate(self, dataset):
+        """Not ported yet: the metrics subsystem is the "Meta layer" item (2)
+        of ROADMAP.md."""
+        raise NotImplementedError(
+            "RandomForestClassificationModel.evaluate needs the metrics "
+            "subsystem, the 'Meta layer' item (2) of ROADMAP.md"
         )

@@ -13,8 +13,12 @@
 # package sends to its scikit-learn fallback (loss="huber",
 # solver="l-bfgs") raises ValueError; `evaluate` (the metrics item) and
 # `cpu()` (scikit-learn) raise NotImplementedError; the FISTA solve keeps
-# no checkpoint (the resilience item).  RandomForestRegressor is a later
-# item.
+# no checkpoint (the resilience item).
+#
+# RandomForestRegressor: the port of the JAX package's RandomForestRegressor
+# and RandomForestRegressionModel over the shared layer of models/tree.py
+# (ops/forest.py's variance-split histogram builder); `cpu()` is the
+# pure-numpy `_NumpyForestPredictor`.
 #
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from ..params import (
     _TpuParams,
 )
 from ..utils import _ArrayBatch
+from .tree import _NumpyForestPredictor, _RandomForestEstimator, _RandomForestModel
 
 
 class LinearRegressionClass:
@@ -401,3 +406,54 @@ class LinearRegressionModel(
             "LinearRegressionModel.cpu() builds a scikit-learn model; the port does "
             "not (ROADMAP.md section 3)"
         )
+
+
+# ---------------------------------------------------------------------------
+# RandomForestRegressor
+# ---------------------------------------------------------------------------
+
+
+class RandomForestRegressor(_RandomForestEstimator):
+    """Random forest regressor on one GPU, with the JAX package's API:
+    variance-split histogram trees grown one at a time on the staged rows.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from spark_rapids_ml_torch import set_default_device
+    >>> from spark_rapids_ml_torch.regression import RandomForestRegressor
+    >>> set_default_device("cpu")
+    >>> X = np.array([[0.0], [0.1], [0.9], [1.0]])
+    >>> y = np.array([0.0, 0.0, 10.0, 10.0])
+    >>> model = RandomForestRegressor(numTrees=5, seed=3, bootstrap=False).fit((X, y))
+    >>> [round(float(v), 1) for v in model.transform(X)]
+    [0.0, 0.0, 10.0, 10.0]
+    """
+
+    def _is_classification(self) -> bool:
+        return False
+
+    def _create_model(self, attrs: Dict[str, Any]) -> "RandomForestRegressionModel":
+        return RandomForestRegressionModel(**attrs)
+
+
+class RandomForestRegressionModel(_RandomForestModel):
+    """A fitted random forest regressor."""
+
+    def _transform_device(self, Xs) -> Dict[str, Any]:
+        import torch
+
+        leaves, stats = self._leaves_and_stats(Xs)  # (T, n), (T, L, 3)
+        # (T, n, 3): (weight, sum y, sum y^2) of each row's leaf
+        at = stats.gather(1, leaves[:, :, None].expand(-1, -1, stats.shape[2]))
+        w = torch.clamp_min(at[:, :, 0], 1e-12)
+        preds = (at[:, :, 1] / w).mean(dim=0)
+        return {self.getOrDefault("predictionCol"): preds.to(Xs.dtype)}
+
+    def cpu(self) -> _NumpyForestPredictor:
+        """Pure-numpy predictor over the model's arrays."""
+        return _NumpyForestPredictor(self, classification=False)
+
+    def predict(self, value) -> float:
+        """Single-sample forest mean, on the host."""
+        return float(self.cpu().predict(self._check_width(value))[0])

@@ -81,6 +81,13 @@ def test_port_runs_with_jax_unimportable():
         "assert len(set(lab[:25])) == 1 and lab[0] != lab[-1]\n"
         "lab = DBSCAN(eps=10.0, min_samples=3).fit(Xc).transform(Xc)\n"
         "assert lab.tolist() == [0] * 25 + [1] * 25, lab\n"
+        "from spark_rapids_ml_torch.classification import RandomForestClassifier\n"
+        "from spark_rapids_ml_torch.regression import RandomForestRegressor\n"
+        "rf = RandomForestClassifier(numTrees=3, maxDepth=4, seed=2).fit((Xc, lab))\n"
+        "assert (rf.transform(Xc)['prediction'] == lab).all()\n"
+        "assert (rf.cpu().predict(Xc) == lab).all()\n"
+        "rr = RandomForestRegressor(numTrees=3, maxDepth=4, bootstrap=False).fit((Xc, 2.0 * lab))\n"
+        "assert np.allclose(rr.transform(Xc), 2.0 * lab)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
