@@ -9,6 +9,7 @@ Run from the root of a checkout:
                           [--lr-multi-rows 200000] [--pca-rows 1000000]
                           [--pca-dim 128] [--g-rows 200000] [--h-rows 100000000]
                           [--j-rows 300000] [--k-rows 200000] [--k-dbscan-rows 20000]
+                          [--r-rows 2000000]
 
 Phases, each of which makes the script exit non-zero when it fails:
 
@@ -119,14 +120,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    entry points (no hand-written kernel: the histogram is `scatter_add_`
    over row chunks, the rest torch ops): (l) the reference benchmark's
    random_forest_classifier_50t_d13 (numTrees=50, maxDepth=13,
-   maxBins=128, bench.py:1013-1016) and (m) random_forest_regressor_30t_d6
+   maxBins=128, bench.py:1013-1016; 20 of its 50 trees) and (m)
+   random_forest_regressor_30t_d6
    (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed) on
    phase 5's (b) rows, 1,000,000 x 3000; (n) BASELINE.json's classifier
    (maxDepth=16, bench.py:221-224) on (h)'s 100,000,000 x 64 standard
    normal rows with a linear label, its 100 trees cut to 4;
    (o) float64 with weights in [0.2, 2), bootstrap and a feature subset
    (gini, entropy and variance), card against CPU.  Each of (l)-(n): fits
-   from a DeviceDataset and from numpy (at (l) 10 of the 50 trees: the
+   from a DeviceDataset and from numpy (at (l) and (m) 10 trees: the
    same first trees), a transform of 1,000,000 rows, the
    card's busy share over a one-tree fit, and two trees (one at (n))
    grown by ops/forest.py `forest_fit` from draws the phase makes, with
@@ -149,11 +151,41 @@ Phases, each of which makes the script exit non-zero when it fails:
    rows through it left out).  (m): whether two card fits
    from one seed give equal trees, reported.  Then the (l) and (m) models
    saved and loaded.
+10. parquet and beyond the card's memory, through the public entry points
+   (no hand-written kernel: the parquet decode on the host, the copies,
+   and the statistics and solvers of phases 5, 6 and 8), in a temporary
+   directory removed at the end (its free space printed first; about 13 GB
+   of disk): (p) phase 5's (b) rows and labels, 1,000,000 x 3000 float32,
+   with (e)'s three scaled columns, written in bench.py:900-931's layout
+   (FixedSizeList, 50,000-row row groups, about 12 GB); the decode alone
+   (the range readers) as the rate a fit cannot beat; PCA k=3 and OLS on the
+   fused pass from parquet, LogisticRegression (maxIter=200, (b)'s
+   params) and KMeans k=1000 ((i)'s params) on stage_parquet + _fit_array,
+   each held against the same estimator fitted from the rows in memory
+   (components 1e-4, coefficients 1e-4, objective 1e-5, cost 1e-5) and the
+   fused statistics against float64 (1e-5); (q) on the same file,
+   LinearRegression routed to the streamed statistics by hbm_bytes below
+   the file's size and PCA by force_streaming_stats, the statistics held
+   against (p)'s and float64 (1e-5), the models against (p)'s (1e-4);
+   (r) bench.py:454-487's streaming cell, 2,000,000 x 64 float32 with a
+   binary label (about 512 MB, `--r-rows`), its decode alone by one scan
+   and by the range readers: LogisticRegression
+   (regParam=1e-4, maxIter=10, tol=0) and KMeans k=20 epoch by epoch,
+   their epochs and rows/s per epoch; the logistic objective held against
+   a float64 host recomputation (1e-5) and the in-memory fit of the same
+   rows (1e-4: that fit standardizes by the sample std, and ten
+   iterations converge neither), KMeans' cost against
+   `kmeans_fit_stepwise`, which seeds from the same strided sample (1e-5).  Each
+   fit prints its seconds and rows/s, its route's pass numbers
+   (`LAST_STAGE`, `FUSED_METRICS`, `STREAM_METRICS`: host prep, device
+   work, overlap), the reader count and its reason, and its peak device
+   memory.
 
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
 of the clustering cells' numbers, one of the forest cells' numbers
-({"forest": [...]}), a JSON object of the kernels' numbers,
+({"forest": [...]}), one of the parquet cells' numbers
+({"parquet": [...]}), a JSON object of the kernels' numbers,
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -2801,6 +2833,9 @@ def phase_forest_float64(device, n: int, seed: int) -> dict:
 # (n): BASELINE.json configs[3]'s rows; its 100 trees cut to what the
 # script's time allows (about 3.2 s a tree on an H100)
 RF_N_ROWS, RF_N_TREES = 100_000_000, 4
+# (l) grows 20 of the reference benchmark's 50 trees (phase 10's parquet
+# fits took the minute the other 30 would)
+RF_L_TREES = 20
 
 
 def phase_forest(device, args, wide_X, wide_y) -> dict:
@@ -2828,13 +2863,14 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
 
     def rfc(**kw):
-        return RandomForestClassifier(**{**dict(numTrees=50, maxDepth=13,
+        return RandomForestClassifier(**{**dict(numTrees=RF_L_TREES, maxDepth=13,
                                                 maxBins=128, seed=0), **kw})
 
-    # the fit from numpy grows 10 of the 50 trees (the same first trees):
-    # staging and a tree cost the same as in the 50-tree fit, and the other
-    # 40 trees would add a minute to the script
-    cells.append(phase_forest_cell(device, f"(l) random_forest_classifier_50t_d13 {n}x{d}", Xl,
+    # the fit from a DeviceDataset grows RF_L_TREES of the 50 trees, the fit
+    # from numpy 10 (the same first trees): a tree costs the same as in the
+    # 50-tree fit, and the other trees would add a minute to the script
+    cells.append(phase_forest_cell(device, f"(l) random_forest_classifier_50t_d13 {n}x{d}, "
+                                   f"{RF_L_TREES} of its 50 trees", Xl,
                                    yl, rfc, wide_X, wide_y, 2, False, 2, args.seed + 71,
                                    1_000_000, numpy_trees=10))
     clf_model = cells[-1].pop("model")
@@ -2852,7 +2888,7 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
 
     cells.append(phase_forest_cell(device, f"(m) random_forest_regressor_30t_d6 {n}x{d}", Xl, ym,
                                    rfr, wide_X, ym_host, 0, False, 2, args.seed + 73,
-                                   1_000_000))
+                                   1_000_000, numpy_trees=10))
     # check 6: the DeviceDataset fit and the fit from numpy are two card fits
     # from one seed; the regression channels sum with atomics
     log(f"  (m): two card fits from one seed give equal trees: "
@@ -2905,6 +2941,384 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
     return {"cells": cells}
 
 
+# ---- parquet and beyond the card's memory ---------------------------------------
+
+
+def write_reference_parquet(path: str, X, y, slab: int = 50_000) -> None:
+    """bench.py:900-931's layout: FixedSizeList float32 `features`, float64
+    `label`, written in `slab`-row row groups (default compression)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n, d = X.shape
+    writer = None
+    try:
+        for at in range(0, n, slab):
+            t = pa.table({
+                "features": pa.FixedSizeListArray.from_arrays(
+                    pa.array(np.ascontiguousarray(X[at:at + slab]).reshape(-1)), d),
+                "label": pa.array(np.asarray(y[at:at + slab], np.float64))})
+            if writer is None:
+                writer = pq.ParquetWriter(path, t.schema)
+            writer.write_table(t)
+    finally:
+        if writer is not None:
+            writer.close()
+
+
+def write_list_parquet(path: str, X, y) -> None:
+    """bench.py:470-476's layout (pandas' `list(X)`): a list<float>
+    `features` column and a float64 `label`."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n, d = X.shape
+    offsets = pa.array(np.arange(0, n * d + 1, d, dtype=np.int32))
+    feats = pa.ListArray.from_arrays(offsets, pa.array(X.reshape(-1)))
+    pq.write_table(pa.table({"features": feats, "label": pa.array(np.asarray(y, np.float64))}),
+                   path)
+
+
+def decode_alone(path: str, d: int, parallel: bool, row_range=None) -> dict:
+    """The parquet decode with no device work, the rate a fit from the file
+    cannot beat: the fused pass's range readers (`parallel`), or the one
+    scan of the streamed passes (`iter_chunks`), over `row_range`."""
+    from spark_rapids_ml_torch import fused, streaming
+
+    n = streaming.parquet_row_count(path)
+    t0 = time.perf_counter()
+    nbytes = 0
+    if parallel:
+        rows = fused.fused_chunk_rows(n, d, 4)
+        for cX, cy, cw in fused.iter_parquet_chunks(path, "features", (), "label", None, rows,
+                                                    np.float32, label_dtype=np.float32):
+            nbytes += (cX.shape[0] if cw is None else int((cw > 0).sum())) * d * 4
+        readers = dict(fused.LAST_READER_DECISION)
+    else:
+        rows = min(streaming.chunk_rows_for(d, 4), n)
+        for _, _, _, n_c in streaming.iter_chunks(path, "features", (), "label", None, rows,
+                                                  np.float32, row_range=row_range):
+            nbytes += n_c * d * 4
+        readers = {"parquet_readers": 1, "parquet_readers_reason": "one scan", "readers_used": 1}
+    s = time.perf_counter() - t0
+    return {"seconds": s, "MB": nbytes / 1e6, "MBps": nbytes / 1e6 / s,
+            "readers": readers.get("parquet_readers"), "readers_used": readers["readers_used"],
+            "readers_reason": readers.get("parquet_readers_reason")}
+
+
+def _pass_numbers(rep: dict) -> dict:
+    """The numbers of the pass a parquet fit's route ran (fit_report())."""
+    out = {"route": rep.get("route")}
+    for key in ("fused", "stage", "streaming", "parquet_readers", "budget"):
+        if key in rep:
+            out[key] = {k: v for k, v in rep[key].items() if k != "stamp"}
+    return out
+
+
+def _parquet_fit(device, name: str, make, path: str, n: int, route: str, decode: dict) -> tuple:
+    """(record, model) of one fit from the parquet path through the public
+    entry point: seconds, rows/s, the route's pass numbers, the decode bound
+    and the peak device memory; fails if the fit took another route."""
+    import torch
+
+    from spark_rapids_ml_torch import fused
+
+    torch.cuda.empty_cache()
+    fit_s, model, _ = _timed_fit(make, path, device)
+    rec = {"cell": name, "rows": n, "fit_s": fit_s, "rows_per_s": n / fit_s,
+           "peak_GB": torch.cuda.max_memory_allocated(device) / 1e9,
+           "decode_bound_MBps": decode["MBps"], **_pass_numbers(model.fit_report())}
+    p = rec.get("fused") or rec.get("stage") or rec.get("streaming") or {}
+    rec["parquet_readers"] = readers = {k: v for k, v in fused.LAST_READER_DECISION.items()
+                                        if k != "stamp"}
+    log(f"  {name}: fit from parquet {fit_s:.3f} s ({rec['rows_per_s']:,.0f} rows/s), route "
+        f"{rec['route']}; passes {p.get('passes', 1)}, chunks {p.get('chunks')}, host prep "
+        f"{p.get('host_prep_s', 0):.3f} s, device {p.get('device_acc_s', 0):.3f} s, overlap "
+        f"{p.get('overlap_s', 0):.3f} s; readers {readers.get('readers_used', 1)} "
+        f"({readers.get('parquet_readers_reason', 'one scan')}); peak "
+        f"device memory {rec['peak_GB']:.2f} GB; the decode alone {decode['MBps']:,.0f} MB/s")
+    if rec["route"] != route:
+        raise AssertionError(f"{name}: the fit took route {rec['route']}, not {route}")
+    return rec, model
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def _hold(name: str, what: str, err: float, limit: float) -> dict:
+    log(f"  {name}: {what}: {err:.3e} (limit {limit:g})")
+    if not err <= limit:
+        raise AssertionError(f"{name}: {what}: {err:.3e} beyond {limit:g}")
+    return {what: err}
+
+
+@contextlib.contextmanager
+def capture(module, name: str, store: dict):
+    """Keep the result of every `module.name(...)` call in `store[name]`
+    while the block runs (the estimators import it at call time)."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        store[name] = out
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield store
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_parquet_reference(device, tmp: str, X, y) -> list:
+    """(p) the reference benchmark's 1M x 3000 input as parquet, fitted
+    through the entry points (PCA k=3 and OLS on the fused pass from
+    parquet, LogisticRegression and KMeans k=1000 on stage_parquet +
+    _fit_array), each held against the same estimator fitted from the same
+    rows in memory; (q) the streamed route on the same file (LinearRegression
+    routed by hbm_bytes, PCA by force_streaming_stats), the statistics held
+    against (p)'s and a float64 recomputation.  The rows take (e)'s three
+    scaled columns while the phase runs."""
+    path = os.path.join(tmp, "ref_1m_3k.parquet")
+    # (e)'s spectral gap (phase 6): three columns scaled by 16, 8 and 4, so
+    # that the top three components are defined and the full solver of
+    # (q) meets the randomized one of (p); undone (exactly) at the end
+    scale = np.array([16.0, 8.0, 4.0], np.float32)
+    X[:, :3] *= scale
+    try:
+        return _parquet_reference_cells(device, tmp, X, y, path)
+    finally:
+        X[:, :3] /= scale
+
+
+def _parquet_reference_cells(device, tmp: str, X, y, path: str) -> list:
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset, fused, streaming
+    from spark_rapids_ml_torch import config as port_config
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.clustering import KMeans
+    from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_torch.regression import LinearRegression
+
+    n, d = X.shape
+    cells = []
+    t0 = time.perf_counter()
+    write_reference_parquet(path, X, y)
+    t_write = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    log(f"  (p) wrote {n} x {d} float32 rows + labels as parquet (50,000-row row groups): "
+        f"{size / 1e9:.2f} GB in {t_write:.2f} s")
+    dec_p = decode_alone(path, d, parallel=True)
+    log(f"  (p) the decode alone, range readers: {dec_p['MB']:.0f} MB in {dec_p['seconds']:.2f} s "
+        f"= {dec_p['MBps']:,.0f} MB/s ({dec_p['readers_used']} of {dec_p['readers']} readers: "
+        f"{dec_p['readers_reason']})")
+
+    # the in-memory references, from phase 5's rows on the card
+    pca_kw, ols_kw = dict(k=3), dict(regParam=0.0, standardization=False)
+    lr_kw = dict(regParam=1e-4, elasticNetParam=0.0, tol=1e-8, maxIter=200)
+    km_kw = dict(k=1000, tol=1e-20, maxIter=30, initMode="random")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ds = DeviceDataset.from_host(X, y=y, dtype=np.float32, label_dtype=np.int32)
+    ref64 = float64_stats(ds.X, ds.weight, ds.y.to(torch.float32))
+    refs, ref_s = {}, {}
+    for key, make in (("pca", lambda: PCA(**pca_kw).setInputCol("features")),
+                      ("ols", lambda: LinearRegression(**ols_kw)),
+                      ("logistic", lambda: LogisticRegression(**lr_kw)),
+                      ("kmeans", lambda: KMeans(**km_kw))):
+        ref_s[key], refs[key], _ = _timed_fit(make, ds, device)
+    log("  (p) fits from the DeviceDataset: " + ", ".join(f"{k} {v:.3f} s"
+                                                          for k, v in ref_s.items()))
+    del ds
+    torch.cuda.empty_cache()
+    log(f"  (p) references from the rows in memory (DeviceDataset; PCA, OLS, LogisticRegression "
+        f"maxIter=200, KMeans k=1000) and float64 statistics: {time.perf_counter() - t0:.2f} s")
+
+    store: dict = {}
+    with capture(fused, "fused_linreg_stats", store):
+        rec, pca_p = _parquet_fit(device, f"(p) PCA k=3 {n}x{d} from parquet",
+                                  lambda: PCA(**pca_kw).setInputCol("features"), path, n,
+                                  "fused_parquet", dec_p)
+        rec["fit_device_dataset_s"] = ref_s["pca"]
+        rec["check"] = hold_pca(rec["cell"], "vs the fit from the rows in memory", pca_p,
+                                refs["pca"].components_,
+                                refs["pca"].explained_variance_.astype(np.float64), 1e-4)
+        cells.append(rec)
+        rec, ols_p = _parquet_fit(device, f"(p) LinearRegression OLS {n}x{d} from parquet",
+                                  lambda: LinearRegression(**ols_kw), path, n, "fused_parquet",
+                                  dec_p)
+    rec["fit_device_dataset_s"] = ref_s["ols"]
+    rec["check"] = _hold(rec["cell"], "coefficients vs the fit from the rows in memory",
+                         _rel(ols_p.coef_, refs["ols"].coef_), 1e-4)
+    stats_p = store["fused_linreg_stats"]
+    for k in ("gram", "sxy", "s1"):
+        rec["check"].update(_hold(rec["cell"], f"fused statistics {k} vs float64",
+                                  _rel(stats_p[k], ref64[k]), 1e-5))
+    cells.append(rec)
+    rec, lr_p = _parquet_fit(device, f"(p) LogisticRegression maxIter=200 {n}x{d} from parquet",
+                             lambda: LogisticRegression(**lr_kw), path, n, "staged_parquet", dec_p)
+    rec.update(iterations=lr_p.num_iters, iterations_in_memory=refs["logistic"].num_iters,
+               fit_device_dataset_s=ref_s["logistic"])
+    rec["check"] = _hold(rec["cell"], "objective vs the fit from the rows in memory",
+                         abs(lr_p.objective - refs["logistic"].objective)
+                         / abs(refs["logistic"].objective), 1e-5)
+    cells.append(rec)
+    rec, km_p = _parquet_fit(device, f"(p) KMeans k=1000 maxIter=30 {n}x{d} from parquet",
+                             lambda: KMeans(**km_kw), path, n, "staged_parquet", dec_p)
+    rec["fit_device_dataset_s"] = ref_s["kmeans"]
+    rec["check"] = _hold(rec["cell"], "cost vs the fit from the rows in memory",
+                         abs(km_p.inertia_ - refs["kmeans"].inertia_) / refs["kmeans"].inertia_,
+                         1e-5)
+    cells.append(rec)
+
+    # (q): the streamed route, by the budget and by the flag
+    # a budget of 0.8 x half the rows' bytes (at 1M x 3000: 4.8 GB, below 12 GB)
+    port_config.set_config(hbm_bytes=n * d * 4 // 2)
+    try:
+        with capture(streaming, "linreg_streaming_stats", store):
+            rec, ols_q = _parquet_fit(device, f"(q) LinearRegression OLS {n}x{d} streamed, by "
+                                      "hbm_bytes", lambda: LinearRegression(**ols_kw), path, n,
+                                      "streamed", dec_p)
+    finally:
+        port_config.reset_config()
+    if rec["budget"]["forced"] or not rec["budget"]["over"]:
+        raise AssertionError("(q): the budget, not the flag, should route the fit")
+    stats_q = store["linreg_streaming_stats"]
+    rec["check"] = _hold(rec["cell"], "coefficients vs (p)'s fused fit",
+                         _rel(ols_q.coef_, ols_p.coef_), 1e-4)
+    for k in ("gram", "sxy", "s1", "sw", "sy", "syy"):
+        rec["check"].update(_hold(rec["cell"], f"streamed statistics {k} vs (p)'s",
+                                  _rel(stats_q[k], stats_p[k]), 1e-5))
+    cells.append(rec)
+    port_config.set_config(force_streaming_stats=True)
+    try:
+        with capture(streaming, "pca_streaming_stats", store):
+            rec, pca_q = _parquet_fit(device, f"(q) PCA k=3 {n}x{d} streamed, by "
+                                      "force_streaming_stats",
+                                      lambda: PCA(**pca_kw).setInputCol("features"), path, n,
+                                      "streamed", dec_p)
+    finally:
+        port_config.reset_config()
+    rec["check"] = hold_pca(rec["cell"], "vs (p)'s fit from parquet", pca_q, pca_p.components_,
+                            pca_p.explained_variance_.astype(np.float64), 1e-4)
+    for k, k64 in (("S", "gram"), ("s1", "s1"), ("sw", "sw")):
+        rec["check"].update(_hold(rec["cell"], f"streamed moments {k} vs float64",
+                                  _rel(store["pca_streaming_stats"][k], ref64[k64]), 1e-5))
+    cells.append(rec)
+    os.remove(path)
+    for c in cells:
+        c.update(file_GB=size / 1e9, write_s=t_write)
+    return cells
+
+
+def phase_parquet_streaming(device, tmp: str, n: int, seed: int) -> list:
+    """(r) bench.py:454-487's streaming cell: 2M x 64 float32 rows with a
+    binary label as parquet (about 512 MB); LogisticRegression
+    (regParam=1e-4, maxIter=10, tol=0) and KMeans k=20 fitted epoch by
+    epoch under force_streaming_stats, each held against the in-memory fit
+    of the same rows."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset
+    from spark_rapids_ml_torch import config as port_config
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.clustering import KMeans
+    from spark_rapids_ml_torch.ops import kmeans as km
+
+    d = 64
+    X, y = gen_binary(n, d, seed=6)
+    path = os.path.join(tmp, "stream.parquet")
+    t0 = time.perf_counter()
+    write_list_parquet(path, X, y)
+    log(f"  (r) bench.py's streaming input {n} x {d} float32 (_gen_binary(seed=6)) as parquet: "
+        f"{os.path.getsize(path) / 1e6:.0f} MB in {time.perf_counter() - t0:.2f} s")
+    dec_one = decode_alone(path, d, parallel=False)
+    dec = decode_alone(path, d, parallel=True)
+    log(f"  (r) the decode alone: one scan {dec_one['MB']:.0f} MB in {dec_one['seconds']:.2f} s = "
+        f"{dec_one['MBps']:,.0f} MB/s; range readers ({dec['readers']}, the file's row groups "
+        f"allowing {dec['readers_used']}) {dec['seconds']:.2f} s = {dec['MBps']:,.0f} MB/s")
+    cells = []
+    lr_kw = dict(regParam=1e-4, maxIter=10, tol=0.0)
+    port_config.set_config(force_streaming_stats=True)
+    try:
+        rec, lr = _parquet_fit(device, f"(r) LogisticRegression {n}x{d} epoch-streamed",
+                               lambda: LogisticRegression(**lr_kw), path, n, "streamed", dec)
+        epochs = lr._get_model_attributes()["streaming_epochs"]
+        rec.update(epochs=epochs, rows_per_s_per_epoch=n * epochs / rec["fit_s"],
+                   iterations=lr.num_iters,
+                   epoch_MBps=n * d * 4 * epochs / rec["fit_s"] / 1e6)
+        log(f"  (r) LogisticRegression: {lr.num_iters} iterations, {epochs} epochs, "
+            f"{rec['rows_per_s_per_epoch']:,.0f} rows/s per epoch "
+            f"({rec['epoch_MBps']:,.0f} MB/s of features)")
+        km_est = KMeans(k=20, seed=0, maxIter=20)
+        rec_k, kmm = _parquet_fit(device, f"(r) KMeans k=20 {n}x{d} epoch-streamed",
+                                  lambda: KMeans(k=20, seed=0, maxIter=20), path, n, "streamed",
+                                  dec)
+        rec_k.update(epochs=rec_k["streaming"]["epochs"], iterations=kmm.n_iter_,
+                     rows_per_s_per_epoch=n * rec_k["streaming"]["epochs"] / rec_k["fit_s"])
+    finally:
+        port_config.reset_config()
+    # the objective at the streamed coefficients, recomputed on the host in
+    # float64 with the streamed fit's standardization (population std)
+    mu = X.mean(axis=0, dtype=np.float64)
+    pop_std = np.sqrt(np.maximum((X.astype(np.float64) ** 2).mean(axis=0) - mu * mu, 0.0))
+    obj = float(host_objective(X, y, np.ones(n), lr.coef_, lr.intercept_, 1e-4, 0.0,
+                               std=pop_std))
+    rec["check"] = _hold(rec["cell"], "objective vs a float64 host recomputation",
+                         abs(lr.objective - obj) / abs(obj), 1e-5)
+    # the in-memory fit standardizes by the sample std (a scale of 1 + 1/(2n)
+    # on every feature): with tol=0 and 10 iterations neither fit converges,
+    # so the two trajectories part by more than rounding
+    mem = LogisticRegression(**lr_kw).fit((X, y))
+    rec["check"].update(_hold(rec["cell"], "objective vs the fit from the rows in memory",
+                              abs(lr.objective - mem.objective) / abs(mem.objective), 1e-4))
+    rec["check"].update(_hold(rec["cell"], "coefficients vs the fit from the rows in memory",
+                              _rel(lr.coef_, mem.coef_), 1e-3))
+    cells.append(rec)
+    # the in-memory fit with the streamed fit's seeding rule: every
+    # seed_sample_stride-th row (kmeans_fit_stepwise at the same init_rows)
+    ds = DeviceDataset.from_host(X, dtype=np.float32)
+    p = km_est._tpu_params
+    _, cost, n_iter = km.kmeans_fit_stepwise(
+        ds.X, ds.weight, k=20, seed=0, max_iter=20, tol=float(p["tol"]), init=str(p["init"]),
+        init_steps=int(p.get("init_steps") or 2),
+        oversample=float(p.get("oversampling_factor") or 2.0))
+    # the cost only: on standard normal rows every centre has near-tie rows,
+    # and the float32 atomics of the update flip some of them differently in
+    # the two fits, so their centres part by more than rounding
+    rec_k.update(iterations_in_memory=n_iter)
+    rec_k["check"] = _hold(rec_k["cell"], "cost vs the in-memory fit from the same sample",
+                           abs(kmm.inertia_ - float(cost)) / float(cost), 1e-5)
+    cells.append(rec_k)
+    del ds
+    torch.cuda.empty_cache()
+    os.remove(path)
+    for c in cells:
+        c["decode_one_scan_MBps"] = dec_one["MBps"]
+    return cells
+
+
+def phase_parquet(device, args, wide_X, wide_y) -> dict:
+    """Phase 10: (p) and (q) on phase 5's 1M x 3000 rows written as parquet,
+    (r) bench.py's 2M x 64 streaming cell, in a temporary directory removed
+    at the end."""
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    try:
+        du = shutil.disk_usage(tmp)
+        log(f"  temporary directory {tmp}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
+        cells = phase_parquet_reference(device, tmp, wide_X, wide_y)
+        cells += phase_parquet_streaming(device, tmp, args.r_rows, args.seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"cells": cells}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -2951,6 +3365,7 @@ def main() -> int:
     ap.add_argument("--j-rows", type=int, default=300_000)
     ap.add_argument("--k-rows", type=int, default=200_000)
     ap.add_argument("--k-dbscan-rows", type=int, default=20_000)
+    ap.add_argument("--r-rows", type=int, default=2_000_000)
     args = ap.parse_args()
 
     import torch
@@ -3025,14 +3440,21 @@ def main() -> int:
     stage("phase 9: RandomForest: (l) the reference benchmark's random_forest_classifier_50t_d13"
           " and (m) random_forest_regressor_30t_d6 at 1M x 3000, (n) BASELINE.json's classifier "
           f"at {RF_N_ROWS} x 64 ({RF_N_TREES} trees), (o) float64, card against CPU")
-    forest = phase_forest(device, args, wide_X, logistic.pop("y_wide"))
-    del wide_X
+    wide_y = logistic.pop("y_wide")
+    forest = phase_forest(device, args, wide_X, wide_y)
+
+    stage("phase 10: parquet: (p) the reference benchmark's 1M x 3000 input as parquet through "
+          "the fused and staged routes, (q) the streamed route on it, (r) bench.py's 2M x 64 "
+          "epoch-streaming cell")
+    parquet = phase_parquet(device, args, wide_X, wide_y)
+    del wide_X, wide_y
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
     print(json.dumps({"clustering": clustering["cells"]}))
     print(json.dumps({"forest": forest["cells"]}))
+    print(json.dumps({"parquet": parquet["cells"]}, default=float))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

@@ -11,7 +11,8 @@
 # (`spark_rapids_ml_torch.feature`), LinearRegression and
 # RandomForestRegressor (`spark_rapids_ml_torch.regression`), and KMeans and
 # DBSCAN (`spark_rapids_ml_torch.clustering`), with the generic staged fit,
-# the fused stage-and-solve pass, the chunked transform and `DeviceDataset`.
+# the fused stage-and-solve pass, the chunked transform, `DeviceDataset`, and
+# the fits from parquet and beyond the card's memory (`streaming`).
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
 # `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without

@@ -1,7 +1,7 @@
 #
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
-# keys the exact-kNN, LogisticRegression, PCA, LinearRegression and
-# clustering slices read.  The confs live in a process-global dict,
+# keys the exact-kNN, LogisticRegression, PCA, LinearRegression,
+# clustering and parquet/streaming slices read.  The confs live in a process-global dict,
 # overridable from the environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or
 # `set_config()`.  Key names and defaults match the JAX package, except
 # where a comment says otherwise; later slices add their keys here.
@@ -29,7 +29,8 @@ _DEFAULTS: Dict[str, Any] = {
     # the mapping of "high" and "default".
     "distance_precision": "highest",
     # Host staging budget in bytes: rows per chunk of the chunked
-    # transform (core.py `_TpuModel._transform_mesh`, `chunk_rows_for`).
+    # transform (core.py `_TpuModel._transform_mesh`) and of a streamed
+    # parquet pass (streaming.py `chunk_rows_for`).
     "host_batch_bytes": 512 * 1024 * 1024,
     # The JAX package's per-program operation budget.  LogisticRegression
     # does not read it (the port always runs the host-driven solver,
@@ -65,7 +66,42 @@ _DEFAULTS: Dict[str, Any] = {
     "pca_oversamples": 10,
     # Power (subspace) iterations of the randomized range-finder.
     "pca_power_iters": 2,
+    # Fit a parquet path without reading it whole into host memory
+    # (core.py `_stage_or_stream`): the fused pass from parquet, the
+    # stream-staged DeviceDataset, or the streamed fits.  False reads the
+    # file whole, as any other dataset.
+    "streaming_ingest": True,
+    # Take the streamed fits (streaming.py) whatever the device budget.
+    "force_streaming_stats": False,
+    # The share of the device's memory a staged dataset may take
+    # (core.py `_over_device_budget`).
+    "mem_ratio_for_data": 0.8,
+    # The device's memory in bytes for that budget.  The JAX package's
+    # default, 16 GiB, is a TPU v5e's HBM; in the port None means: the
+    # card's own memory (`torch.cuda.get_device_properties`) on a card,
+    # the JAX package's 16 GiB on the CPU, so that routing on the CPU
+    # matches it.  A set value overrides both.
+    "hbm_bytes": None,
+    # Decode parquet chunks on a background thread ahead of the device
+    # (streaming.py `iter_chunks_prefetch`), up to `streaming_prefetch_depth`
+    # chunks ahead; each level costs one chunk of host memory; 1 = no
+    # thread.
+    "streaming_prefetch": True,
+    "streaming_prefetch_depth": 3,
+    # Parallel parquet range readers of the fused pass and of the staging
+    # (fused.py `resolve_parquet_readers`): "auto" (the host's cores, at
+    # most 16) or a pinned count.
+    "fused_parquet_readers": "auto",
+    # DuHL chunk sampling of the streamed fits: only "off" is ported;
+    # "duhl" raises NotImplementedError (ROADMAP.md section 1).
+    "streaming_chunk_sampling": "off",
+    # Per-iteration checkpoints of the streamed fits: not ported; a
+    # non-empty value raises NotImplementedError (ROADMAP.md section 1).
+    "streaming_checkpoint_dir": "",
 }
+
+# Keys whose default is None, and the type an environment value takes.
+_TYPES: Dict[str, type] = {"hbm_bytes": int}
 
 _ENV_PREFIX = "SPARK_RAPIDS_ML_TORCH_"
 
@@ -73,7 +109,7 @@ _config: Dict[str, Any] = {}
 
 
 def _coerce(key: str, raw: str) -> Any:
-    ty = type(_DEFAULTS[key])
+    ty = _TYPES.get(key, type(_DEFAULTS[key]))
     if ty is bool:
         return raw.lower() in ("1", "true", "yes", "on")
     if ty is int:

@@ -12,23 +12,34 @@
 #                                     in the other
 #   _TpuCaller / _TpuEstimator / _TpuModel   the estimator and model bases
 #
-# The generic staged fit (`_TpuEstimator._fit`): extract host arrays ->
-# validate -> for dense host arrays and an estimator that fits from
-# sufficient statistics (PCA, LinearRegression), the fused stage-and-solve
-# pass when the conf `fused_stage_solve` routes there (`_maybe_fit_fused`,
-# fused.py) -> else stage them on the device (`_stage_fit_input`), or take
-# a DeviceDataset's tensors as they are (`_stage_from_device`) -> the
-# estimator's `_fit_array` -> model.  The generic transform
+# The generic staged fit (`_TpuEstimator._fit`):
+#   - a parquet path (conf `streaming_ingest`) goes to `_stage_or_stream`
+#     and is never read whole into host memory: beyond the device budget
+#     (`_over_device_budget`) or with `force_streaming_stats`, an
+#     estimator that can fits from streamed statistics or epoch by epoch
+#     (`_fit_streaming`, streaming.py); within it PCA and LinearRegression
+#     take the fused pass from parquet when `fused_stage_solve` routes
+#     there; anything else is stream-staged into one device tensor
+#     (streaming.py `stage_parquet`) for the estimator's `_fit_array`.  A
+#     card that runs out of memory while staging retries as a streamed fit;
+#   - anything else: extract host arrays -> validate -> a CSR batch whose
+#     dense form is beyond the budget fits from blocked-CSR statistics
+#     where the estimator can (`_maybe_fit_sparse_stats`) -> dense host
+#     arrays of an estimator that fits from sufficient statistics take the
+#     fused stage-and-solve pass when `fused_stage_solve` routes there
+#     (`_maybe_fit_fused`, fused.py) -> else they stage on the device
+#     (`_stage_fit_input`), or a DeviceDataset's tensors are taken as they
+#     are (`_stage_from_device`) -> the estimator's `_fit_array` -> model.
+# `fit_report()` names the route, the budget decision and the last
+# staging, fused or streamed pass.  The generic transform
 # (`_TpuModel._transform`): extract -> `_transform_mesh`, which runs the
 # model's `_transform_device` over row chunks sized by `host_batch_bytes`,
 # the next chunk's host-to-device copy on a side stream while the current
 # one computes.
 #
-# Left for later slices: Spark DataFrames, parquet streaming (and the
-# fused pass straight from parquet), the baseline fold, fitMultiple, the
-# CPU fallback, the
-# sparse (ELL) staging, and the resilience (retry, OOM halving) and
-# telemetry seams.  `fit_report()` returns None until then.
+# Left for later slices: Spark DataFrames, the device dataset cache, the
+# baseline fold, fitMultiple, the CPU fallback, the sparse (ELL) staging,
+# and the resilience (retry, OOM halving) and telemetry seams.
 #
 from __future__ import annotations
 
@@ -106,8 +117,12 @@ class Transformer(Params):
 
 class Model(Transformer):
     def fit_report(self) -> Optional[Dict[str, Any]]:
-        """The fit's telemetry report; the port records none yet."""
-        return None
+        """What the fit that made this model did: its route ("staged",
+        "device_dataset", "fused", "fused_parquet", "staged_parquet",
+        "streamed", "streamed_csr"), the device-budget decision, whether a
+        card out of memory sent it to the streamed fit, and the numbers of
+        its staging, fused or streamed passes.  None for a loaded model."""
+        return getattr(self, "_fit_report", None)
 
 
 def _json_default(o: Any) -> Any:
@@ -333,6 +348,8 @@ class _TpuEstimator(Estimator, _TpuCaller):
         super().__init__()
         self._init_tpu_params()
         self.logger = get_logger(type(self))
+        # what the current fit did, for its model's `fit_report()`
+        self._fit_record: Dict[str, Any] = {}
 
     # -- subclass contract ---------------------------------------------------
 
@@ -363,26 +380,168 @@ class _TpuEstimator(Estimator, _TpuCaller):
         `_supports_fused_stats` implement it)."""
         raise NotImplementedError(f"{type(self).__name__} implements no _fit_fused")
 
-    def _maybe_fit_fused(self, batch: _ArrayBatch) -> Optional[Dict[str, Any]]:
+    def _fit_fused_parquet(self, path: str) -> Dict[str, Any]:
+        """Fused fit streaming chunks straight from parquet (estimators that
+        declare `_supports_fused_stats` implement it)."""
+        raise NotImplementedError(f"{type(self).__name__} implements no _fit_fused_parquet")
+
+    def _maybe_fit_fused(self, source, est_bytes: Optional[float] = None
+                         ) -> Optional[Dict[str, Any]]:
         """The model's attributes from the fused stage-and-solve pass when
         the conf `fused_stage_solve` routes this fit there, else None (the
         two-phase path): an estimator without the capability, CSR input, or
-        the conf "off" or, under "auto", below `fused._AUTO_MIN_BYTES`.  A
-        pass that fails raises; nothing falls back to the two-phase path."""
-        if not self._supports_fused_stats() or _is_sparse(batch.X):
+        the conf "off" or, under "auto", below `fused._AUTO_MIN_BYTES`.
+        `source` is a host batch or a parquet path (then `est_bytes` is the
+        caller's estimate).  A pass that fails raises; nothing falls back
+        to the two-phase path."""
+        if not self._supports_fused_stats():
             return None
+        is_path = isinstance(source, str)
+        if not is_path:
+            if _is_sparse(source.X):
+                return None
+            est_bytes = (int(source.X.shape[0]) * int(source.X.shape[1])
+                         * np.dtype(self._out_dtype(source.X)).itemsize)
         from .fused import fused_enabled, fused_mode
 
-        est_bytes = (int(batch.X.shape[0]) * int(batch.X.shape[1])
-                     * np.dtype(self._out_dtype(batch.X)).itemsize)
-        if not fused_enabled(est_bytes):
+        if est_bytes is None or not fused_enabled(est_bytes):
             return None
         self.logger.info(
             "Fused stage-and-solve: accumulating sufficient statistics on the "
             f"device while the rows stage (fused_stage_solve={fused_mode()}, "
-            f"~{est_bytes / 2**20:.0f} MiB)."
-        )
-        return self._fit_fused(batch)
+            f"~{est_bytes / 2**20:.0f} MiB).")
+        self._fit_record["route"] = "fused_parquet" if is_path else "fused"
+        return self._fit_fused_parquet(source) if is_path else self._fit_fused(source)
+
+    # -- parquet and beyond the card's memory (streaming.py) -----------------
+
+    def _device(self):
+        """The device this estimator's fits run on."""
+        from .parallel import DeviceContext
+
+        with DeviceContext(self.num_workers) as ctx:
+            return ctx.device
+
+    def _supports_streaming_stats(self) -> bool:
+        """Whether `_fit_streaming` can fit a parquet file beyond the
+        device budget (PCA, LinearRegression, LogisticRegression, KMeans
+        say yes)."""
+        return False
+
+    def _fit_streaming(self, path: str) -> Dict[str, Any]:
+        raise NotImplementedError(f"{type(self).__name__} implements no _fit_streaming")
+
+    def _fit_streaming_csr(self, batch: _ArrayBatch) -> Optional[Dict[str, Any]]:
+        """Fit a host CSR batch from blocked-densify statistics (PCA and
+        LinearRegression implement it); None: the whole-densify staging
+        runs instead."""
+        return None
+
+    def _over_device_budget(self, need_bytes: float) -> bool:
+        """Whether a staged dataset of `need_bytes` is beyond the device
+        budget (`device_data_budget_bytes`), or `force_streaming_stats` is
+        set.  The decision is kept for `fit_report()`."""
+        from .config import get_config
+
+        forced = bool(get_config("force_streaming_stats"))
+        budget = device_data_budget_bytes(self._device())
+        over = forced or need_bytes > budget
+        self._fit_record["budget"] = {"need_bytes": float(need_bytes),
+                                      "budget_bytes": budget, "over": over, "forced": forced}
+        return over
+
+    def _sparse_over_budget(self, batch: _ArrayBatch) -> bool:
+        """Whether a CSR batch's dense form is beyond the device budget."""
+        if not _is_sparse(batch.X):
+            return False
+        n, d = batch.X.shape
+        return self._over_device_budget(n * d * np.dtype(self._out_dtype(batch.X)).itemsize)
+
+    def _maybe_fit_sparse_stats(self, batch: _ArrayBatch) -> Optional[Dict[str, Any]]:
+        """A CSR batch beyond the budget fits from blocked-CSR statistics
+        where the estimator can; else None."""
+        if not self._sparse_over_budget(batch):
+            return None
+        attrs = self._fit_streaming_csr(batch)
+        if attrs is not None:
+            self._fit_record["route"] = "streamed_csr"
+            self.logger.info("Sparse dataset beyond the device budget: fit from blocked-CSR "
+                             "streamed statistics.")
+        return attrs
+
+    def _streaming_io_params(self):
+        """(featuresCol, featuresCols, labelCol, weightCol, dtype) of a
+        fit from parquet."""
+        features_col, features_cols = _resolve_feature_params(self)
+        label_col = (self.getOrDefault("labelCol")
+                     if self._is_supervised() and self.hasParam("labelCol") else None)
+        weight_col = (self.getOrDefault("weightCol")
+                      if self.hasParam("weightCol") and self.isSet("weightCol") else None)
+        dtype = np.float32 if self._float32_inputs else np.float64
+        return features_col, features_cols, label_col, weight_col, dtype
+
+    def _stage_or_stream(self, path: str) -> Optional[Dict[str, Any]]:
+        """Fit a parquet file without a host copy of it: the streamed fit
+        beyond the device budget (estimators that can), the fused pass from
+        parquet within it (PCA, LinearRegression, when `fused_stage_solve`
+        routes there), else `stage_parquet` and `_fit_array`.  A card out
+        of memory while staging or fitting sends an estimator that can to
+        the streamed fit, once the failed staging is freed; any other
+        error reaches the caller.  None (extract the file whole) when
+        `enable_sparse_data_optim` is set."""
+        import torch
+
+        from .streaming import parquet_row_count, probe_num_features, stage_parquet
+
+        if (self.hasParam("enable_sparse_data_optim")
+                and self.getOrDefault("enable_sparse_data_optim") is True):
+            return None
+        fcol, fcols, label_col, weight_col, dtype = self._streaming_io_params()
+        if self._supports_streaming_stats():
+            need = (parquet_row_count(path) * probe_num_features(path, fcol, fcols)
+                    * np.dtype(dtype).itemsize)
+            if self._over_device_budget(need):
+                self.logger.info(
+                    f"Dataset (~{need / 2**30:.1f} GiB) beyond the device budget or "
+                    "force_streaming_stats set; fitting from streamed passes over the file.")
+                return self._run_streaming_fit(path)
+            attrs = self._maybe_fit_fused(path, est_bytes=need)
+            if attrs is not None:
+                return attrs
+
+        def staged() -> Dict[str, Any]:
+            # the staged tensors live in this frame only, so they are freed
+            # with it when the fit fails
+            self._fit_record["route"] = "staged_parquet"
+            ds = stage_parquet(
+                path, features_col=fcol, features_cols=fcols, label_col=label_col,
+                weight_col=weight_col, num_workers=self.num_workers, dtype=dtype,
+                label_dtype=self._fit_label_dtype() if label_col else None)
+            return self._run_fit_kernel(self._stage_from_device(ds))
+
+        try:
+            return staged()
+        except torch.cuda.OutOfMemoryError as e:
+            if not self._supports_streaming_stats():
+                raise RuntimeError(
+                    "Dataset exceeds device memory while stream-staging and "
+                    f"{type(self).__name__} cannot fit from streamed passes") from e
+        # outside the except block, so that the traceback no longer pins
+        # the failed staging's tensors
+        import gc
+
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        self.logger.warning("Device staging ran out of memory; retrying as a streamed fit.")
+        self._fit_record["oom_fallback"] = True
+        return self._run_streaming_fit(path)
+
+    def _run_streaming_fit(self, path: str) -> Dict[str, Any]:
+        """The streamed fit: a plain call (the JAX package's retry policy
+        is the resilience item of ROADMAP.md)."""
+        self._fit_record["route"] = "streamed"
+        return self._fit_streaming(path)
 
     # -- fit orchestration ---------------------------------------------------
 
@@ -415,17 +574,28 @@ class _TpuEstimator(Estimator, _TpuCaller):
         )
 
     def _fit(self, dataset: DatasetLike) -> "_TpuModel":
+        from .config import get_config
+        from .streaming import is_parquet_path
+
         t0 = time.time()
+        self._fit_record = {}
         attrs = None
         if isinstance(dataset, DeviceDataset):
+            self._fit_record["route"] = "device_dataset"
             fit_input = self._stage_from_device(dataset)
         else:
-            batch = self._extract(dataset)
-            self._validate_input(batch)
-            attrs = self._maybe_fit_fused(batch)
+            if is_parquet_path(dataset) and get_config("streaming_ingest"):
+                attrs = self._stage_or_stream(dataset)
             if attrs is None:
-                fit_input = self._stage_fit_input(batch)
-            del batch
+                batch = self._extract(dataset)
+                self._validate_input(batch)
+                attrs = self._maybe_fit_sparse_stats(batch)
+                if attrs is None:
+                    attrs = self._maybe_fit_fused(batch)
+                if attrs is None:
+                    self._fit_record["route"] = "staged"
+                    fit_input = self._stage_fit_input(batch)
+                del batch
         if attrs is None:
             attrs = self._run_fit_kernel(fit_input)
             del fit_input
@@ -433,8 +603,25 @@ class _TpuEstimator(Estimator, _TpuCaller):
         self._copyValues(model)
         model._num_workers = self._num_workers
         model._float32_inputs = self._float32_inputs
+        model._fit_report = self._fit_report_record()
         self.logger.info(f"Finished fit in {time.time() - t0:.3f}s")
         return model
+
+    def _fit_report_record(self) -> Dict[str, Any]:
+        """The fit's record with the numbers of the pass its route ran."""
+        from . import fused, streaming
+
+        rec = dict(self._fit_record)
+        route = rec.get("route")
+        if route in ("fused", "fused_parquet"):
+            rec["fused"] = dict(fused.FUSED_METRICS)
+        if route == "staged_parquet":
+            rec["stage"] = dict(streaming.LAST_STAGE)
+        if route in ("streamed", "streamed_csr"):
+            rec["streaming"] = dict(streaming.STREAM_METRICS)
+        if route in ("fused_parquet", "staged_parquet", "streamed"):
+            rec["parquet_readers"] = dict(fused.LAST_READER_DECISION)
+        return rec
 
 
 class _TpuEstimatorSupervised(_TpuEstimator):
@@ -505,6 +692,7 @@ class _TpuModel(Model, _TpuCaller):
 
         from .parallel import DeviceContext
         from .parallel.mesh import RowStager
+        from .streaming import chunk_rows_for
 
         sparse_in = _is_sparse(X)
         if sparse_in:
@@ -603,8 +791,23 @@ class _TpuModel(Model, _TpuCaller):
         return outputs
 
 
-def chunk_rows_for(d: int, itemsize: int = 4) -> int:
-    """Rows per chunk from the `host_batch_bytes` budget."""
+# The JAX package's `hbm_bytes` default, a TPU v5e's HBM: the port's
+# budget on the CPU, so that routing there matches the JAX package's.
+_JAX_HBM_BYTES = 16 * 1024 * 1024 * 1024
+
+
+def device_data_budget_bytes(device) -> float:
+    """The bytes a staged dataset may take on `device`: `hbm_bytes` (when
+    None: the card's memory on a card, the JAX package's 16 GiB on the
+    CPU) times `mem_ratio_for_data`.  One device, where the JAX package
+    multiplies by its device count."""
     from .config import get_config
 
-    return max(1024, int(get_config("host_batch_bytes")) // max(d * itemsize, 1))
+    hbm = get_config("hbm_bytes")
+    if hbm is None:
+        import torch
+
+        device = torch.device(device)
+        hbm = (torch.cuda.get_device_properties(device).total_memory
+               if device.type == "cuda" else _JAX_HBM_BYTES)
+    return float(hbm) * float(get_config("mem_ratio_for_data"))

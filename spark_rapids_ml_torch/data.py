@@ -5,7 +5,8 @@
 # 2-D arrays, (X, y) tuples, scipy CSR matrices, mappings of column
 # name -> numpy array (the pandas-free frame the port
 # also returns from `kneighbors` when pandas is absent), pandas DataFrames,
-# pyarrow Tables and parquet paths.
+# pyarrow Tables and parquet paths (read whole here only when the conf
+# `streaming_ingest` is off: else core.py streams them, streaming.py).
 #
 # pandas and pyarrow are imported only where a DataFrame is taken or made:
 # numpy, CSR and mapping inputs never import them, so the port runs on a

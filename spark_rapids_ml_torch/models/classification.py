@@ -7,11 +7,17 @@
 # transform is the chunked `_transform_mesh` over `binary_predict` /
 # `logreg_predict`.
 #
+# A parquet file beyond the device budget (or with
+# `force_streaming_stats`) fits epoch by epoch: the host L-BFGS/OWL-QN
+# streams the file once per evaluation (streaming.py
+# `logreg_streaming_fit`), and the model records `streaming_epochs`.
+#
 # Differences from the JAX package, each deliberate: one solver shape (the
 # host-driven one) at every size; an unsupported Param or value raises
 # (there is no CPU engine to fall back to); CSR input is densified (the ELL
-# kernel is a later item).  `evaluate` (the metrics item) and `cpu()`
-# (scikit-learn) are not ported.
+# kernel is a later item); the streamed fit evaluates in the fit's dtype
+# (the JAX package's in float32).  `evaluate` (the metrics item) and
+# `cpu()` (scikit-learn) are not ported.
 #
 # RandomForestClassifier: the port of the JAX package's
 # RandomForestClassifier and RandomForestClassificationModel over the
@@ -279,6 +285,80 @@ class LogisticRegression(
             raise RuntimeError("Labels MUST be Integers")
         if mn < 0:
             raise RuntimeError(f"Labels MUST be non-negative, but got min {mn}")
+
+    def _supports_streaming_stats(self) -> bool:
+        # epoch streaming: every evaluation streams the file again
+        return True
+
+    def _fit_streaming(self, path: str) -> Dict[str, Any]:
+        """Beyond the device budget: the host L-BFGS/OWL-QN whose every
+        evaluation streams the file through the loss and gradient on the
+        card (streaming.py `logreg_streaming_fit`)."""
+        from ..streaming import logreg_streaming_fit
+
+        fcol, fcols, label_col, weight_col, dtype = self._streaming_io_params()
+        if label_col is None:
+            raise ValueError("labelCol must be set for LogisticRegression")
+        p = self._tpu_params
+        C = float(p["C"])
+        reg_param = 1.0 / C if C > 0 else 0.0
+        l1_ratio = p.get("l1_ratio")
+        en = float(l1_ratio) if l1_ratio is not None else float(
+            self.getOrDefault("elasticNetParam"))
+        fit_intercept = bool(p["fit_intercept"])
+        res = logreg_streaming_fit(
+            path, fcol, fcols, label_col, weight_col,
+            family=str(self.getOrDefault("family")),
+            l2=reg_param * (1.0 - en),
+            l1=reg_param * en,
+            fit_intercept=fit_intercept,
+            standardization=bool(p.get("standardization", True)),
+            tol=float(p["tol"]),
+            max_iter=int(p["max_iter"]),
+            history=int(p.get("lbfgs_memory", 10)),
+            ls_max=int(p.get("linesearch_max_iter", 20)),
+            dtype=dtype,
+            device=self._device(),
+        )
+        dtype = np.dtype(dtype)
+        if "degenerate_label" in res:
+            cv = float(res["degenerate_label"])
+            if cv not in (0.0, 1.0):
+                raise RuntimeError(
+                    "class value must be either 1. or 0. when dataset has one label")
+            return {
+                "coef_": np.zeros((1, res["d"]), dtype),
+                "intercept_": np.array([np.inf if cv == 1.0 else -np.inf], dtype),
+                "classes_": [cv],
+                "n_cols": res["d"],
+                "dtype": str(dtype.name),
+                "num_iters": 0,
+                "objective": 0.0,
+            }
+        coef = np.asarray(res["coef"], np.float64)
+        intercept = np.asarray(res["intercept"], np.float64)
+        if res["std"] is not None:
+            std = np.asarray(res["std"], np.float64)
+            coef = np.where(std > 0, coef / std, coef)
+            if fit_intercept and res["mean"] is not None:
+                intercept = intercept - coef @ np.asarray(res["mean"], np.float64)
+        if fit_intercept and len(intercept) > 1:
+            intercept = intercept - intercept.mean()
+        hist = [float(v) for v in res["history"]]
+        return {
+            "coef_": coef.astype(dtype),
+            "intercept_": intercept.astype(dtype),
+            "classes_": [float(c) for c in range(res["n_classes"])],
+            "n_cols": int(res["d"]),
+            "dtype": str(dtype.name),
+            "num_iters": int(res["n_iter"]),
+            "objective": float(hist[-1]) if hist else 0.0,
+            "objective_history": hist,
+            "converged": bool(res.get("converged", False)),
+            # passes over the file, line-search trials included (rows/s per
+            # epoch is read from it)
+            "streaming_epochs": int(res.get("epochs", 0)),
+        }
 
     def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
         import torch

@@ -7,11 +7,14 @@
 # as in the JAX package: `DBSCANModel.transform` clusters the rows it is
 # given (ops/dbscan.py) and renumbers the clusters by first occurrence.
 #
+# A parquet file beyond the device budget (or with
+# `force_streaming_stats`) fits epoch by epoch: seeding on a strided
+# subsample of the file, then one streamed pass per Lloyd iteration
+# (streaming.py `kmeans_streaming_fit`).
+#
 # Not ported: the CPU fits and `cpu()` (scikit-learn, which the card's
-# machine lacks; ROADMAP.md section 3), the fit from parquet beyond the
-# card's memory (`_fit_streaming`, ROADMAP.md section 1, "Beyond the
-# card's memory") and the per-iteration KMeans checkpoint ("Resilience").
-# CSR input is densified.
+# machine lacks; ROADMAP.md section 3) and the per-iteration KMeans
+# checkpoint ("Resilience").  CSR input is densified.
 #
 from __future__ import annotations
 
@@ -177,11 +180,39 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansTpuParams):
         super().__init__()
         self._set_params(**kwargs)
 
+    def _supports_streaming_stats(self) -> bool:
+        # no sufficient statistics: every Lloyd iteration streams the file
+        return True
+
     def _fit_streaming(self, path: str) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "KMeans' streaming fit is not ported yet: ROADMAP.md section 1, "
-            "'Beyond the card's memory'"
+        """Beyond the device budget: centres seeded from a strided
+        subsample of the file, then one streamed assign-and-sum pass per
+        Lloyd iteration (streaming.py `kmeans_streaming_fit`)."""
+        from ..streaming import kmeans_streaming_fit
+
+        fcol, fcols, _, weight_col, dtype = self._streaming_io_params()
+        p = self._tpu_params
+        seed = p.get("random_state")
+        res = kmeans_streaming_fit(
+            path, fcol, fcols, weight_col,
+            k=int(p["n_clusters"]),
+            seed=int(seed) if seed is not None else int(self.getOrDefault("seed")),
+            max_iter=int(p["max_iter"]),
+            tol=float(p["tol"]),
+            init=str(p["init"]),
+            init_steps=int(p.get("init_steps") or 2),
+            oversample=float(p.get("oversampling_factor") or 2.0),
+            dtype=dtype,
+            device=self._device(),
         )
+        dtype = np.dtype(dtype)
+        return {
+            "cluster_centers_": np.asarray(res["centers"]).astype(dtype),
+            "inertia_": float(res["cost"]),
+            "n_iter_": int(res["n_iter"]),
+            "n_cols": int(res["d"]),
+            "dtype": str(dtype.name),
+        }
 
     def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
         from ..ops.kmeans import kmeans_fit_auto

@@ -3,17 +3,18 @@
 # DeviceDataset (or from host arrays below the fused threshold) runs
 # ops/pca.py on the staged rows: the full solver (covariance + eigh on the
 # device) or the randomized range-finder, chosen by `resolve_pca_solver`.
-# A fit from dense host arrays at or above it (conf `fused_stage_solve`)
-# folds the second moments, or the range-finder's projected moments, chunk
-# by chunk as the rows stage (fused.py) and finishes on the host in
-# float64.  `transform` projects the raw rows (Spark semantics: no mean
-# removed).
+# A fit from dense host arrays or a parquet file at or above it (conf
+# `fused_stage_solve`) folds the second moments, or the range-finder's
+# projected moments, chunk by chunk as the rows stage or decode (fused.py)
+# and finishes on the host in float64.  Beyond the device budget a parquet
+# file fits from streamed second moments (streaming.py
+# `pca_streaming_stats`), and a CSR matrix from blocked-densify moments
+# (`pca_stats_from_csr`); within it CSR input is densified onto the
+# two-phase path.  `transform` projects the raw rows (Spark semantics: no
+# mean removed).
 #
 # Not ported: `cpu()` and the scikit-learn fit (the card's machine has no
-# scikit-learn; ROADMAP.md section 3), and the fits from parquet and beyond
-# the card's memory (`_fit_fused_parquet`, `_fit_streaming`,
-# `_fit_streaming_csr`: item 7 of ROADMAP.md).  CSR input is densified
-# onto the two-phase path.
+# scikit-learn; ROADMAP.md section 3).
 #
 from __future__ import annotations
 
@@ -32,13 +33,6 @@ from ..params import (
     _TpuParams,
 )
 from ..utils import _ArrayBatch
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: the parquet, streaming and CSR-statistics "
-        "fits are item 7 of ROADMAP.md"
-    )
 
 
 class PCAClass:
@@ -156,29 +150,62 @@ class PCA(PCAClass, _TpuEstimator, _PCATpuParams):
         randomized projected-moment) accumulators fold each chunk in as it
         lands on the device (fused.py)."""
         from ..fused import fused_chunk_rows, fused_pca_stats, iter_host_chunks
-        from ..parallel import DeviceContext
 
         X = batch.X
         dtype = self._out_dtype(X)
         d = int(X.shape[1])
-        with DeviceContext(self.num_workers) as ctx:
-            device = ctx.device
 
         def producer(n_dev: int):
             rows = fused_chunk_rows(int(X.shape[0]), d, np.dtype(dtype).itemsize, n_dev)
             return iter_host_chunks(X, None, batch.weight, rows, dtype)
 
-        st = fused_pca_stats(producer, d, self._resolved_k(d), dtype, device)
+        st = fused_pca_stats(producer, d, self._resolved_k(d), dtype, self._device())
         return self._attrs_from_fused(st, dtype)
 
     def _fit_fused_parquet(self, path: str) -> Dict[str, Any]:
-        raise _not_ported("PCA's fused fit from parquet")
+        """Fused stage-and-solve straight from parquet: the decode runs on
+        the range readers, overlapped with the accumulation on the
+        device."""
+        from ..fused import fused_chunk_rows, fused_pca_stats, iter_parquet_chunks
+        from ..streaming import parquet_row_count, probe_num_features
+
+        fcol, fcols, _, weight_col, dtype = self._streaming_io_params()
+        d = probe_num_features(path, fcol, fcols)
+        n = parquet_row_count(path)
+
+        def producer(n_dev: int):
+            rows = fused_chunk_rows(n, d, np.dtype(dtype).itemsize, n_dev)
+            prep = {"s": 0.0, "iv": []}  # the readers time their own decode
+            return iter_parquet_chunks(path, fcol, fcols, None, weight_col, rows, dtype,
+                                       prep=prep), prep
+
+        st = fused_pca_stats(producer, d, self._resolved_k(d), dtype, self._device())
+        return self._attrs_from_fused(st, dtype)
+
+    def _supports_streaming_stats(self) -> bool:
+        return True
 
     def _fit_streaming(self, path: str) -> Dict[str, Any]:
-        raise _not_ported("PCA's streaming fit")
+        """Beyond the device budget: the second moments streamed from the
+        file in one pass (streaming.py `pca_streaming_stats`); only the
+        (d, d) accumulator is on the device.  The full solver on the host
+        in float64."""
+        from ..streaming import pca_streaming_stats
+
+        fcol, fcols, _, weight_col, dtype = self._streaming_io_params()
+        st = pca_streaming_stats(path, fcol, fcols, weight_col, dtype=dtype,
+                                 device=self._device())
+        return self._attrs_from_moments(st, dtype)
 
     def _fit_streaming_csr(self, batch) -> Dict[str, Any]:
-        raise _not_ported("PCA's CSR-statistics fit")
+        """A CSR matrix beyond the budget: the second moments densified a
+        block of rows at a time (streaming.py `pca_stats_from_csr`)."""
+        from ..streaming import pca_stats_from_csr
+
+        dtype = self._out_dtype(batch.X)
+        st = pca_stats_from_csr(batch.X.tocsr(), batch.weight, dtype=dtype,
+                                device=self._device())
+        return self._attrs_from_moments(st, dtype)
 
     def _attrs_from_fused(self, st: Dict[str, Any], dtype) -> Dict[str, Any]:
         if st.get("kind") == "projected":

@@ -5,9 +5,10 @@
 # in float64: OLS when regParam = 0, ridge in closed form when
 # elasticNetParam = 0, else FISTA.  The two-phase fit (a DeviceDataset, or
 # host arrays below the fused threshold) ends with a residual pass over the
-# staged rows for the training summary; the fused fit from host arrays
-# (fused.py) takes the summary from the statistics, as the JAX package
-# does.
+# staged rows for the training summary; the fused fit from host arrays or
+# parquet (fused.py), the streamed fit of a parquet file beyond the device
+# budget and the blocked-CSR fit of a CSR matrix beyond it (streaming.py)
+# take the summary from the statistics, as the JAX package does.
 #
 # Differences from the JAX package, each deliberate: a value the JAX
 # package sends to its scikit-learn fallback (loss="huber",
@@ -266,36 +267,66 @@ class LinearRegression(
         The summary comes from the one-pass SSE expansion (no staged rows
         remain for a residual pass), as in the JAX package."""
         from ..fused import fused_chunk_rows, fused_linreg_stats, iter_host_chunks
-        from ..parallel import DeviceContext
 
         X = batch.X
         dtype = self._out_dtype(X)
         d = int(X.shape[1])
         ldt = self._fit_label_dtype() or np.dtype(dtype)
-        with DeviceContext(self.num_workers) as ctx:
-            device = ctx.device
 
         def producer(n_dev: int):
             rows = fused_chunk_rows(int(X.shape[0]), d, np.dtype(dtype).itemsize, n_dev)
             return iter_host_chunks(X, batch.y, batch.weight, rows, dtype, label_dtype=ldt)
 
-        st = fused_linreg_stats(producer, d, dtype, device)
+        st = fused_linreg_stats(producer, d, dtype, self._device())
         return self._attrs_from_stats(st, dtype)
 
     def _fit_fused_parquet(self, path: str) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "LinearRegression's fused fit from parquet is not ported yet (item 7 of ROADMAP.md)"
-        )
+        """Fused stage-and-solve straight from parquet: the decode runs on
+        the range readers, the statistics accumulate on the device."""
+        from ..fused import fused_chunk_rows, fused_linreg_stats, iter_parquet_chunks
+        from ..streaming import parquet_row_count, probe_num_features
+
+        fcol, fcols, label_col, weight_col, dtype = self._streaming_io_params()
+        if label_col is None:
+            raise ValueError("labelCol must be set for LinearRegression")
+        d = probe_num_features(path, fcol, fcols)
+        n = parquet_row_count(path)
+        ldt = self._fit_label_dtype() or np.dtype(dtype)
+
+        def producer(n_dev: int):
+            rows = fused_chunk_rows(n, d, np.dtype(dtype).itemsize, n_dev)
+            prep = {"s": 0.0, "iv": []}  # the readers time their own decode
+            return iter_parquet_chunks(path, fcol, fcols, label_col, weight_col, rows, dtype,
+                                       label_dtype=ldt, prep=prep), prep
+
+        st = fused_linreg_stats(producer, d, dtype, self._device())
+        return self._attrs_from_stats(st, dtype)
+
+    def _supports_streaming_stats(self) -> bool:
+        return True
 
     def _fit_streaming(self, path: str) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "LinearRegression's streaming fit is not ported yet (item 7 of ROADMAP.md)"
-        )
+        """Beyond the device budget: the statistics streamed from the file
+        in one pass (streaming.py `linreg_streaming_stats`), then the same
+        host solve.  The summary comes from the one-pass SSE expansion."""
+        from ..streaming import linreg_streaming_stats
+
+        fcol, fcols, label_col, weight_col, dtype = self._streaming_io_params()
+        if label_col is None:
+            raise ValueError("labelCol must be set for LinearRegression")
+        st = linreg_streaming_stats(path, fcol, fcols, label_col, weight_col, dtype=dtype,
+                                    device=self._device())
+        return self._attrs_from_stats(st, dtype)
 
     def _fit_streaming_csr(self, batch) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "LinearRegression's CSR-statistics fit is not ported yet (item 7 of ROADMAP.md)"
-        )
+        """A CSR matrix beyond the budget: the statistics densified a block
+        of rows at a time (streaming.py `linreg_stats_from_csr`)."""
+        from ..streaming import linreg_stats_from_csr
+
+        dtype = self._out_dtype(batch.X)
+        st = linreg_stats_from_csr(batch.X.tocsr(), np.asarray(batch.y), batch.weight,
+                                   dtype=dtype, device=self._device())
+        return self._attrs_from_stats(st, dtype)
 
     def _supports_fold_weights(self) -> bool:
         # the solve reads w-weighted statistics only

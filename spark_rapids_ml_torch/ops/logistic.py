@@ -27,7 +27,7 @@
 #
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -79,11 +79,12 @@ class LogisticOracle:
     device in X's type and returns (f, g) on the host, f a float and g
     float64, in one device-to-host copy.  Its parts (`margins`,
     `loss_and_residual`, `gradient`) are public so they can be timed one by
-    one."""
+    one.  `wsum` is the weight the loss is normalised by, sum(w) unless
+    given (a chunk of a streamed fit gives the whole file's)."""
 
     def __init__(self, X: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
                  n_classes: int, l2: float, fit_intercept: bool,
-                 binomial: bool) -> None:
+                 binomial: bool, wsum: Optional[float] = None) -> None:
         self.X = X
         self.dtype = X.dtype
         self.l2 = float(l2)
@@ -92,7 +93,7 @@ class LogisticOracle:
         self.C = 1 if binomial else int(n_classes)
         self.n_coef, self.n_param, self.l1_mask, self.unpack = _theta_layout(
             self.C, X.shape[1], fit_intercept)
-        self.w_scaled = w / w.sum()
+        self.w_scaled = w / (w.sum() if wsum is None else wsum)
         if binomial:
             self.sgn = 2.0 * y.to(self.dtype) - 1.0  # {-1, +1}
         else:

@@ -1,14 +1,17 @@
 #
 # Utilities — the port of the pieces of spark_rapids_ml_tpu/utils.py the
-# port uses: the per-class logger, the host batch record and the partition
-# layout of a fit.
+# port uses: the per-class logger, the host batch record, the partition
+# layout of a fit and `prefetch_iter`, the producer thread of the fused
+# pass and of the parquet streams.
 #
 from __future__ import annotations
 
 import logging
+import queue
 import sys
+import threading
 from dataclasses import dataclass
-from typing import List, Optional, Type, Union
+from typing import Iterable, Iterator, List, Optional, Type, Union
 
 import numpy as np
 
@@ -57,3 +60,49 @@ class PartitionDescriptor:
             n=int(total_cols),
             parts_rank_size=[(i, int(r)) for i, r in enumerate(partition_rows)],
         )
+
+
+def prefetch_iter(it: Iterable, depth: int) -> Iterator:
+    """Run `it` on a daemon thread up to `depth` items ahead of the
+    consumer (a queue of depth - 1 plus the item in the producer's hand).
+    A producer exception is raised on the consumer; a consumer that stops
+    early stops the producer.  depth <= 1: plain iteration, no thread."""
+    if depth <= 1:
+        yield from it
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=depth - 1)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer() -> None:
+        try:
+            for item in it:
+                if not put(item):
+                    return
+        except BaseException as e:  # raised again on the consumer
+            put(e)
+            return
+        put(done)
+
+    t = threading.Thread(target=producer, name="prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join(timeout=5.0)

@@ -1,8 +1,9 @@
 #
 # The port stands alone: no module of spark_rapids_ml_torch, nor
 # chip_smoke.py or compare_kernels.py, imports JAX or the JAX package; the port runs with both
-# made unimportable; and chip_smoke.py refuses to run without a CUDA device
-# or without the rest of the repo.
+# made unimportable (its fits from parquet included: streaming.py and the
+# parquet readers of fused.py); and chip_smoke.py refuses to run without a
+# CUDA device or without the rest of the repo.
 #
 import ast
 import os
@@ -88,6 +89,18 @@ def test_port_runs_with_jax_unimportable():
         "assert (rf.cpu().predict(Xc) == lab).all()\n"
         "rr = RandomForestRegressor(numTrees=3, maxDepth=4, bootstrap=False).fit((Xc, 2.0 * lab))\n"
         "assert np.allclose(rr.transform(Xc), 2.0 * lab)\n"
+        "import os, tempfile\n"
+        "import pyarrow as pa, pyarrow.parquet as pq\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'x.parquet')\n"
+        "pq.write_table(pa.table({'features': pa.FixedSizeListArray.from_arrays(\n"
+        "    pa.array(X.reshape(-1)), 4), 'label': pa.array(y)}), path, row_group_size=20)\n"
+        "config.set_config(fused_stage_solve='on')\n"
+        "assert PCA(k=2).fit(path).fit_report()['route'] == 'fused_parquet'\n"
+        "config.set_config(force_streaming_stats=True)\n"
+        "for est in (LogisticRegression(regParam=0.01), LinearRegression(), KMeans(k=2, seed=1)):\n"
+        "    assert est.fit(path).fit_report()['route'] == 'streamed'\n"
+        "config.reset_config()\n"
+        "assert RandomForestClassifier(numTrees=1).fit(path).fit_report()['route'] == 'staged_parquet'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

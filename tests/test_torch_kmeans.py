@@ -513,7 +513,8 @@ def test_what_raises():
     with pytest.raises(ValueError, match="Unsupported"):
         KMeans(not_a_param=1)
     est = KMeans(k=2)
-    with pytest.raises(NotImplementedError, match="Beyond the card's memory"):
+    # the streamed fit is ported: it now reaches the file
+    with pytest.raises(FileNotFoundError):
         est._fit_streaming("x.parquet")
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         est._cpu_fit(None)

@@ -378,9 +378,10 @@ def test_unsupported_values_raise(kwargs):
 def test_not_ported_paths_raise():
     X, y, _ = _data(seed=10, n=100)
     est = LinearRegression()
-    for call in (lambda: est._fit_fused_parquet("x.parquet"), lambda: est._fit_streaming("x"),
-                 lambda: est._fit_streaming_csr(None)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    # the parquet and streamed fits are ported: they now reach the file
+    for call in (lambda: est._fit_fused_parquet("x.parquet"),
+                 lambda: est._fit_streaming("x.parquet")):
+        with pytest.raises(FileNotFoundError):
             call()
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         est._cpu_fit(None)

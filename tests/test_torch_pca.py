@@ -393,9 +393,10 @@ def test_what_raises():
     with pytest.raises(ValueError, match="Unsupported"):
         PCA(not_a_param=1)
     est = PCA(k=2)
-    for call in (lambda: est._fit_fused_parquet("x.parquet"), lambda: est._fit_streaming("x"),
-                 lambda: est._fit_streaming_csr(None)):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    # the parquet and streamed fits are ported: they now reach the file
+    for call in (lambda: est._fit_fused_parquet("x.parquet"),
+                 lambda: est._fit_streaming("x.parquet")):
+        with pytest.raises(FileNotFoundError):
             call()
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         est._cpu_fit(None)
