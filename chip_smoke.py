@@ -154,8 +154,7 @@ Phases, each of which makes the script exit non-zero when it fails:
 10. parquet and beyond the card's memory, through the public entry points
    (no hand-written kernel: the parquet decode on the host, the copies,
    and the statistics and solvers of phases 5, 6 and 8), in a temporary
-   directory removed at the end (its free space printed first; about 13 GB
-   of disk): (p) phase 5's (b) rows and labels, 1,000,000 x 3000 float32,
+   directory (its free space printed first; about 13 GB of disk): (p) phase 5's (b) rows and labels, 1,000,000 x 3000 float32,
    with (e)'s three scaled columns, written in bench.py:900-931's layout
    (FixedSizeList, 50,000-row row groups, about 12 GB); the decode alone
    (the range readers) as the rate a fit cannot beat; PCA k=3 and OLS on the
@@ -179,13 +178,36 @@ Phases, each of which makes the script exit non-zero when it fails:
    fit prints its seconds and rows/s, its route's pass numbers
    (`LAST_STAGE`, `FUSED_METRICS`, `STREAM_METRICS`: host prep, device
    work, overlap), the reader count and its reason, and its peak device
-   memory.
+   memory.  The chunk cache is on, as by default: (p)'s randomized PCA
+   prints each of its four passes with its source (decode or replay),
+   seconds, host prep and device time; (r) its first scan, first epoch
+   and the mean of the later epochs; the cache's counters after (p), (q)
+   and (r); no fit may take the out-of-memory retry, and each takes its
+   PR 9 route beside (p)'s device tier.
+11. the chunk cache and the statistics, on phase 10's files (the
+   temporary directory is removed after this phase): (s) bench.py:552-640's
+   epoch-cache cell, 400,000 x 64 float32 (seed 31, pandas' list layout)
+   with host_batch_bytes = 16 MB, `linreg_streaming_stats` six times
+   (epoch 1 fills, five replays from the device tier), then six more
+   with the ledger held full (the pinned host tier); replay against replay
+   bit for bit, fill against replay bit for bit (one row group, one
+   reader); (t) DuHL on (r)'s file (host_batch_bytes = 16 MB: 31 chunks):
+   LogisticRegression (regParam=1e-4, maxIter=50, tol=1e-6) and KMeans
+   k=20, sampled and exact, held to the JAX package's DuHL test limits
+   (coefficients 5e-3 relative, intercept 5e-3; cost 2%); (u) bench.py:
+   518-549's summarize cell, 500,000 x 32 float32 (seed 11), its eight
+   metrics in one pass and one by one, held against float64 numpy (1e-5)
+   and the HyperLogLog estimate of the same registers from the numpy
+   twin, then count, mean, variance, min, max, normL2, numNonZeros and
+   distinctCount of (p)'s 12 GB file twice (a decode, then a replay), the
+   moments against float64 (1e-5).
 
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
 of the clustering cells' numbers, one of the forest cells' numbers
 ({"forest": [...]}), one of the parquet cells' numbers
-({"parquet": [...]}), a JSON object of the kernels' numbers,
+({"parquet": [...]}), one of the chunk cache and statistics cells'
+numbers ({"cache_stats": [...]}), a JSON object of the kernels' numbers,
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -2984,8 +3006,20 @@ def decode_alone(path: str, d: int, parallel: bool, row_range=None) -> dict:
     cannot beat: the fused pass's range readers (`parallel`), or the one
     scan of the streamed passes (`iter_chunks`), over `row_range`."""
     from spark_rapids_ml_torch import fused, streaming
+    from spark_rapids_ml_torch import config as port_config
 
     n = streaming.parquet_row_count(path)
+    # the decode itself: nothing recorded, nothing replayed
+    port_config.set_config(chunk_cache="off")
+    try:
+        return _decode_alone(path, d, parallel, row_range, n)
+    finally:
+        port_config.set_config(chunk_cache="on")
+
+
+def _decode_alone(path: str, d: int, parallel: bool, row_range, n: int) -> dict:
+    from spark_rapids_ml_torch import fused, streaming
+
     t0 = time.perf_counter()
     nbytes = 0
     if parallel:
@@ -3009,7 +3043,7 @@ def decode_alone(path: str, d: int, parallel: bool, row_range=None) -> dict:
 def _pass_numbers(rep: dict) -> dict:
     """The numbers of the pass a parquet fit's route ran (fit_report())."""
     out = {"route": rep.get("route")}
-    for key in ("fused", "stage", "streaming", "parquet_readers", "budget"):
+    for key in ("fused", "stage", "streaming", "parquet_readers", "budget", "chunk_cache"):
         if key in rep:
             out[key] = {k: v for k, v in rep[key].items() if k != "stamp"}
     return out
@@ -3039,7 +3073,27 @@ def _parquet_fit(device, name: str, make, path: str, n: int, route: str, decode:
         f"device memory {rec['peak_GB']:.2f} GB; the decode alone {decode['MBps']:,.0f} MB/s")
     if rec["route"] != route:
         raise AssertionError(f"{name}: the fit took route {rec['route']}, not {route}")
+    if model.fit_report().get("oom_fallback"):
+        raise AssertionError(f"{name}: the fit ran out of device memory and took the streamed "
+                             "retry")
+    cache = rec.get("chunk_cache")
+    if cache:
+        log(f"    chunk cache: {cache_line(cache)}; ledger budget "
+            f"{rec.get('budget', {}).get('budget_bytes', 0) / 1e9:.1f} GB, resident "
+            f"{rec.get('budget', {}).get('resident_bytes', 0) / 1e9:.2f} GB")
     return rec, model
+
+
+def cache_line(m: dict) -> str:
+    """The chunk cache's counters and tier sizes, on one line."""
+    return (f"fills {m.get('misses', 0)}, hits {m.get('hits', 0)}, hit "
+            f"{m.get('hit_bytes', 0) / 1e9:.2f} GB, device tier "
+            f"{m.get('device_bytes', 0) / 1e9:.2f} GB, host tier "
+            f"{m.get('host_bytes', 0) / 1e9:.2f} GB (pinned "
+            f"{m.get('pinned_bytes', 0) / 1e9:.2f}), spilled "
+            f"{m.get('spilled_bytes', 0) / 1e9:.2f} GB in {m.get('spills', 0)} spills, "
+            f"out-of-memory demotions {m.get('device_oom_demotions', 0)}, host copies "
+            f"released {m.get('host_releases', 0)}, evictions {m.get('evictions', 0)}")
 
 
 def _rel(a, b) -> float:
@@ -3073,7 +3127,7 @@ def capture(module, name: str, store: dict):
         setattr(module, name, orig)
 
 
-def phase_parquet_reference(device, tmp: str, X, y) -> list:
+def phase_parquet_reference(device, tmp: str, X, y, path: str) -> list:
     """(p) the reference benchmark's 1M x 3000 input as parquet, fitted
     through the entry points (PCA k=3 and OLS on the fused pass from
     parquet, LogisticRegression and KMeans k=1000 on stage_parquet +
@@ -3081,8 +3135,8 @@ def phase_parquet_reference(device, tmp: str, X, y) -> list:
     rows in memory; (q) the streamed route on the same file (LinearRegression
     routed by hbm_bytes, PCA by force_streaming_stats), the statistics held
     against (p)'s and a float64 recomputation.  The rows take (e)'s three
-    scaled columns while the phase runs."""
-    path = os.path.join(tmp, "ref_1m_3k.parquet")
+    scaled columns while the phase runs.  The file stays at `path` for
+    phase 11."""
     # (e)'s spectral gap (phase 6): three columns scaled by 16, 8 and 4, so
     # that the top three components are defined and the full solver of
     # (q) meets the randomized one of (p); undone (exactly) at the end
@@ -3144,6 +3198,14 @@ def _parquet_reference_cells(device, tmp: str, X, y, path: str) -> list:
                                   lambda: PCA(**pca_kw).setInputCol("features"), path, n,
                                   "fused_parquet", dec_p)
         rec["fit_device_dataset_s"] = ref_s["pca"]
+        rec["pr9_fit_s"] = 40.415  # PERF.md, PR 9, run 4
+        for i, ps in enumerate(rec["fused"].get("pass_log", []), 1):
+            log(f"    pass {i}: {ps['source']}, {ps['wall_s']:.3f} s, host prep "
+                f"{ps['host_prep_s']:.3f} s, device {ps['device_acc_s']:.3f} s (PR 9: 11.2 s "
+                "a pass, every pass a decode)")
+        if [ps["source"] for ps in rec["fused"].get("pass_log", [])] != (
+                ["decode"] + ["replay"] * 3):
+            raise AssertionError(f"{rec['cell']}: passes 2-4 should replay the chunk cache")
         rec["check"] = hold_pca(rec["cell"], "vs the fit from the rows in memory", pca_p,
                                 refs["pca"].components_,
                                 refs["pca"].explained_variance_.astype(np.float64), 1e-4)
@@ -3209,13 +3271,17 @@ def _parquet_reference_cells(device, tmp: str, X, y, path: str) -> list:
         rec["check"].update(_hold(rec["cell"], f"streamed moments {k} vs float64",
                                   _rel(store["pca_streaming_stats"][k], ref64[k64]), 1e-5))
     cells.append(rec)
-    os.remove(path)
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    log(f"  (p)-(q) chunk cache: {cache_line(device_cache.chunk_metrics_snapshot())}")
+    device_cache.clear_chunk_cache()
+    torch.cuda.empty_cache()
     for c in cells:
         c.update(file_GB=size / 1e9, write_s=t_write)
     return cells
 
 
-def phase_parquet_streaming(device, tmp: str, n: int, seed: int) -> list:
+def phase_parquet_streaming(device, tmp: str, n: int, seed: int, path: str) -> list:
     """(r) bench.py:454-487's streaming cell: 2M x 64 float32 rows with a
     binary label as parquet (about 512 MB); LogisticRegression
     (regParam=1e-4, maxIter=10, tol=0) and KMeans k=20 fitted epoch by
@@ -3231,7 +3297,6 @@ def phase_parquet_streaming(device, tmp: str, n: int, seed: int) -> list:
 
     d = 64
     X, y = gen_binary(n, d, seed=6)
-    path = os.path.join(tmp, "stream.parquet")
     t0 = time.perf_counter()
     write_list_parquet(path, X, y)
     log(f"  (r) bench.py's streaming input {n} x {d} float32 (_gen_binary(seed=6)) as parquet: "
@@ -3254,12 +3319,14 @@ def phase_parquet_streaming(device, tmp: str, n: int, seed: int) -> list:
         log(f"  (r) LogisticRegression: {lr.num_iters} iterations, {epochs} epochs, "
             f"{rec['rows_per_s_per_epoch']:,.0f} rows/s per epoch "
             f"({rec['epoch_MBps']:,.0f} MB/s of features)")
+        epoch_readings(rec, n, "(r) LogisticRegression")
         km_est = KMeans(k=20, seed=0, maxIter=20)
         rec_k, kmm = _parquet_fit(device, f"(r) KMeans k=20 {n}x{d} epoch-streamed",
                                   lambda: KMeans(k=20, seed=0, maxIter=20), path, n, "streamed",
                                   dec)
         rec_k.update(epochs=rec_k["streaming"]["epochs"], iterations=kmm.n_iter_,
                      rows_per_s_per_epoch=n * rec_k["streaming"]["epochs"] / rec_k["fit_s"])
+        epoch_readings(rec_k, n, "(r) KMeans k=20")
     finally:
         port_config.reset_config()
     # the objective at the streamed coefficients, recomputed on the host in
@@ -3295,27 +3362,312 @@ def phase_parquet_streaming(device, tmp: str, n: int, seed: int) -> list:
                            abs(kmm.inertia_ - float(cost)) / float(cost), 1e-5)
     cells.append(rec_k)
     del ds
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    log(f"  (r) chunk cache: {cache_line(device_cache.chunk_metrics_snapshot())}")
+    device_cache.clear_chunk_cache()
     torch.cuda.empty_cache()
-    os.remove(path)
     for c in cells:
         c["decode_one_scan_MBps"] = dec_one["MBps"]
     return cells
 
 
-def phase_parquet(device, args, wide_X, wide_y) -> dict:
+def epoch_readings(rec: dict, n: int, name: str) -> None:
+    """The first scan (a decode that fills the chunk cache), the first
+    epoch and the mean of the later ones (replays), in rows/s, beside PR
+    9's 1.30 M rows/s per epoch (PERF.md, PR 9, run 4)."""
+    st = rec["streaming"]
+    ep = st.get("epoch_s", [])
+    later = float(np.mean(ep[1:])) if len(ep) > 1 else float("nan")
+    rec.update(scan_s=st.get("scan_s"), epoch1_s=ep[0] if ep else None, epoch_later_mean_s=later,
+               epoch1_rows_per_s=n / ep[0] if ep else None,
+               epoch_later_rows_per_s=n / later if later == later else None)
+    log(f"  {name}: first scan (decode, fills the cache) {st.get('scan_s', 0):.3f} s = "
+        f"{n / max(st.get('scan_s', 1e-9), 1e-9):,.0f} rows/s; epoch 1 {ep[0]:.4f} s = "
+        f"{n / ep[0]:,.0f} rows/s; epochs 2-{len(ep)} mean {later:.4f} s = "
+        f"{n / later:,.0f} rows/s (PR 9: 1.30 M rows/s an epoch, each a decode)")
+
+def phase_parquet(device, args, wide_X, wide_y, tmp: str) -> dict:
     """Phase 10: (p) and (q) on phase 5's 1M x 3000 rows written as parquet,
-    (r) bench.py's 2M x 64 streaming cell, in a temporary directory removed
-    at the end."""
+    (r) bench.py's 2M x 64 streaming cell, in `tmp`; both files stay for
+    phase 11."""
     import shutil
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    du = shutil.disk_usage(tmp)
+    log(f"  temporary directory {tmp}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
+    paths = {"p": os.path.join(tmp, "ref_1m_3k.parquet"), "r": os.path.join(tmp, "stream.parquet")}
+    cells = phase_parquet_reference(device, tmp, wide_X, wide_y, paths["p"])
+    cells += phase_parquet_streaming(device, tmp, args.r_rows, args.seed, paths["r"])
+    return {"cells": cells, "paths": paths}
+
+
+# ---- the chunk cache and the statistics ---------------------------------------
+
+
+def _stats_equal(a: dict, b: dict) -> bool:
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def phase_epoch_cache(device, tmp: str) -> dict:
+    """(s) bench.py:552-640's epoch-cache cell: `linreg_streaming_stats`
+    six times over 400,000 x 64 float32 rows (host_batch_bytes = 16 MB:
+    7 chunks), epoch 1 filling the cache and five replays of the device
+    tier (their median the replay time); then six more with the ledger held
+    full by a `reserve_external` claim, so that the replays come from the
+    pinned host tier."""
+    import torch
+
+    from spark_rapids_ml_torch import config as port_config
+    from spark_rapids_ml_torch import streaming
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    n, d = 400_000, 64
+    rng = np.random.default_rng(31)
+    X = rng.standard_normal((n, d), dtype=np.float32)
+    y = (X[:, 0] + 0.25 * rng.standard_normal(n) > 0).astype(np.float64)
+    path = os.path.join(tmp, "epoch.parquet")
+    write_list_parquet(path, X, y)
+    X64 = X.astype(np.float64)
+    ref = {"gram": X64.T @ X64, "sxy": X64.T @ y, "s1": X64.sum(axis=0)}
+    del X64
+    port_config.set_config(host_batch_bytes=16 * 1024 * 1024)
+    rec = {"cell": f"(s) epoch cache, linreg_streaming_stats {n}x{d}", "rows": n}
     try:
-        du = shutil.disk_usage(tmp)
-        log(f"  temporary directory {tmp}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
-        cells = phase_parquet_reference(device, tmp, wide_X, wide_y)
-        cells += phase_parquet_streaming(device, tmp, args.r_rows, args.seed)
+        for tier in ("device", "host"):
+            device_cache.clear_chunk_cache()
+            held = 0
+            if tier == "host":
+                held = int(device_cache.cache_budget_bytes())
+                if not device_cache.reserve_external("chip_smoke_hold", held):
+                    raise AssertionError("(s): the ledger refused the hold")
+            before = device_cache.chunk_metrics_snapshot()
+            secs, stats = [], []
+            for _ in range(6):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                stats.append(streaming.linreg_streaming_stats(path, "features", (), "label",
+                                                              None, dtype=np.float32))
+                secs.append(time.perf_counter() - t0)
+            after = device_cache.chunk_metrics_snapshot()
+            device_cache.release_external("chip_smoke_hold")
+            hit_mb = (after["hit_bytes"] - before["hit_bytes"]) / 1e6
+            chunks = streaming.STREAM_METRICS.get("chunks")
+            replay = float(np.median(secs[1:]))
+            rec[tier] = {"epoch_s": secs, "speedup": secs[0] / replay, "hit_MB": hit_mb,
+                         "chunks": chunks, "replay_GBps": n * d * 4 / replay / 1e9,
+                         "device_MB": after["device_bytes"] / 1e6,
+                         "pinned_MB": after["pinned_bytes"] / 1e6,
+                         "replay_equal": all(_stats_equal(stats[1], st) for st in stats[2:]),
+                         "fill_equal": _stats_equal(stats[0], stats[1])}
+            log(f"  (s) {tier} tier: epoch 1 {secs[0]:.4f} s, replays "
+                + " / ".join(f"{t:.4f}" for t in secs[1:])
+                + f" s (median {replay:.4f}), speedup {rec[tier]['speedup']:.1f}x, hit "
+                f"{hit_mb:.0f} MB over {chunks} chunks, replay {rec[tier]['replay_GBps']:.2f} "
+                f"GB/s of features; device tier {rec[tier]['device_MB']:.0f} MB, pinned "
+                f"{rec[tier]['pinned_MB']:.0f} MB")
+            if tier == "device" and after["device_bytes"] < n * d * 4:
+                raise AssertionError("(s): the device tier should hold the stream")
+            if tier == "host" and (after["device_bytes"] or after["pinned_bytes"] < n * d * 4):
+                raise AssertionError("(s): the host tier should hold the stream, pinned")
+            if not rec[tier]["replay_equal"] or not rec[tier]["fill_equal"]:
+                raise AssertionError(f"(s) {tier}: the statistics of the epochs differ")
+            for k in ref:
+                rec.setdefault("check", {}).update(_hold(
+                    rec["cell"], f"{tier} tier {k} vs float64", _rel(stats[-1][k], ref[k]), 1e-5))
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        device_cache.release_external("chip_smoke_hold")
+        port_config.reset_config()
+        device_cache.clear_chunk_cache()
+        os.remove(path)
+    return rec
+
+
+def phase_duhl(device, path: str, n: int) -> list:
+    """(t) DuHL on (r)'s file with host_batch_bytes = 16 MB (31 chunks):
+    LogisticRegression (regParam=1e-4, maxIter=50, tol=1e-6) and KMeans k=20
+    through the entry points on the streamed route, sampled and exact, held
+    to the JAX package's DuHL test limits (tests/test_chunk_cache.py
+    `test_duhl_logreg_convergence_parity`: coefficients 5e-3 relative,
+    intercept 5e-3; `test_duhl_kmeans_convergence_parity`: cost 2%)."""
+    from spark_rapids_ml_torch import config as port_config
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.clustering import KMeans
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    cells = []
+    fits = {}
+    for name, make in (("LogisticRegression", lambda: LogisticRegression(
+            regParam=1e-4, maxIter=50, tol=1e-6)),
+                       ("KMeans k=20", lambda: KMeans(k=20, seed=0, maxIter=50))):
+        for mode in ("off", "duhl"):
+            device_cache.clear_chunk_cache()
+            port_config.set_config(force_streaming_stats=True, host_batch_bytes=16 * 1024 * 1024,
+                                   streaming_chunk_sampling=mode)
+            try:
+                t0 = time.perf_counter()
+                model = make().fit(path)
+                secs = time.perf_counter() - t0
+            finally:
+                port_config.reset_config()
+            st = model.fit_report()["streaming"]
+            fits[(name, mode)] = model
+            rec = {"cell": f"(t) {name} {n}x64 streamed, sampling {mode}", "fit_s": secs,
+                   "epochs": st.get("epochs"), "sampled_epochs": st.get("sampled_epochs", 0),
+                   "chunk_visits_saved": st.get("chunk_visits_saved", 0),
+                   "chunks": st.get("chunks"), "epoch_s": st.get("epoch_s")}
+            if name == "LogisticRegression":
+                rec.update(objective=model.objective, iterations=model.num_iters)
+            else:
+                rec.update(cost=model.inertia_, iterations=model.n_iter_)
+            log(f"  {rec['cell']}: {secs:.3f} s, {rec['epochs']} epochs, sampled "
+                f"{rec['sampled_epochs']}, chunk visits saved {rec['chunk_visits_saved']}, "
+                + (f"objective {model.objective:.9g}, {model.num_iters} iterations"
+                   if name == "LogisticRegression"
+                   else f"cost {model.inertia_:.9g}, {model.n_iter_} iterations"))
+            cells.append(rec)
+    exact, sampled = fits[("LogisticRegression", "off")], fits[("LogisticRegression", "duhl")]
+    cf, cd = np.ravel(exact.coef_), np.ravel(sampled.coef_)
+    cells[1]["check"] = _hold(cells[1]["cell"], "coefficients vs the exact fit (relative norm)",
+                              float(np.linalg.norm(cf - cd) / np.linalg.norm(cf)), 5e-3)
+    cells[1]["check"].update(_hold(cells[1]["cell"], "intercept vs the exact fit",
+                                   float(np.max(np.abs(np.asarray(exact.intercept_)
+                                                       - np.asarray(sampled.intercept_)))),
+                                   5e-3))
+    ke, ks = fits[("KMeans k=20", "off")], fits[("KMeans k=20", "duhl")]
+    cells[3]["check"] = _hold(cells[3]["cell"], "cost vs the exact fit",
+                              abs(ks.inertia_ - ke.inertia_) / ke.inertia_, 0.02)
+    device_cache.clear_chunk_cache()
+    return cells
+
+
+def phase_summarize(device, p_path: str, p_rows: int, wide_X) -> list:
+    """(u) bench.py:518-549's summarize cell and (p)'s file.  The eight
+    metrics of the bench cell in one pass, then one pass per metric; the
+    moments held against float64 numpy (1e-5), the distinct counts against
+    the estimate of the numpy twin's registers.  Then the device metrics of
+    (p)'s 12 GB file twice: the first call decodes and fills the cache, the
+    second replays; the moments held against float64 (1e-5).  The
+    quantiles of (p)'s 3000 columns (a host sketch) are left out: a pass of
+    the sketch over 3000 columns costs minutes of host time."""
+    import torch
+
+    from spark_rapids_ml_torch.parallel import device_cache
+    from spark_rapids_ml_torch.stats import STAT_METRICS, summarize
+    from spark_rapids_ml_torch.stats import sketches
+
+    cells = []
+    n, d = 500_000, 32
+    X = np.random.default_rng(11).standard_normal((n, d)).astype(np.float32)
+    metrics = ["count", "mean", "variance", "min", "max", "normL2", "quantiles",
+               "distinctCount"]
+    summarize(X[:4096], metrics=metrics)  # the first call's one-time costs
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    got = summarize(X, metrics=metrics)
+    fused_s = time.perf_counter() - t0
+    fused_metrics = dict(STAT_METRICS)
+    t0 = time.perf_counter()
+    for m in metrics:
+        summarize(X, metrics=[m])
+    seq_s = time.perf_counter() - t0
+    rec = {"cell": f"(u) summarize {n}x{d}, eight metrics", "rows": n, "fused_s": fused_s,
+           "one_by_one_s": seq_s, "speedup": seq_s / fused_s,
+           "rows_per_s": n / fused_s, "chunks": fused_metrics.get("chunks"),
+           "overlap_fraction": fused_metrics.get("overlap_fraction")}
+    log(f"  {rec['cell']}: one pass {fused_s:.3f} s ({n / fused_s:,.0f} rows/s, "
+        f"{fused_metrics.get('chunks')} chunks, prep {fused_metrics.get('host_prep_s', 0):.3f} s, "
+        f"device+sketches {fused_metrics.get('device_acc_s', 0):.3f} s), one by one "
+        f"{seq_s:.3f} s, speedup {seq_s / fused_s:.2f}x")
+    X64 = X.astype(np.float64)
+    mean = X64.mean(axis=0)
+    var = X64.var(axis=0, ddof=1)
+    rec["check"] = _hold(rec["cell"], "mean vs float64", _rel(got["mean"], mean), 1e-5)
+    rec["check"].update(_hold(rec["cell"], "variance vs float64", _rel(got["variance"], var),
+                              1e-5))
+    rec["check"].update(_hold(rec["cell"], "normL2 vs float64",
+                              _rel(got["normL2"], np.sqrt((X64 * X64).sum(axis=0))), 1e-5))
+    if not (np.array_equal(got["min"], X.min(axis=0)) and np.array_equal(got["max"],
+                                                                         X.max(axis=0))):
+        raise AssertionError("(u): min or max differ from numpy's")
+    twin = sketches.hll_init(d, 12)
+    sketches.hll_update(twin, X, np.ones(n, bool), 12)
+    rec["check"].update(_hold(rec["cell"], "distinctCount vs the numpy twin's estimate",
+                              _rel(got["distinctCount"], sketches.hll_estimate(twin["regs"])),
+                              0.0))
+    for q in (0.25, 0.5, 0.75):
+        ranks = (X <= got["quantiles"][q][None, :]).mean(axis=0)
+        rec["check"].update(_hold(rec["cell"], f"quantile {q} rank error",
+                                  float(np.abs(ranks - q).max()), 0.02))
+    del X64
+    cells.append(rec)
+
+    device_cache.clear_chunk_cache()
+    dev_metrics = ["count", "mean", "variance", "min", "max", "normL2", "numNonZeros",
+                   "distinctCount"]
+    runs = []
+    for i in range(2):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = summarize(p_path, metrics=dev_metrics)
+        secs = time.perf_counter() - t0
+        m = dict(STAT_METRICS)
+        runs.append((secs, m, res))
+        log(f"  (u) summarize (p)'s file, call {i + 1} ({m.get('source')}): {secs:.3f} s = "
+            f"{p_rows / secs:,.0f} rows/s, prep {m.get('host_prep_s', 0):.3f} s, device "
+            f"{m.get('device_acc_s', 0):.3f} s, {m.get('chunks')} chunks")
+    if [r[1].get("source") for r in runs] != ["decode", "replay"]:
+        raise AssertionError("(u): the second call should replay the first's stream")
+    rec = {"cell": f"(u) summarize (p)'s {p_rows}x3000 file, eight device metrics",
+           "rows": p_rows, "decode_s": runs[0][0], "replay_s": runs[1][0],
+           "speedup": runs[0][0] / runs[1][0],
+           "replay_device_s": runs[1][1].get("device_acc_s")}
+    res = runs[1][2]
+    # (p)'s rows are phase 5's (b) rows with (e)'s scaled columns
+    scale = np.array([16.0, 8.0, 4.0], np.float32)
+    X = wide_X
+    X[:, :3] *= scale
+    try:
+        s1 = np.zeros(X.shape[1])
+        s2 = np.zeros(X.shape[1])
+        for lo in range(0, X.shape[0], 50_000):
+            b = X[lo:lo + 50_000].astype(np.float64)
+            s1 += b.sum(axis=0)
+            s2 += (b * b).sum(axis=0)
+        if res["count"] != X.shape[0]:
+            raise AssertionError("(u): the count of (p)'s file")
+        mins = X.min(axis=0)
+        maxs = X.max(axis=0)
+    finally:
+        X[:, :3] /= scale
+    mean = s1 / p_rows
+    rec["check"] = _hold(rec["cell"], "mean vs float64", _rel(res["mean"], mean), 1e-5)
+    rec["check"].update(_hold(rec["cell"], "variance vs float64", _rel(
+        res["variance"], (s2 - p_rows * mean * mean) / (p_rows - 1)), 1e-5))
+    rec["check"].update(_hold(rec["cell"], "normL2 vs float64", _rel(res["normL2"],
+                                                                      np.sqrt(s2)), 1e-5))
+    if not (np.array_equal(res["min"], mins) and np.array_equal(res["max"], maxs)):
+        raise AssertionError("(u): min or max of (p)'s file differ from numpy's")
+    for k in ("mean", "variance", "distinctCount"):
+        if not np.array_equal(runs[0][2][k], res[k]):
+            rec.setdefault("fill_vs_replay_differs", []).append(k)
+    log(f"  (u) decode {runs[0][0]:.3f} s, replay {runs[1][0]:.3f} s, speedup "
+        f"{rec['speedup']:.1f}x; the fill and the replay differ bit for bit in "
+        f"{rec.get('fill_vs_replay_differs', [])} (range readers: another order)")
+    cells.append(rec)
+    device_cache.clear_chunk_cache()
+    torch.cuda.empty_cache()
+    return cells
+
+
+def phase_cache_stats(device, tmp: str, paths: dict, p_rows: int, r_rows: int,
+                      wide_X) -> dict:
+    """Phase 11: (s), (t) and (u) on phase 10's files."""
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    cells = [phase_epoch_cache(device, tmp)]
+    cells += phase_duhl(device, paths["r"], r_rows)
+    cells += phase_summarize(device, paths["p"], p_rows, wide_X)
+    log(f"  chunk cache over the phase: {cache_line(device_cache.chunk_metrics_snapshot())}")
     return {"cells": cells}
 
 
@@ -3446,7 +3798,17 @@ def main() -> int:
     stage("phase 10: parquet: (p) the reference benchmark's 1M x 3000 input as parquet through "
           "the fused and staged routes, (q) the streamed route on it, (r) bench.py's 2M x 64 "
           "epoch-streaming cell")
-    parquet = phase_parquet(device, args, wide_X, wide_y)
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    try:
+        parquet = phase_parquet(device, args, wide_X, wide_y, tmp)
+        stage("phase 11: chunk cache and stats: (s) bench.py's epoch-cache cell, (t) DuHL on "
+              "(r)'s file, (u) summarize: bench.py's cell and (p)'s file")
+        cache_stats = phase_cache_stats(device, tmp, parquet["paths"], wide_X.shape[0],
+                                        args.r_rows, wide_X)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     del wide_X, wide_y
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -3455,6 +3817,7 @@ def main() -> int:
     print(json.dumps({"clustering": clustering["cells"]}))
     print(json.dumps({"forest": forest["cells"]}))
     print(json.dumps({"parquet": parquet["cells"]}, default=float))
+    print(json.dumps({"cache_stats": cache_stats["cells"]}, default=float))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

@@ -1,10 +1,11 @@
 #
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
 # keys the exact-kNN, LogisticRegression, PCA, LinearRegression,
-# clustering and parquet/streaming slices read.  The confs live in a process-global dict,
-# overridable from the environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or
-# `set_config()`.  Key names and defaults match the JAX package, except
-# where a comment says otherwise; later slices add their keys here.
+# clustering, parquet/streaming, chunk-cache and statistics slices read.
+# The confs live in a process-global dict, overridable from the
+# environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or `set_config()`.  Key
+# names and defaults match the JAX package, except where a comment says
+# otherwise; later slices add their keys here.
 #
 # The compute device is NOT a conf key: it is chosen through
 # `spark_rapids_ml_torch.set_default_device` (parallel/context.py).
@@ -92,9 +93,43 @@ _DEFAULTS: Dict[str, Any] = {
     # (fused.py `resolve_parquet_readers`): "auto" (the host's cores, at
     # most 16) or a pinned count.
     "fused_parquet_readers": "auto",
-    # DuHL chunk sampling of the streamed fits: only "off" is ported;
-    # "duhl" raises NotImplementedError (ROADMAP.md section 1).
+    # The chunk cache (parallel/device_cache.py `ChunkCache`): "on" records
+    # the decoded chunks of a parquet scan the first time it runs and
+    # replays them for every later identical scan.  A replayed feature
+    # block lives on the card while the device-budget ledger has free room,
+    # else in pinned host memory under `chunk_cache_host_bytes`, and beyond
+    # that in the spill tier (`chunk_cache_codec`, crc32-checked).  "off"
+    # decodes every scan.
+    "chunk_cache": "on",
+    # Host bytes of the cache's host and in-memory spill tiers; LRU chunks
+    # spill, then LRU streams are dropped, beyond it.
+    "chunk_cache_host_bytes": 1024 * 1024 * 1024,
+    # Spill codec (parallel/chunk_codec.py): "none", "zlib", or "lz4" /
+    # "zstd" where their wheels are installed; custom codecs register with
+    # `chunk_codec.register_codec`.
+    "chunk_cache_codec": "none",
+    # A directory for spilled chunks (files, outside the host budget);
+    # empty keeps spilled blobs in host memory.
+    "chunk_cache_spill_dir": "",
+    # DuHL chunk sampling of the streamed LogisticRegression and KMeans
+    # (streaming.py `DuhlChunkSampler`): "duhl" lets an epoch revisit only
+    # the chunks whose contribution still moves, once the chunk cache holds
+    # the whole stream; "off" runs exact full passes.
     "streaming_chunk_sampling": "off",
+    # The share of the cached chunks a sampled epoch revisits, clamped to
+    # [0.1, 1].
+    "streaming_chunk_sample_fraction": 0.5,
+    # Sketch sizes of the statistic programs (stats/): the quantile
+    # sketch's items per level, the frequent-items table per column, the
+    # HyperLogLog precision bits, and the chi-squared contingency bins.
+    "summarizer_sketch_k": 256,
+    "summarizer_frequent_k": 64,
+    "summarizer_hll_bits": 12,
+    "summarizer_chi2_bins": 16,
+    # Bytes of the device-budget ledger (parallel/device_cache.py
+    # `cache_budget_bytes`); 0: `device_data_budget_bytes`, the staging
+    # decisions' own budget.
+    "device_cache_bytes": 0,
     # Per-iteration checkpoints of the streamed fits: not ported; a
     # non-empty value raises NotImplementedError (ROADMAP.md section 1).
     "streaming_checkpoint_dir": "",

@@ -55,6 +55,7 @@ import numpy as np
 
 from .data import DatasetLike, DeviceDataset, _ensure_dense, _is_sparse, extract_arrays
 from .params import Param, Params, _TpuParams
+from .parallel.device_cache import device_data_budget_bytes
 from .utils import PartitionDescriptor, _ArrayBatch, get_logger
 
 
@@ -438,16 +439,22 @@ class _TpuEstimator(Estimator, _TpuCaller):
         return None
 
     def _over_device_budget(self, need_bytes: float) -> bool:
-        """Whether a staged dataset of `need_bytes` is beyond the device
-        budget (`device_data_budget_bytes`), or `force_streaming_stats` is
-        set.  The decision is kept for `fit_report()`."""
+        """Whether a staged dataset of `need_bytes`, beside the bytes the
+        device-budget ledger holds (`cache_resident_bytes`: the chunk
+        cache's device tier), is beyond the device budget
+        (`device_data_budget_bytes`), or `force_streaming_stats` is set;
+        with the flag set the ledger is not read.  The decision is kept for
+        `fit_report()`."""
         from .config import get_config
+        from .parallel.device_cache import cache_resident_bytes
 
         forced = bool(get_config("force_streaming_stats"))
         budget = device_data_budget_bytes(self._device())
-        over = forced or need_bytes > budget
-        self._fit_record["budget"] = {"need_bytes": float(need_bytes),
-                                      "budget_bytes": budget, "over": over, "forced": forced}
+        resident = 0 if forced else cache_resident_bytes()
+        over = forced or need_bytes + resident > budget
+        self._fit_record["budget"] = {"need_bytes": float(need_bytes), "budget_bytes": budget,
+                                      "resident_bytes": int(resident), "over": over,
+                                      "forced": forced}
         return over
 
     def _sparse_over_budget(self, batch: _ArrayBatch) -> bool:
@@ -575,10 +582,12 @@ class _TpuEstimator(Estimator, _TpuCaller):
 
     def _fit(self, dataset: DatasetLike) -> "_TpuModel":
         from .config import get_config
+        from .parallel.device_cache import chunk_metrics_snapshot
         from .streaming import is_parquet_path
 
         t0 = time.time()
         self._fit_record = {}
+        self._chunk_metrics_at_start = chunk_metrics_snapshot()
         attrs = None
         if isinstance(dataset, DeviceDataset):
             self._fit_record["route"] = "device_dataset"
@@ -621,7 +630,27 @@ class _TpuEstimator(Estimator, _TpuCaller):
             rec["streaming"] = dict(streaming.STREAM_METRICS)
         if route in ("fused_parquet", "staged_parquet", "streamed"):
             rec["parquet_readers"] = dict(fused.LAST_READER_DECISION)
+        cache = _chunk_cache_report(getattr(self, "_chunk_metrics_at_start", None))
+        if cache:
+            rec["chunk_cache"] = cache
         return rec
+
+
+def _chunk_cache_report(start: Optional[Dict[str, int]]) -> Dict[str, int]:
+    """What the chunk cache did during a fit: each counter's change since
+    `start` (hits, misses, hit_bytes, spills, ...) and the tier sizes as
+    they stand; empty when the fit touched no cached stream, as the JAX
+    package's report omits its `chunk_cache` section."""
+    from .parallel.device_cache import CHUNK_GAUGES, chunk_metrics_snapshot
+
+    if start is None:
+        return {}
+    now = chunk_metrics_snapshot()
+    delta = {k: v - start.get(k, 0) for k, v in now.items() if k not in CHUNK_GAUGES}
+    if not any(delta.values()):
+        return {}
+    delta.update({k: now[k] for k in CHUNK_GAUGES})
+    return delta
 
 
 class _TpuEstimatorSupervised(_TpuEstimator):
@@ -789,25 +818,3 @@ class _TpuModel(Model, _TpuCaller):
         if len(outputs) == 1:
             return next(iter(outputs.values()))
         return outputs
-
-
-# The JAX package's `hbm_bytes` default, a TPU v5e's HBM: the port's
-# budget on the CPU, so that routing there matches the JAX package's.
-_JAX_HBM_BYTES = 16 * 1024 * 1024 * 1024
-
-
-def device_data_budget_bytes(device) -> float:
-    """The bytes a staged dataset may take on `device`: `hbm_bytes` (when
-    None: the card's memory on a card, the JAX package's 16 GiB on the
-    CPU) times `mem_ratio_for_data`.  One device, where the JAX package
-    multiplies by its device count."""
-    from .config import get_config
-
-    hbm = get_config("hbm_bytes")
-    if hbm is None:
-        import torch
-
-        device = torch.device(device)
-        hbm = (torch.cuda.get_device_properties(device).total_memory
-               if device.type == "cuda" else _JAX_HBM_BYTES)
-    return float(hbm) * float(get_config("mem_ratio_for_data"))

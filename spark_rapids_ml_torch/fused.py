@@ -23,10 +23,14 @@
 # `fused_stage_solve`); the step math is in ops/stats.py.  A pass that
 # fails raises: there is no retry.
 #
+# A parquet pass runs through the chunk cache (parallel/device_cache.py): the
+# first pass over a file decodes and records its chunks, every later pass
+# with the same parameters (the randomized PCA's four) replays them, the
+# feature blocks from the card's memory while the device tier holds them.
+#
 # Not ported: the cross-process reduction and `process_row_group_shares`
-# (ROADMAP.md section 1, "Multi-GPU and multi-process"), the chunk cache's
-# replay of a parquet stream, the drift-baseline fold, the pod pass ids and
-# the statistic-program registry.
+# (ROADMAP.md section 1, "Multi-GPU and multi-process"), the drift-baseline
+# fold and the pod pass ids.
 #
 from __future__ import annotations
 
@@ -167,10 +171,12 @@ def _staging_depth() -> int:
 def _host_tensors(chunks: Iterable, pinned: bool, prep: Dict[str, Any],
                   time_pull: bool = True) -> Iterator:
     """Each numpy chunk (a tuple of arrays or None) as CPU tensors, copied
-    into pinned buffers when `pinned`.  The time spent is added to
-    `prep["s"]` and its interval to `prep["iv"]`: the pull of the chunk
-    and its pinned copy, or only the copy when the producer times its own
-    decode (`time_pull=False`, the parallel parquet readers)."""
+    into pinned buffers when `pinned`; a tensor (a chunk-cache replay: the
+    device tier's CUDA tensor or the host tier's pinned copy) passes as it
+    is.  The time spent is added to `prep["s"]` and its interval to
+    `prep["iv"]`: the pull of the chunk and its pinned copy, or only the
+    copy when the producer times its own decode (`time_pull=False`, the
+    parallel parquet readers)."""
     import torch
 
     from .parallel.mesh import _torch_dtype
@@ -186,8 +192,8 @@ def _host_tensors(chunks: Iterable, pinned: bool, prep: Dict[str, Any],
             t0 = time.perf_counter()
         out = []
         for a in parts:
-            if a is None:
-                out.append(None)
+            if a is None or isinstance(a, torch.Tensor):
+                out.append(a)
                 continue
             a = np.ascontiguousarray(a)
             if not pinned:
@@ -426,6 +432,7 @@ def fused_pca_stats(producer_factory: Callable[[int], Iterable], d: int, k: int,
         return host
 
     totals: Dict[str, float] = {}
+    pass_log: List[Dict[str, Any]] = []
 
     def projected_pass(omega: np.ndarray) -> Dict[str, Any]:
         acc, step = _steps("pca_projected", d, l, dtype, device)
@@ -433,6 +440,7 @@ def fused_pca_stats(producer_factory: Callable[[int], Iterable], d: int, k: int,
         host, m = accumulate_chunks(acc, step, chunks, device, prep=prep,
                                     extra_args=(np.asarray(omega, dtype),))
         _merge_totals(totals, m)
+        pass_log.append({"source": (prep or {}).get("source", "host"), **m})
         return host
 
     omega = sketch(d, l).astype(dtype)
@@ -452,6 +460,8 @@ def fused_pca_stats(producer_factory: Callable[[int], Iterable], d: int, k: int,
     Q, _r = np.linalg.qr(Y)
     final = projected_pass(Q.astype(dtype))
     _record_metrics(label, "pca_projected", 2 + power_iters, totals, solver="randomized")
+    # each pass: decode or replay (a parquet producer), wall, prep, device
+    FUSED_METRICS["pass_log"] = pass_log
     return {
         "kind": "projected",
         "Q": Q,
@@ -671,30 +681,59 @@ def iter_parquet_chunks(path: str, features_col, features_cols, label_col, weigh
                         chunk_rows: int, dtype, label_dtype=None,
                         readers: Optional[int] = None,
                         prep: Optional[Dict[str, Any]] = None,
-                        with_offsets: bool = False) -> Iterator[Tuple]:
+                        with_offsets: bool = False, device=None) -> Iterator[Tuple]:
     """The parquet producer of the fused pass: `_range_chunks` over the
     whole file, split across `readers` parallel range-reader threads
     (`fused_parquet_readers`), each decoding only its row-group share.
     Chunks then arrive in any order, which the statistics' sums do not
     mind.  `prep` collects each reader's decode time and intervals (they
     overlap across readers; the pass merges them).  `with_offsets` yields
-    `(X, y, w, offset)`, offset the chunk's first row in the file."""
-    ldt = np.dtype(label_dtype) if label_dtype is not None else np.dtype(dtype)
+    `(X, y, w, offset)`, offset the chunk's first row in the file.
+
+    The pass runs through the chunk cache: the first pass with these
+    parameters decodes and records its chunks, every later one replays
+    them in the recorded order (then the serve time is the prep, and
+    `prep["source"]` says "replay" instead of "decode").  A replayed
+    feature block may be a tensor: the device tier's, mirrored onto
+    `device`, or the host tier's pinned copy.  The range readers' order
+    differs from run to run, so a chunk that cannot be served mid-replay
+    raises `ChunkIntegrityError` (`ordered=False`); a single in-order reader
+    resumes from the file."""
+    from .parallel.device_cache import cached_chunk_stream, chunk_stream_complete
+    from .streaming import _chunk_stream_key
+
+    dtype = np.dtype(dtype)
+    ldt = np.dtype(label_dtype) if label_dtype is not None else dtype
     if readers is None:
         readers = resolve_parquet_readers(path)
-    yield from _parquet_reader_pool(path, features_col, features_cols, label_col, weight_col,
-                                    chunk_rows, np.dtype(dtype), ldt, readers, prep,
+    shares = _partition_row_groups(path, readers)
+    LAST_READER_DECISION["readers_used"] = 1 if shares is None else len(shares)
+    tag = ("fused+goff:" if with_offsets else "fused:") + ldt.str
+    key = _chunk_stream_key(path, features_col, features_cols, label_col, weight_col,
+                            chunk_rows, dtype, None, tag=tag)
+
+    def source():
+        return _parquet_reader_pool(path, features_col, features_cols, label_col, weight_col,
+                                    chunk_rows, dtype, ldt, shares, prep,
                                     with_offsets=with_offsets)
+
+    replay = chunk_stream_complete(key) is not None
+    if prep is not None:
+        prep["source"] = "replay" if replay else "decode"
+    stream = cached_chunk_stream(key, source, device_elem=0, serve_device=True,
+                                 ordered=shares is None, device=device)
+    if replay:
+        # no reader runs: serving the recorded chunks is the prep
+        stream = _timed_iter(stream, prep)
+    yield from stream
 
 
 def _parquet_reader_pool(path, features_col, features_cols, label_col, weight_col,
-                         chunk_rows, dtype, ldt, readers, prep,
+                         chunk_rows, dtype, ldt, shares, prep,
                          with_offsets: bool = False) -> Iterator[Tuple]:
-    """One in-order reader, or `readers` range-reader threads merged
-    (`merge_threads`); with `with_offsets` each share starts from its
-    global first row."""
-    shares = _partition_row_groups(path, readers)
-    LAST_READER_DECISION["readers_used"] = 1 if shares is None else len(shares)
+    """One in-order reader (`shares` None), or a range-reader thread per
+    share of row groups merged (`merge_threads`); with `with_offsets` each
+    share starts from its global first row."""
     if shares is None:
         yield from _timed_iter(_range_chunks(
             path, features_col, features_cols, label_col, weight_col, chunk_rows, dtype, ldt,

@@ -177,7 +177,7 @@ class PCA(PCAClass, _TpuEstimator, _PCATpuParams):
             rows = fused_chunk_rows(n, d, np.dtype(dtype).itemsize, n_dev)
             prep = {"s": 0.0, "iv": []}  # the readers time their own decode
             return iter_parquet_chunks(path, fcol, fcols, None, weight_col, rows, dtype,
-                                       prep=prep), prep
+                                       prep=prep, device=self._device()), prep
 
         st = fused_pca_stats(producer, d, self._resolved_k(d), dtype, self._device())
         return self._attrs_from_fused(st, dtype)

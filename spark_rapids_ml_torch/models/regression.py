@@ -297,7 +297,7 @@ class LinearRegression(
             rows = fused_chunk_rows(n, d, np.dtype(dtype).itemsize, n_dev)
             prep = {"s": 0.0, "iv": []}  # the readers time their own decode
             return iter_parquet_chunks(path, fcol, fcols, label_col, weight_col, rows, dtype,
-                                       label_dtype=ldt, prep=prep), prep
+                                       label_dtype=ldt, prep=prep, device=self._device()), prep
 
         st = fused_linreg_stats(producer, d, dtype, self._device())
         return self._attrs_from_stats(st, dtype)

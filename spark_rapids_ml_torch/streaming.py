@@ -31,13 +31,20 @@
 # LogisticRegression and KMeans evaluate in the fit's dtype; the JAX
 # package's evaluate in float32 whatever it is (ROADMAP.md section 3).
 #
-# Not ported (ROADMAP.md section 1): the chunk cache and its replay
-# (`cache_ok` and `device_ok` are accepted; every scan decodes), DuHL chunk
-# sampling and the per-iteration checkpoints (both raise
-# NotImplementedError), and the multi-process shares.
+# Every scan but the staging's runs through the chunk cache
+# (parallel/device_cache.py; conf `chunk_cache`): the first scan of a file
+# with the same scan parameters decodes and records its chunks, every later
+# one replays them, a `device_ok` consumer taking the feature block from the
+# card's memory when the device tier holds it.  `streaming_chunk_sampling=
+# "duhl"` (`DuhlChunkSampler`) lets an epoch of the streamed fits revisit
+# only the cached chunks whose contribution still moves.
+#
+# Not ported (ROADMAP.md section 1): the per-iteration checkpoints (they
+# raise NotImplementedError) and the multi-process shares.
 #
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
@@ -54,7 +61,10 @@ LAST_STAGE: dict = {}
 
 # The last streamed pass or fit: the `FUSED_METRICS` keys of its passes
 # (host_prep_s, device_acc_s, overlap_s, chunks, bytes, wall_s) under its
-# label, plus `epochs` for the epoch-streaming fits.
+# label; for the epoch-streaming fits also `epochs`, `epoch_s` (each
+# epoch's seconds), `scan_s` (the first scan: the label and moments scan, or
+# the seeding sample) and, sampled, `sampled_epochs` and
+# `chunk_visits_saved`.
 STREAM_METRICS: dict = {}
 
 logger = get_logger("spark_rapids_ml_torch.streaming")
@@ -216,28 +226,61 @@ def _scan_columns(features_col, features_cols, label_col, weight_col) -> list:
     return columns
 
 
+def _chunk_stream_key(path: str, features_col, features_cols, label_col, weight_col,
+                      chunk_rows: int, dtype, row_range, tag: str = "iter_chunks"):
+    """The chunk cache's stream key: the path's change stamp and every scan
+    parameter that shapes the chunks, with the process rank and count (0
+    and 1: one process).  None (no caching) when the path cannot be
+    stat'd; a path rewritten in place gets a new stamp, so a new key."""
+    stamp = _path_stamp(path)
+    if stamp is None:
+        return None
+    return (tag, path, stamp, 0, features_col, tuple(features_cols or ()), label_col,
+            weight_col, int(chunk_rows), np.dtype(dtype).str, row_range, 1)
+
+
+def chunk_stream_key(path, features_col, features_cols, label_col, weight_col, chunk_rows,
+                     dtype, row_range=None):
+    """The cache key of an `iter_chunks` scan."""
+    return _chunk_stream_key(path, features_col, features_cols, label_col, weight_col,
+                             chunk_rows, dtype, row_range)
+
+
 def iter_chunks(path: str, features_col: Optional[str], features_cols: Sequence[str],
                 label_col: Optional[str], weight_col: Optional[str], chunk_rows: int,
                 dtype: np.dtype, row_range: Optional[Tuple[int, int]] = None,
-                device_ok: bool = False, select_chunks=None, cache_ok: bool = True
-                ) -> Iterator[Tuple[np.ndarray, Optional[np.ndarray], Optional[np.ndarray], int]]:
+                device_ok: bool = False, select_chunks=None, cache_ok: bool = True,
+                device=None
+                ) -> Iterator[Tuple[Any, Optional[np.ndarray], Optional[np.ndarray], int]]:
     """`(X, y, w, n_valid)` chunks of exactly `chunk_rows` rows (the last
     zero-padded) of a parquet file or dataset directory, in file order;
     `row_range=(lo, hi)` keeps a slice of the rows.  Each chunk owns its
-    arrays.  `device_ok` and `cache_ok` are the JAX package's chunk-cache
-    switches: the port has no cache, so every scan decodes and chunks are
-    host arrays; `select_chunks` (DuHL) raises."""
-    if select_chunks is not None:
-        raise NotImplementedError(
-            "select_chunks replays a cached stream (DuHL sampling), not ported: "
-            "ROADMAP.md section 1")
-    import pyarrow.dataset as ds
+    arrays.
 
-    columns = _scan_columns(features_col, features_cols, label_col, weight_col)
-    dataset = ds.dataset(path, format="parquet")
-    yield from chunks_from_batches(
-        dataset.to_batches(columns=columns, batch_size=chunk_rows), features_col,
-        features_cols, label_col, weight_col, chunk_rows, dtype, row_range=row_range)
+    The scan runs through the chunk cache: the first identical scan
+    decodes and records the chunks (served arrays are read-only from then
+    on), later ones replay them.  A `device_ok` consumer may receive the
+    feature block as a tensor: the device tier's CUDA tensor (mirrored onto
+    `device`) or the host tier's pinned copy; everyone else gets numpy.
+    `select_chunks` (a set of positions) replays only those chunks of a
+    complete cached stream (DuHL).  `cache_ok=False` bypasses the cache (the
+    one-shot staging scan)."""
+    from .parallel.device_cache import cached_chunk_stream
+
+    def source():
+        import pyarrow.dataset as ds
+
+        columns = _scan_columns(features_col, features_cols, label_col, weight_col)
+        dataset = ds.dataset(path, format="parquet")
+        return chunks_from_batches(
+            dataset.to_batches(columns=columns, batch_size=chunk_rows), features_col,
+            features_cols, label_col, weight_col, chunk_rows, dtype, row_range=row_range)
+
+    key = None if not cache_ok else _chunk_stream_key(
+        path, features_col, features_cols, label_col, weight_col, chunk_rows, dtype, row_range)
+    yield from cached_chunk_stream(key, source, device_elem=0 if device_ok else None,
+                                   serve_device=device_ok, select=select_chunks,
+                                   device=device if device_ok else None)
 
 
 def chunks_from_batches(batches, features_col: Optional[str], features_cols: Sequence[str],
@@ -375,7 +418,9 @@ def _with_offsets(chunks, start: int) -> Iterator[Tuple]:
 
 
 def iter_file_chunks(path: str, features_col, features_cols, label_col, weight_col,
-                     chunk_rows: int, dtype: np.dtype) -> Iterator[Tuple]:
+                     chunk_rows: int, dtype: np.dtype, device_ok: bool = False, device=None,
+                     select_chunks=None, cache_ok: bool = True, keys: Optional[list] = None
+                     ) -> Iterator[Tuple]:
     """`(X, y, w, n_valid, offset)` chunks of a parquet file (`iter_chunks`
     chunks, offset the global row of the chunk's first row), decoded by
     fused.py's range readers where the file's row groups split
@@ -384,21 +429,41 @@ def iter_file_chunks(path: str, features_col, features_cols, label_col, weight_c
     staging and every streamed pass read through it: their sums do not
     depend on the order, and the offset places what does (the staged rows,
     KMeans' labels, the seeding sample).  The JAX package's streamed passes
-    scan in order (ROADMAP.md section 3)."""
+    scan in order (ROADMAP.md section 3).
+
+    The scan runs through the chunk cache (`cache_ok`), which records each
+    chunk with its offset and replays the order of its first scan;
+    `device_ok`, `device` and `select_chunks` as in `iter_chunks`.  `keys`,
+    when given, receives the scan's cache key (DuHL asks the cache whether
+    that stream is complete)."""
     from .fused import LAST_READER_DECISION, merge_threads, resolve_parquet_readers
+    from .parallel.device_cache import cached_chunk_stream
 
     readers = resolve_parquet_readers(path)
     shares = _parquet_share_offsets(path, readers) if readers > 1 else None
     LAST_READER_DECISION["readers_used"] = 1 if shares is None else len(shares)
-    if shares is None:
-        yield from _with_offsets(iter_chunks_prefetch(
-            path, features_col, features_cols, label_col, weight_col, chunk_rows, dtype,
-            cache_ok=False), 0)
-        return
-    yield from merge_threads([
-        _with_offsets(_share_chunks(path, features_col, features_cols, label_col, weight_col,
-                                    chunk_rows, dtype, groups), start)
-        for groups, start in shares])
+
+    def source():
+        if shares is None:
+            return _with_offsets(iter_chunks_prefetch(
+                path, features_col, features_cols, label_col, weight_col, chunk_rows, dtype,
+                cache_ok=False), 0)
+        return merge_threads([
+            _with_offsets(_share_chunks(path, features_col, features_cols, label_col,
+                                        weight_col, chunk_rows, dtype, groups), start)
+            for groups, start in shares])
+
+    # the chunks carry their global row, and a stream the range readers
+    # filled is never resumed from one scan by position: keys of their own
+    key = None if not cache_ok else _chunk_stream_key(
+        path, features_col, features_cols, label_col, weight_col, chunk_rows, dtype, None,
+        tag="file_chunks" if shares is None else "file_chunks+ranges")
+    if keys is not None:
+        keys.append(key)
+    yield from cached_chunk_stream(key, source, device_elem=0 if device_ok else None,
+                                   serve_device=device_ok, select=select_chunks,
+                                   ordered=shares is None,
+                                   device=device if device_ok else None)
 
 
 def stage_parquet(path: str, features_col: Optional[str] = "features",
@@ -440,8 +505,11 @@ def stage_parquet(path: str, features_col: Optional[str] = "features",
 
     def host_chunks():
         # only the valid rows travel; the offset stays on the host
+        # cache_ok=False: a one-shot staging scan must neither keep chunks
+        # it never replays nor evict the streamed fits' streams
         for cX, cy, cw, n_c, at in iter_file_chunks(path, features_col, features_cols,
-                                                    label_col, weight_col, chunk_rows, dtype):
+                                                    label_col, weight_col, chunk_rows, dtype,
+                                                    cache_ok=False):
             offsets.append((at, n_c))
             yield (cX[:n_c], None if cy is None else np.asarray(cy[:n_c], ldt),
                    None if cw is None else np.asarray(cw[:n_c], dtype))
@@ -520,7 +588,7 @@ def linreg_streaming_stats(path: str, features_col: Optional[str],
     chunk_rows = _chunk_rows(path, chunk_rows, d, dtype)
     acc, step = linreg_acc(d, dtype, device)
     chunks = iter_file_chunks(path, features_col, features_cols, label_col, weight_col,
-                              chunk_rows, dtype)
+                              chunk_rows, dtype, device_ok=True, device=device)
     return _streamed_pass("linreg_streaming", "linreg", acc, step,
                           _stat_chunks(chunks, chunk_rows, dtype, True), device, True)
 
@@ -538,7 +606,7 @@ def pca_streaming_stats(path: str, features_col: Optional[str], features_cols: S
     chunk_rows = _chunk_rows(path, chunk_rows, d, dtype)
     acc, step = pca_moment_acc(d, dtype, device)
     chunks = iter_file_chunks(path, features_col, features_cols, None, weight_col,
-                              chunk_rows, dtype)
+                              chunk_rows, dtype, device_ok=True, device=device)
     return _streamed_pass("pca_streaming", "pca_moments", acc, step,
                           _stat_chunks(chunks, chunk_rows, dtype, False), device, False)
 
@@ -594,14 +662,128 @@ def pca_stats_from_csr(csr, weight: Optional[np.ndarray], dtype=np.float32,
 # ---------------------------------------------------------------------------
 
 
-def _check_not_ported(checkpoint_path=None, checkpoint_dir=None) -> None:
+# DuHL ("Large-Scale Stochastic Learning using GPUs", PAPERS.md) at the
+# grain of a chunk: once the chunk cache holds the whole stream, an epoch
+# revisits only the chunks whose contribution to the solver's statistics
+# still moves (per-chunk scores), and every chunk it skips contributes its
+# last-computed statistics.  Skipped chunks are neither decompressed nor
+# copied.  A chunk is revisited at the latest after MAX_AGE epochs, and
+# every FULL_EVERY-th evaluation is a full pass.
+
+
+def chunk_sampling_mode() -> str:
     mode = str(get_config("streaming_chunk_sampling")).lower()
     if mode not in ("off", "duhl"):
         raise ValueError(f"streaming_chunk_sampling must be off|duhl, got {mode!r}")
-    if mode == "duhl":
-        raise NotImplementedError(
-            "streaming_chunk_sampling='duhl' (DuHL chunk sampling) needs the chunk cache, not "
-            "ported: ROADMAP.md section 1, item 1")
+    return mode
+
+
+class DuhlChunkSampler:
+    """Per-chunk contribution bookkeeping for sampled epochs (the JAX
+    package's class, a copy).  The solver reports `visited(idx, score)`
+    after recomputing a chunk and asks `select()` for the next epoch's
+    chunks (None: a full pass, because the sampler is not primed, a full
+    refresh is due, or the selection would cover every chunk).
+
+    The selection is frozen between full refreshes, so that the
+    stale-compensated objective changes smoothly with the iterate within a
+    cycle (an L-BFGS line search over a selection that changed at every
+    evaluation would stall).  Once the iterate moves less than TAIL_EPS
+    (relative) between full refreshes, every later pass is full."""
+
+    MAX_AGE = 12  # no chunk's contribution goes staler than this
+    FULL_EVERY = 8  # a full refresh every Nth evaluation
+    WARM_EVALS = 8  # full passes before sampling starts
+    TAIL_EPS = 0.02
+
+    def __init__(self, fraction: float, warm_evals: Optional[int] = None,
+                 full_every: Optional[int] = None) -> None:
+        self.fraction = min(max(float(fraction), 0.1), 1.0)
+        if warm_evals is not None:
+            self.WARM_EVALS = int(warm_evals)
+        if full_every is not None:
+            self.FULL_EVERY = max(2, int(full_every))
+        self.n_chunks: Optional[int] = None
+        self.score: Optional[np.ndarray] = None
+        self.age: Optional[np.ndarray] = None
+        self.sampled_epochs = 0
+        self.chunk_visits_saved = 0
+        self._evals = 0
+        self._sel: Optional[list] = None  # frozen within the cycle
+        self._ref: Optional[np.ndarray] = None  # the iterate at the last refresh
+        self._exact = False  # the tail is reached: full passes from here on
+
+    def ready(self) -> bool:
+        return self.n_chunks is not None
+
+    def start(self, n_chunks: int) -> None:
+        self.n_chunks = int(n_chunks)
+        self.score = np.full((n_chunks,), np.inf)
+        self.age = np.zeros((n_chunks,), np.int64)
+
+    def _pick(self) -> Optional[list]:
+        n = self.n_chunks
+        want = max(1, int(np.ceil(n * self.fraction)))
+        order = np.argsort(-self.score, kind="stable")
+        sel = set(int(i) for i in order[:want])
+        sel |= set(int(i) for i in np.flatnonzero(self.age + 1 >= self.MAX_AGE))
+        if len(sel) >= n:
+            return None
+        return sorted(sel)
+
+    def select(self) -> Optional[list]:
+        """The chunk positions of the next epoch; None: a full pass."""
+        self._evals += 1
+        if (self._exact or not self.ready() or self._evals <= self.WARM_EVALS
+                or (self._evals - 1) % self.FULL_EVERY == 0):
+            self._sel = None  # the full refresh re-scores the next cycle
+            return None
+        if self._sel is None:
+            self._sel = self._pick()
+        if self._sel is None:
+            return None
+        self.sampled_epochs += 1
+        self.chunk_visits_saved += self.n_chunks - len(self._sel)
+        return self._sel
+
+    def note_refresh(self, iterate: np.ndarray) -> None:
+        """After every full pass, with the solver's iterate: below TAIL_EPS
+        of relative movement since the previous refresh, every later pass is
+        full."""
+        it = np.asarray(iterate, np.float64).ravel()
+        if self._ref is not None and self._ref.shape == it.shape:
+            denom = max(float(np.linalg.norm(self._ref)), 1.0)
+            if float(np.linalg.norm(it - self._ref)) / denom < self.TAIL_EPS:
+                self._exact = True
+        self._ref = it.copy()
+
+    def visited(self, idx: int, score: float) -> None:
+        self.score[idx] = float(score)
+        self.age[idx] = 0
+
+    def epoch_done(self, visited_idx) -> None:
+        mask = np.ones((self.n_chunks,), bool)
+        mask[list(visited_idx)] = False
+        self.age[mask] += 1
+
+    def summary(self) -> dict:
+        return {"sampled_epochs": int(self.sampled_epochs),
+                "chunk_visits_saved": int(self.chunk_visits_saved)}
+
+
+def _duhl_selection(sampler: "DuhlChunkSampler", key) -> Optional[list]:
+    """The next epoch's chunk positions: a selection only once the chunk
+    cache holds the whole stream (skipping chunks of a scan that decodes
+    would save nothing)."""
+    from .parallel.device_cache import chunk_stream_complete
+
+    if sampler.ready() and key is not None and chunk_stream_complete(key) == sampler.n_chunks:
+        return sampler.select()
+    return None
+
+
+def _check_not_ported(checkpoint_path=None, checkpoint_dir=None) -> None:
+    chunk_sampling_mode()
     if checkpoint_path or checkpoint_dir or get_config("streaming_checkpoint_dir"):
         raise NotImplementedError(
             "checkpoints of the streamed fits are not ported: ROADMAP.md section 1, "
@@ -656,8 +838,11 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
     Spark's binomial and multinomial objectives, unpenalised intercepts,
     standardization by the population moments of a first host pass
     (centred when there is an intercept, scaled only when not).  The rows
-    evaluate in `dtype`.  Returns the solution and `epochs`, the passes
-    over the file (every evaluation, line-search trials included)."""
+    evaluate in `dtype`.  With `streaming_chunk_sampling="duhl"` an
+    evaluation may be sampled (`DuhlChunkSampler`): the result then holds
+    `sampled_epochs` and `chunk_visits_saved`.  Returns the solution and
+    `epochs`, the passes over the file (every evaluation, line-search trials
+    included)."""
     import torch
 
     from .fused import _record_metrics, device_chunks
@@ -670,8 +855,10 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
     dtype = np.dtype(dtype)
     chunk_rows = _chunk_rows(path, chunk_rows,
                              probe_num_features(path, features_col, features_cols), dtype)
+    t_scan = time.perf_counter()
     scan = _label_moments_scan(path, features_col, features_cols, label_col, weight_col,
                                dtype, chunk_rows, need_moments=standardization)
+    scan_s = time.perf_counter() - t_scan
     d, wsum = scan["d"], scan["wsum"]
     if not scan["integral"] or scan["y_min"] < 0:
         raise RuntimeError("Labels MUST be non-negative Integers")
@@ -697,33 +884,91 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
     n_coef, n_param, coef_mask, _ = _theta_layout(C, d, fit_intercept)
     epochs = {"n": 0}
     totals: Dict[str, float] = {}
+    keys: list = []
 
-    def host_chunks():
+    def host_chunks(select=None):
         for cX, cy, cw, n_c, _ in iter_file_chunks(path, features_col, features_cols,
-                                                   label_col, weight_col, chunk_rows, dtype):
+                                                   label_col, weight_col, chunk_rows, dtype,
+                                                   device_ok=True, device=device,
+                                                   select_chunks=select, keys=keys):
             yield (cX[:n_c], np.asarray(cy[:n_c], np.int32),
                    _weights_host(cw, n_c, chunk_rows, dtype)[:n_c])
 
-    def oracle(theta_np: np.ndarray):
-        theta = torch.as_tensor(theta_np, dtype=tdt, device=device)
-        acc_l = torch.zeros((), dtype=tdt, device=device)
-        acc_g = torch.zeros((n_param,), dtype=tdt, device=device)
+    def chunk_terms(theta, select=None):
+        """Each chunk's loss and gradient under theta, normalised by the
+        whole file's weight (the penalty is added once, on the host)."""
         timing: Dict[str, Any] = {}
-        for cX, cy, cw in device_chunks(host_chunks(), device, timing):
-            if inv_std_dev is not None:
-                cX = (cX - mean_dev) * inv_std_dev if mean_dev is not None else cX * inv_std_dev
-            # each chunk's loss and gradient, normalised by the whole
-            # file's weight; the penalty is added once, on the host
-            f, g = LogisticOracle(cX, cw, cy, n_classes, 0.0, fit_intercept, binomial,
-                                  wsum=wsum).value_and_grad(theta)
-            acc_l += f
-            acc_g += g
-        for k, v in timing.items():
-            totals[k] = totals.get(k, 0.0) + v
+        try:
+            for cX, cy, cw in device_chunks(host_chunks(select), device, timing):
+                if inv_std_dev is not None:
+                    cX = (cX - mean_dev) * inv_std_dev if mean_dev is not None else cX * inv_std_dev
+                yield LogisticOracle(cX, cw, cy, n_classes, 0.0, fit_intercept, binomial,
+                                     wsum=wsum).value_and_grad(theta)
+        finally:
+            for k, v in timing.items():
+                totals[k] = totals.get(k, 0.0) + v
+
+    sampler = None
+    stale: Dict[str, Optional[np.ndarray]] = {"l": None, "g": None}
+    if chunk_sampling_mode() == "duhl":
+        sampler = DuhlChunkSampler(get_config("streaming_chunk_sample_fraction"))
+
+    def duhl_eval(theta, theta_np):
+        """One epoch, sampled once the cache holds the stream: fresh terms
+        for the selected chunks, the last-computed ones for the rest."""
+        sel = _duhl_selection(sampler, keys[-1] if keys else None)
+        idxs, host_l, host_g, dev_l, dev_g = [], [], [], [], []
+
+        def flush():
+            # bounded fetches: per-chunk terms kept on the card to the end
+            # of the epoch would grow with the file
+            if dev_l:
+                host_l.extend(torch.stack(dev_l).cpu().numpy().astype(np.float64))
+                host_g.extend(torch.stack(dev_g).cpu().numpy().astype(np.float64))
+                dev_l.clear()
+                dev_g.clear()
+
+        positions = itertools.count() if sel is None else iter(sel)
+        for idx, (f, g) in zip(positions, chunk_terms(theta, None if sel is None
+                                                      else frozenset(sel))):
+            idxs.append(idx)
+            dev_l.append(f)
+            dev_g.append(g)
+            if len(dev_l) >= 64:
+                flush()
+        flush()
+        if not sampler.ready():
+            sampler.start(len(idxs))
+            stale["l"] = np.zeros((len(idxs),), np.float64)
+            stale["g"] = np.zeros((len(idxs), n_param), np.float64)
+        for i, idx in enumerate(idxs):
+            sampler.visited(idx, float(np.linalg.norm(host_g[i] - stale["g"][idx])))
+            stale["l"][idx] = float(host_l[i])
+            stale["g"][idx] = host_g[i]
+        sampler.epoch_done(idxs)
+        if sel is None:
+            sampler.note_refresh(theta_np)
+        return float(stale["l"].sum()), stale["g"].sum(axis=0)
+
+    epoch_s: list = []
+
+    def oracle(theta_np: np.ndarray):
+        t_epoch = time.perf_counter()
+        theta = torch.as_tensor(theta_np, dtype=tdt, device=device)
+        if sampler is not None:
+            f, g = duhl_eval(theta, theta_np)
+        else:
+            acc_l = torch.zeros((), dtype=tdt, device=device)
+            acc_g = torch.zeros((n_param,), dtype=tdt, device=device)
+            for fc, gc in chunk_terms(theta):
+                acc_l += fc
+                acc_g += gc
+            host = torch.cat([acc_l.reshape(1), acc_g]).cpu().numpy().astype(np.float64)
+            f, g = float(host[0]), host[1:]
         epochs["n"] += 1
-        host = torch.cat([acc_l.reshape(1), acc_g]).cpu().numpy().astype(np.float64)
+        epoch_s.append(time.perf_counter() - t_epoch)
         beta = theta_np * coef_mask
-        return float(host[0]) + 0.5 * l2 * float(beta @ beta), host[1:] + l2 * beta
+        return f + 0.5 * l2 * float(beta @ beta), g + l2 * beta
 
     t0 = time.perf_counter()
     theta, n_iter, converged, hist = lbfgs_minimize_host(
@@ -731,7 +976,8 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
         l1=l1, l1_mask=coef_mask, ls_max=ls_max)
     totals["wall_s"] = time.perf_counter() - t0
     _record_metrics("logreg_streaming", "logreg", epochs["n"], totals, into=STREAM_METRICS)
-    STREAM_METRICS["epochs"] = epochs["n"]
+    STREAM_METRICS.update(epochs=epochs["n"], epoch_s=epoch_s, scan_s=scan_s,
+                          **(sampler.summary() if sampler is not None else {}))
     logger.info(f"Epoch-streaming logreg: {n_iter} iterations, {epochs['n']} data epochs over "
                 f"{scan['n_total']} rows")
     if binomial:
@@ -742,29 +988,31 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
         intercept = theta[n_coef:] if fit_intercept else np.zeros((C,))
     return {"coef": coef, "intercept": intercept, "n_classes": n_classes, "d": d,
             "n_iter": n_iter, "converged": converged, "history": hist, "mean": mean,
-            "std": std, "binomial": binomial, "epochs": epochs["n"]}
+            "std": std, "binomial": binomial, "epochs": epochs["n"],
+            **(sampler.summary() if sampler is not None else {})}
 
 
 def seed_sample(path: str, features_col, features_cols, weight_col, n_total: int,
                 init_rows: int, dtype, chunk_rows: int) -> Tuple[np.ndarray, np.ndarray]:
     """The strided global subsample the streamed KMeans seeds from: every
     `seed_sample_stride(n_total, init_rows)`-th row of the file with its
-    weight (1 without a weight column), as the JAX package's
-    `kmeans_sample` statistic program gathers it.  (rows in `dtype`,
-    weights float64)."""
+    weight (1 without a weight column), gathered by the `kmeans_sample`
+    statistic program (stats/programs.py) from each chunk's global row, so
+    any chunk order assembles the same sample.  (rows in `dtype`, weights
+    float64)."""
     from .ops.kmeans import seed_sample_stride
+    from .stats.engine import iter_chunk_accs
+    from .stats.programs import get_program
 
     stride = seed_sample_stride(n_total, init_rows)
     cap = (n_total - 1) // stride + 1
-    rows = np.zeros((cap, probe_num_features(path, features_col, features_cols)), np.float64)
-    ws = np.zeros((cap,), np.float64)
-    for cX, _, cw, n_c, offset in iter_file_chunks(path, features_col, features_cols, None,
-                                                   weight_col, chunk_rows, dtype):
-        first = (-offset) % stride  # the chunk's first row at a multiple of stride
-        slots = slice((offset + first) // stride, (offset + n_c - 1) // stride + 1)
-        rows[slots] = cX[first:n_c:stride]
-        ws[slots] = _weights_host(cw, n_c, chunk_rows, dtype)[first:n_c:stride]
-    return rows.astype(dtype), ws
+    d = probe_num_features(path, features_col, features_cols)
+    acc = iter_chunk_accs("kmeans_sample",
+                          iter_file_chunks(path, features_col, features_cols, None, weight_col,
+                                           chunk_rows, dtype),
+                          d, dtype, opts={"stride": stride, "cap": cap})
+    sample = get_program("kmeans_sample").finalize(acc, {})
+    return np.asarray(sample["X"]).astype(dtype), np.asarray(sample["w"], np.float64)
 
 
 def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: int, seed: int,
@@ -776,14 +1024,18 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
                          checkpoint_dir: Optional[str] = None, device=None,
                          init_centers=None) -> dict:
     """Epoch-streaming Lloyd: centres seeded on the card from a strided
-    global subsample (`seed_sample`, then ops/kmeans.py's seeding), then
+    global subsample (`seed_sample`: the `kmeans_sample` statistic program,
+    then ops/kmeans.py's seeding), then
     each iteration one pass over the file that assigns every row and sums
     it into its centre (ops/kmeans.py `_lloyd_block_step`: `index_add_`
     partials in the fit's dtype, combined in float64), the centres
     updated on the card.  The stop rule of `kmeans_fit`: every centre
     moves less than `tol`, or a pass moves no row (the row labels of the
-    pass before live on the card, 4 bytes a row).  `init_centers` (k, d)
-    replaces the seeding.  The cost is taken under the final centres."""
+    pass before live on the card, 4 bytes a row).  With
+    `streaming_chunk_sampling="duhl"` the passes are sampled once the
+    chunk cache holds the file (`DuhlChunkSampler`) and the fit stops on
+    the shift alone.  `init_centers` (k, d) replaces the seeding.  The cost
+    is taken under the final centres, by a full pass."""
     import torch
 
     from .fused import _record_metrics, device_chunks
@@ -800,6 +1052,7 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
     if n_total < k:
         raise ValueError(f"k={k} exceeds the dataset row count {n_total}")
     stride = km.seed_sample_stride(n_total, init_rows)
+    t_scan = time.perf_counter()
     if init_centers is not None:
         C = torch.tensor(np.asarray(init_centers), dtype=tdt, device=device)
     else:
@@ -811,49 +1064,118 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
         C = km._seed(torch.as_tensor(Xs, device=device),
                      torch.as_tensor(ws.astype(dtype), device=device), k, seed, init,
                      init_steps, oversample)
+    scan_s = time.perf_counter() - t_scan
     rows = km.block_rows(n_total, d, k, dtype.itemsize, n_total)
     unweighted = weight_col is None
-    labels = torch.full((n_total,), -1, dtype=torch.int32, device=device)
+    sampler = None
+    if chunk_sampling_mode() == "duhl":
+        # Lloyd has no line search and bears stale assignment statistics
+        # better than L-BFGS bears a stale objective: sampling starts after
+        # 3 exact passes, with a full refresh every 4th (the JAX package's
+        # settings); the moved-rows stop needs every row's label, so a
+        # sampled fit stops on the centres' shift alone, as the JAX
+        # package's does
+        sampler = DuhlChunkSampler(get_config("streaming_chunk_sample_fraction"),
+                                   warm_evals=3, full_every=4)
+    labels = (torch.full((n_total,), -1, dtype=torch.int32, device=device)
+              if sampler is None else None)
     totals: Dict[str, float] = {}
+    keys: list = []
+    stale: Dict[str, Optional[np.ndarray]] = {}
 
-    def one_pass(C, prev):
-        acc = (torch.zeros((k, d), dtype=torch.float64, device=device),
-               torch.zeros(k, dtype=torch.float64, device=device),
-               torch.zeros((), dtype=torch.float64, device=device),
-               torch.zeros((), dtype=torch.int64, device=device))
+    def new_acc():
+        return (torch.zeros((k, d), dtype=torch.float64, device=device),
+                torch.zeros(k, dtype=torch.float64, device=device),
+                torch.zeros((), dtype=torch.float64, device=device),
+                torch.zeros((), dtype=torch.int64, device=device))
+
+    def pass_chunks(select=None):
+        """(global row, X, w) of each chunk, on the device."""
         timing: Dict[str, Any] = {}
         offsets = []
 
         def host_chunks():
             for cX, _, cw, n_c, at in iter_file_chunks(path, features_col, features_cols, None,
-                                                       weight_col, chunk_rows, dtype):
+                                                       weight_col, chunk_rows, dtype,
+                                                       device_ok=True, device=device,
+                                                       select_chunks=select, keys=keys):
                 offsets.append(at)
                 yield cX[:n_c], _weights_host(cw, n_c, chunk_rows, dtype)[:n_c]
 
-        for i, (cX, cw) in enumerate(device_chunks(host_chunks(), device, timing)):
-            at = offsets[i]
-            x2 = km.row_norms(cX)
-            for b in km._row_blocks(cX.shape[0], rows):
-                km._lloyd_block_step(acc, cX[b], cw[b], x2[b], C, unweighted,
-                                     None if prev is None
-                                     else prev[at + b.start:at + b.stop])
-        for key, v in timing.items():
-            totals[key] = totals.get(key, 0.0) + v
+        try:
+            for i, (cX, cw) in enumerate(device_chunks(host_chunks(), device, timing)):
+                yield offsets[i], cX, cw
+        finally:
+            for key, v in timing.items():
+                totals[key] = totals.get(key, 0.0) + v
+
+    def fold(acc, cX, cw, C, prev, at):
+        x2 = km.row_norms(cX)
+        for b in km._row_blocks(cX.shape[0], rows):
+            km._lloyd_block_step(acc, cX[b], cw[b], x2[b], C, unweighted,
+                                 None if prev is None else prev[at + b.start:at + b.stop])
+
+    def one_pass(C, prev):
+        acc = new_acc()
+        for at, cX, cw in pass_chunks():
+            fold(acc, cX, cw, C, prev, at)
         return acc
 
+    def one_pass_duhl(C):
+        """A Lloyd pass, sampled once the cache holds the stream: the chunks
+        with the largest cost (the rows that still move centres) recompute
+        under C, the rest add their last-computed sums, counts and cost."""
+        sel = _duhl_selection(sampler, keys[-1] if keys else None)
+        idxs, dev_stats, host_stats = [], [], []
+
+        def flush():
+            if dev_stats:
+                host_stats.extend(torch.stack(dev_stats).cpu().numpy())
+                dev_stats.clear()
+
+        positions = itertools.count() if sel is None else iter(sel)
+        for idx, (at, cX, cw) in zip(positions, pass_chunks(None if sel is None
+                                                            else frozenset(sel))):
+            acc = new_acc()
+            fold(acc, cX, cw, C, None, at)
+            dev_stats.append(torch.cat([acc[0].reshape(-1), acc[1], acc[2].reshape(1)]))
+            idxs.append(idx)
+            if len(dev_stats) >= 16:
+                flush()
+        flush()
+        if not sampler.ready():
+            sampler.start(len(idxs))
+            stale["stats"] = np.zeros((len(idxs), k * d + k + 1), np.float64)
+        for i, idx in enumerate(idxs):
+            stale["stats"][idx] = host_stats[i]
+            sampler.visited(idx, float(host_stats[i][-1]))
+        sampler.epoch_done(idxs)
+        if sel is None:
+            sampler.note_refresh(C.cpu().numpy().astype(np.float64).ravel())
+        tot = torch.as_tensor(stale["stats"].sum(axis=0), device=device)
+        return tot[:k * d].reshape(k, d), tot[k * d:k * d + k], tot[-1]
+
     t0 = time.perf_counter()
-    costs, moves = [], []
+    costs, moves, epoch_s = [], [], []
     n_iter = passes = 0
     for n_iter in range(1, max_iter + 1):
-        sums, counts, cost, moved = one_pass(C, labels)
+        t_epoch = time.perf_counter()
+        if sampler is None:
+            sums, counts, cost, moved = one_pass(C, labels)
+        else:
+            (sums, counts, cost), moved = one_pass_duhl(C), None
         passes += 1
+        epoch_s.append(time.perf_counter() - t_epoch)
         costs.append(cost)
         new_C, shift2 = km._lloyd_center_update(C, sums, counts)
-        shift2, moved = torch.stack([shift2.to(torch.float64),
-                                     moved.to(torch.float64)]).tolist()
-        moves.append(int(moved))
-        if moved == 0:
-            break
+        if moved is None:
+            shift2 = float(shift2)
+        else:
+            shift2, moved = torch.stack([shift2.to(torch.float64),
+                                         moved.to(torch.float64)]).tolist()
+            moves.append(int(moved))
+            if moved == 0:
+                break
         C = new_C
         if shift2 <= tol * tol:
             break
@@ -863,11 +1185,13 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
     costs.append(cost)
     totals["wall_s"] = time.perf_counter() - t0
     _record_metrics("kmeans_streaming", "kmeans", passes, totals, into=STREAM_METRICS)
-    STREAM_METRICS["epochs"] = passes
+    STREAM_METRICS.update(epochs=passes, epoch_s=epoch_s, scan_s=scan_s,
+                          **(sampler.summary() if sampler is not None else {}))
     km.LAST_FIT.clear()
     km.LAST_FIT.update(streamed=True, stride=stride, init_rows=-(-n_total // stride), rows=rows,
                        n_iter=n_iter, costs=[float(c) for c in costs], moved=moves,
                        unweighted=unweighted, epochs=passes)
     logger.info(f"Epoch-streaming kmeans: {n_iter} Lloyd passes over {n_total} rows")
     return {"centers": C.cpu().numpy().astype(np.float64), "cost": float(cost),
-            "n_iter": n_iter, "d": d, "epochs": passes}
+            "n_iter": n_iter, "d": d, "epochs": passes,
+            **(sampler.summary() if sampler is not None else {})}

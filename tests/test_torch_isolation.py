@@ -2,8 +2,9 @@
 # The port stands alone: no module of spark_rapids_ml_torch, nor
 # chip_smoke.py or compare_kernels.py, imports JAX or the JAX package; the port runs with both
 # made unimportable (its fits from parquet included: streaming.py and the
-# parquet readers of fused.py); and chip_smoke.py refuses to run without a
-# CUDA device or without the rest of the repo.
+# parquet readers of fused.py, the chunk cache and the statistics); and
+# chip_smoke.py refuses to run without a CUDA device or without the rest of
+# the repo.
 #
 import ast
 import os
@@ -101,6 +102,50 @@ def test_port_runs_with_jax_unimportable():
         "    assert est.fit(path).fit_report()['route'] == 'streamed'\n"
         "config.reset_config()\n"
         "assert RandomForestClassifier(numTrees=1).fit(path).fit_report()['route'] == 'staged_parquet'\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_cache_and_summarize_run_with_jax_unimportable():
+    """The chunk cache's replay, a DuHL-sampled streamed fit and `summarize`
+    of a parquet file (a decode, then a replay) run with JAX and the JAX
+    package unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['spark_rapids_ml_tpu'] = None\n"
+        "import os, tempfile\n"
+        "import numpy as np, pyarrow as pa, pyarrow.parquet as pq\n"
+        "import spark_rapids_ml_torch as p\n"
+        "from spark_rapids_ml_torch import config, streaming\n"
+        "from spark_rapids_ml_torch.parallel.device_cache import CHUNK_METRICS\n"
+        "from spark_rapids_ml_torch.stats import summarize, describe\n"
+        "p.set_default_device('cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.normal(size=(3000, 4)).astype(np.float32)\n"
+        "y = (X[:, 0] > 0).astype(np.float64)\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'x.parquet')\n"
+        "pq.write_table(pa.table({'features': pa.FixedSizeListArray.from_arrays(\n"
+        "    pa.array(X.reshape(-1)), 4), 'label': pa.array(y)}), path, row_group_size=500)\n"
+        "a = streaming.linreg_streaming_stats(path, 'features', (), 'label', None, chunk_rows=400)\n"
+        "b = streaming.linreg_streaming_stats(path, 'features', (), 'label', None, chunk_rows=400)\n"
+        "assert CHUNK_METRICS['hits'] == 1 and (a['gram'] == b['gram']).all()\n"
+        "config.set_config(streaming_chunk_sampling='duhl')\n"
+        "r = streaming.kmeans_streaming_fit(path, 'features', (), None, k=3, seed=1, chunk_rows=400)\n"
+        "assert 'sampled_epochs' in r and np.isfinite(r['cost'])\n"
+        "config.reset_config()\n"
+        "s1 = summarize(path, metrics=['count', 'mean', 'distinctCount', 'quantiles'])\n"
+        "s2 = summarize(path, metrics=['count', 'mean', 'distinctCount', 'quantiles'])\n"
+        "assert s1['count'] == 3000 and (s1['mean'] == s2['mean']).all()\n"
+        "assert abs(s1['mean'] - X.mean(axis=0)).max() < 1e-5\n"
+        "assert describe(X).shape == (8, 4)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -478,12 +478,15 @@ def test_budget_decision_follows_jax(hbm_bytes, force, need):
     budget = device_data_budget_bytes("cpu")
     assert budget == (hbm_bytes or 16 * 2**30) * 0.8
     assert est._fit_record["budget"] == {"need_bytes": need, "budget_bytes": budget,
+                                         "resident_bytes": 0,
                                          "over": force or need > budget, "forced": force}
 
 
 def test_not_ported_options_raise(tmp_path):
-    """DuHL sampling and the streamed fits' checkpoints raise, naming the
-    ROADMAP items; so does a DuHL chunk selection."""
+    """The streamed fits' checkpoints raise, naming the ROADMAP item; an
+    unknown sampling mode raises.  DuHL sampling and a DuHL chunk selection,
+    which raised before the chunk cache was ported, now run: the fits report
+    their sampling, and a selection yields the chunks at those positions."""
     X, y, _ = _rows(14, n=300, d=3)
     path = _write(tmp_path / "n.parquet", X, y)
     fits = (lambda **kw: port_streaming.logreg_streaming_fit(path, "features", (), "label",
@@ -492,8 +495,8 @@ def test_not_ported_options_raise(tmp_path):
                                                              seed=1, **kw))
     for fit in fits:
         port_config.set_config(streaming_chunk_sampling="duhl")
-        with pytest.raises(NotImplementedError, match="item 1"):
-            fit()
+        res = fit()
+        assert res["sampled_epochs"] >= 0 and res["chunk_visits_saved"] >= 0
         port_config.set_config(streaming_chunk_sampling="off",
                                streaming_checkpoint_dir=str(tmp_path))
         with pytest.raises(NotImplementedError, match="item 5"):
@@ -505,9 +508,12 @@ def test_not_ported_options_raise(tmp_path):
         with pytest.raises(ValueError, match="off|duhl"):
             fit()
         port_config.reset_config()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(port_streaming.iter_chunks(path, "features", (), None, None, 64, np.float32,
-                                        select_chunks={0}))
+    every = list(port_streaming.iter_chunks(path, "features", (), None, None, 64, np.float32))
+    picked = list(port_streaming.iter_chunks(path, "features", (), None, None, 64, np.float32,
+                                             select_chunks={0, 2}))
+    assert len(picked) == 2
+    for got, want in zip(picked, (every[0], every[2])):
+        np.testing.assert_array_equal(got[0], want[0])
 
 
 def test_conf_keys_match_jax():
