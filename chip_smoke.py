@@ -201,13 +201,34 @@ Phases, each of which makes the script exit non-zero when it fails:
    twin, then count, mean, variance, min, max, normL2, numNonZeros and
    distinctCount of (p)'s 12 GB file twice (a decode, then a replay), the
    moments against float64 (1e-5).
+12. the meta layer through the public entry points (no hand-written
+   kernel: the fits of phases 5 and 6, an `index_select` for each gathered
+   view, the metrics on the host): (v) bench.py:1930-2010's cv_cached
+   cell, 400,000 x 64 float32 from default_rng(17),
+   CrossValidator of LinearRegression over regParam [0, 0.1, 1], 3 folds,
+   seed 11, rmse: the legacy path (device_cache="off", a warm-up, then
+   timed), the cached path cold and warm (a hit), each run's seconds,
+   dataset stagings, peak card memory, avgMetrics and bestIndex; held:
+   cached stagings 1 cold and 0 warm, bestIndex equal, avgMetrics within
+   1e-6 relative of the legacy path's. (w) phase 5's (b) rows (1,000,000 x
+   3000 float32, binary labels) and (b)'s Params: CrossValidator of
+   LogisticRegression over regParam [1e-4, 1e-2], 3 folds,
+   seed 11, areaUnderROC, cached (mask views) and then legacy, with the
+   reservation against the budget; the cached run's host side apart
+   (extraction, fingerprint, staging); fitMultiple of the two maps from
+   the resident DeviceDataset against two fits (coefficients bit-equal);
+   `evaluate` of the refit best model against a float64 host recount of
+   its own predictions (accuracy, weighted precision and recall, 1e-12);
+   held besides: one staging on the cached path, bestIndex equal,
+   avgMetrics within 1e-6 relative of the legacy path's.
 
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
 of the clustering cells' numbers, one of the forest cells' numbers
 ({"forest": [...]}), one of the parquet cells' numbers
 ({"parquet": [...]}), one of the chunk cache and statistics cells'
-numbers ({"cache_stats": [...]}), a JSON object of the kernels' numbers,
+numbers ({"cache_stats": [...]}), one of the meta layer's cells
+({"meta": [...]}), a JSON object of the kernels' numbers,
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -3671,6 +3692,241 @@ def phase_cache_stats(device, tmp: str, paths: dict, p_rows: int, r_rows: int,
     return {"cells": cells}
 
 
+# phase 12's sizes: (v) bench.py's cv_cached cell (bench.py:1956-1960), (w)
+# the folds of its CrossValidator at the reference benchmark's width
+CV_V_ROWS, CV_W_FOLDS = 400_000, 3
+
+
+def _host_class_metrics(labels, preds) -> dict:
+    """Accuracy, weighted precision and weighted recall recounted on the
+    host in float64 from labels and predictions (unit weights)."""
+    labels = np.asarray(labels, np.float64)
+    preds = np.asarray(preds, np.float64)
+    n = float(labels.size)
+    prec = rec = 0.0
+    for c in np.union1d(labels, preds):
+        tp = float(np.sum((labels == c) & (preds == c)))
+        n_label, n_pred = float(np.sum(labels == c)), float(np.sum(preds == c))
+        prec += (tp / n_pred if n_pred else 0.0) * n_label / n
+        rec += (tp / n_label if n_label else 0.0) * n_label / n
+    return {"accuracy": float(np.sum(labels == preds)) / n, "weightedPrecision": prec,
+            "weightedRecall": rec}
+
+
+def _cv_run(device, build, df, mode: str) -> dict:
+    """One CrossValidator fit with conf device_cache=`mode`: seconds,
+    dataset stagings, peak card memory, the cache's decision, avgMetrics and
+    bestIndex."""
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.parallel.mesh import STAGE_COUNTS
+
+    config.set_config(device_cache=mode)
+    cv = build()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    s0 = STAGE_COUNTS["dataset_stagings"]
+    t0 = time.perf_counter()
+    model = cv.fit(df)
+    torch.cuda.synchronize(device)
+    sec = time.perf_counter() - t0
+    rep = model.fit_report()
+    rec = {"path": "cached" if rep["used_cache"] else "legacy", "seconds": sec,
+           "stagings": STAGE_COUNTS["dataset_stagings"] - s0,
+           "peak_device_GB": torch.cuda.max_memory_allocated(device) / 1e9,
+           "cache": rep["cache"], "fold_views": rep["fold_views"],
+           "avgMetrics": [float(m) for m in model.avgMetrics],
+           "bestIndex": int(model.bestIndex)}
+    log(f"    {mode:>3}: {rec['path']} {sec:.3f} s, {rec['stagings']} stagings, peak "
+        f"{rec['peak_device_GB']:.2f} GB, cache {rep['cache'].get('outcome')}, avgMetrics "
+        f"{rec['avgMetrics']}, bestIndex {rec['bestIndex']}")
+    return {"record": rec, "model": model}
+
+
+def _hold_cv_pair(name: str, cached: dict, legacy: dict, rtol: float) -> float:
+    """bestIndex equal on both paths and avgMetrics within `rtol`; returns
+    the largest relative difference."""
+    a = np.asarray(cached["avgMetrics"])
+    b = np.asarray(legacy["avgMetrics"])
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+    if cached["bestIndex"] != legacy["bestIndex"]:
+        raise AssertionError(f"{name}: bestIndex {cached['bestIndex']} cached, "
+                             f"{legacy['bestIndex']} legacy")
+    if rel > rtol:
+        raise AssertionError(f"{name}: avgMetrics cached {a} against legacy {b}: {rel:.3e} > "
+                             f"{rtol:g}")
+    log(f"    held: bestIndex {cached['bestIndex']} on both paths, avgMetrics {rel:.3e} apart "
+        f"(limit {rtol:g})")
+    return rel
+
+
+def phase_meta_cv_cached(device, n: int) -> dict:
+    """(v) bench.py:1930-2010's cv_cached cell: n x 64 float32 from
+    default_rng(17), LinearRegression, regParam grid [0, 0.1, 1], 3 folds,
+    seed 11, rmse; the legacy path (a warm-up, then timed), the cached path
+    cold and warm (a hit)."""
+    import pandas as pd
+
+    from spark_rapids_ml_torch.evaluation import RegressionEvaluator
+    from spark_rapids_ml_torch.parallel import device_cache
+    from spark_rapids_ml_torch.regression import LinearRegression
+    from spark_rapids_ml_torch.tuning import CrossValidator, ParamGridBuilder
+
+    d = 64
+    rng = np.random.default_rng(17)
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    y = (X @ rng.standard_normal((d,)).astype(np.float32)
+         + 0.1 * rng.standard_normal(n).astype(np.float32))
+    df = pd.DataFrame({"features": list(X), "label": y})
+
+    def build():
+        lr = LinearRegression()
+        grid = ParamGridBuilder().addGrid(lr.regParam, [0.0, 0.1, 1.0]).build()
+        return CrossValidator(estimator=lr, estimatorParamMaps=grid,
+                              evaluator=RegressionEvaluator(metricName="rmse"), numFolds=3,
+                              seed=11)
+
+    device_cache.clear_device_cache()
+    _cv_run(device, build, df, "off")  # warm-up
+    legacy = _cv_run(device, build, df, "off")["record"]
+    cold = _cv_run(device, build, df, "on")["record"]
+    warm = _cv_run(device, build, df, "on")["record"]
+    device_cache.clear_device_cache()
+    if (cold["path"], warm["path"], legacy["path"]) != ("cached", "cached", "legacy"):
+        raise AssertionError(f"(v): paths {cold['path']}, {warm['path']}, {legacy['path']}")
+    if (cold["stagings"], warm["stagings"]) != (1, 0):
+        raise AssertionError(f"(v): cached stagings {cold['stagings']} cold, "
+                             f"{warm['stagings']} warm (want 1 and 0)")
+    if warm["cache"].get("outcome") != "hit":
+        raise AssertionError(f"(v): the warm run was no cache hit: {warm['cache']}")
+    log(f"    held: cached stagings 1 cold, 0 warm (legacy {legacy['stagings']})")
+    rel = max(_hold_cv_pair("(v) cold", cold, legacy, 1e-6),
+              _hold_cv_pair("(v) warm", warm, legacy, 1e-6))
+    return {"cell": f"(v) cv_cached {n}x{d} float32", "legacy": legacy, "cached_cold": cold,
+            "cached_warm": warm, "avgMetrics_max_rel": rel,
+            "speedup_cold": legacy["seconds"] / cold["seconds"],
+            "speedup_warm": legacy["seconds"] / warm["seconds"]}
+
+
+def phase_meta_wide(device, X, y, folds: int) -> dict:
+    """(w) the reference benchmark's width: phase 5's (b) rows (1M x 3000
+    float32, binary labels) and (b)'s Params; CrossValidator of
+    LogisticRegression over regParam [1e-4, 1e-2], `folds` folds, seed 11,
+    areaUnderROC, cached (mask views) and then legacy; fitMultiple of the two
+    maps from the resident DeviceDataset against two separate fits
+    (coefficients bit-equal); `evaluate` of the refit best model against a
+    float64 host recount of its own predictions (1e-12)."""
+    import pandas as pd
+    import torch
+
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.evaluation import BinaryClassificationEvaluator
+    from spark_rapids_ml_torch.parallel import device_cache
+    from spark_rapids_ml_torch.tuning import CrossValidator, ParamGridBuilder
+
+    n, d = X.shape
+    kw = dict(regParam=1e-4, elasticNetParam=0.0, tol=1e-8, maxIter=200)
+    values = [1e-4, 1e-2]
+    df = pd.DataFrame({"features": list(X), "label": y})
+    row_bytes = d * 4 + 4 + 4
+    log(f"    reckoned: X {n * d * 4 / 1e9:.2f} GB resident, reservation 3 x (X + labels + "
+        f"weights) = {3 * n * row_bytes / 1e9:.2f} GB against the budget "
+        f"{device_cache.cache_budget_bytes(device) / 1e9:.2f} GB, an eval view "
+        f"{n / folds * d * 4 / 1e9:.2f} GB")
+
+    def build():
+        lr = LogisticRegression(**kw)
+        grid = ParamGridBuilder().addGrid(lr.regParam, values).build()
+        return CrossValidator(estimator=lr, estimatorParamMaps=grid,
+                              evaluator=BinaryClassificationEvaluator(), numFolds=folds, seed=11)
+
+    device_cache.clear_device_cache()
+    run = _cv_run(device, build, df, "on")
+    cached, model = run["record"], run["model"]
+    if cached["path"] != "cached" or cached["stagings"] != 1:
+        raise AssertionError(f"(w): cached run took {cached['path']}, {cached['stagings']} "
+                             "stagings (want the cache and 1)")
+    reserved, budget = cached["cache"]["reserved_bytes"], cached["cache"]["budget_bytes"]
+    log(f"    cache reservation {reserved / 1e9:.2f} GB of a {budget / 1e9:.2f} GB budget")
+
+    # the cached run's host side apart: the extraction of the frame, the
+    # fingerprint and the staging (the fit report's record of them)
+    est = LogisticRegression(**kw)
+    t_extract = cached["cache"]["extract_s"]
+    t_fp, t_stage = cached["cache"]["fingerprint_s"], cached["cache"]["stage_s"]
+    log(f"    cached run's host side: extraction {t_extract:.3f} s, fingerprint {t_fp:.3f} s, "
+        f"staging {t_stage:.3f} s")
+    entry = next(iter(device_cache.get_device_cache()._entries.values()))
+
+    # fitMultiple from the resident DeviceDataset against separate fits
+    maps = [{est.regParam: v} for v in values]
+    t0 = time.perf_counter()
+    multi = dict(est.fitMultiple(entry.dataset, maps))
+    t_multi = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    alone = [est.fit(entry.dataset, m) for m in maps]
+    t_alone = time.perf_counter() - t0
+    coef_diff = max(float(np.max(np.abs(multi[i].coef_ - alone[i].coef_))) for i in range(2))
+    if coef_diff != 0.0:
+        raise AssertionError(f"(w): fitMultiple's coefficients differ from separate fits by "
+                             f"{coef_diff:.3e}")
+    log(f"    held: fitMultiple of 2 maps ({t_multi:.3f} s) bit-equal to 2 fits "
+        f"({t_alone:.3f} s)")
+    del multi, alone, entry
+    device_cache.clear_device_cache()
+    torch.cuda.empty_cache()
+
+    # evaluate of the refit best model against a host recount
+    t0 = time.perf_counter()
+    summary = model.bestModel.evaluate(df)
+    t_eval = time.perf_counter() - t0
+    got = {"accuracy": summary.accuracy, "weightedPrecision": summary.weightedPrecision,
+           "weightedRecall": summary.weightedRecall}
+    want = _host_class_metrics(summary.predictions["label"].to_numpy(),
+                               summary.predictions["prediction"].to_numpy())
+    eval_err = max(abs(got[k] - want[k]) for k in want)
+    if eval_err > 1e-12:
+        raise AssertionError(f"(w): evaluate {got} against the host recount {want}")
+    log(f"    held: evaluate ({t_eval:.3f} s) {got} within {eval_err:.1e} of the host recount")
+    del summary, model
+
+    legacy = _cv_run(device, build, df, "off")["record"]
+    rel = _hold_cv_pair("(w)", cached, legacy, 1e-6)
+    return {"cell": f"(w) CV LogisticRegression {n}x{d} float32, {folds} folds, grid 2",
+            "cached": cached, "legacy": legacy, "avgMetrics_max_rel": rel,
+            "speedup": legacy["seconds"] / cached["seconds"],
+            "extract_s": t_extract, "fingerprint_s": t_fp, "stage_s": t_stage,
+            "fit_multiple_s": t_multi, "separate_fits_s": t_alone,
+            "fit_multiple_coef_diff": coef_diff, "evaluate_s": t_eval,
+            "evaluate": got, "evaluate_err": eval_err, "reserved_bytes": reserved,
+            "budget_bytes": budget}
+
+
+def phase_meta(device, args, wide_X, wide_y) -> dict:
+    """Phase 12: the meta layer, (v) and (w)."""
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    # the earlier phases' confs, device tier and cached tensors go first
+    config.reset_config()
+    device_cache.clear_chunk_cache()
+    device_cache.clear_device_cache()
+    torch.cuda.empty_cache()
+    log(f"  card memory allocated at the start: {torch.cuda.memory_allocated(device) / 1e9:.2f} GB")
+    try:
+        log(f"  (v) bench.py's cv_cached cell, {CV_V_ROWS} x 64")
+        cells = [phase_meta_cv_cached(device, CV_V_ROWS)]
+        log(f"  (w) CV at the reference benchmark's width, {wide_X.shape}, {CV_W_FOLDS} folds")
+        cells.append(phase_meta_wide(device, wide_X, wide_y, CV_W_FOLDS))
+    finally:
+        config.reset_config()
+        device_cache.clear_device_cache()
+    return {"cells": cells}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -3809,6 +4065,9 @@ def main() -> int:
                                         args.r_rows, wide_X)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    stage("phase 12: the meta layer: (v) bench.py's cv_cached cell, (w) CrossValidator, "
+          "fitMultiple and evaluate at the reference benchmark's width")
+    meta = phase_meta(device, args, wide_X, wide_y)
     del wide_X, wide_y
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
@@ -3818,6 +4077,7 @@ def main() -> int:
     print(json.dumps({"forest": forest["cells"]}))
     print(json.dumps({"parquet": parquet["cells"]}, default=float))
     print(json.dumps({"cache_stats": cache_stats["cells"]}, default=float))
+    print(json.dumps({"meta": meta["cells"]}, default=float))
     print(json.dumps({"kernels": main_out["kernels"] + f64}))
     print(card)
     print(json.dumps({

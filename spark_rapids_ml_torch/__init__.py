@@ -13,8 +13,10 @@
 # DBSCAN (`spark_rapids_ml_torch.clustering`), with the generic staged fit,
 # the fused stage-and-solve pass, the chunked transform, `DeviceDataset`, the
 # fits from parquet and beyond the card's memory (`streaming`) with the chunk
-# cache's replays (`parallel.device_cache`), and the one-pass statistics
-# (`stats`: `summarize`, `Summarizer`, `describe`).
+# cache's replays (`parallel.device_cache`), the one-pass statistics
+# (`stats`: `summarize`, `Summarizer`, `describe`), and the meta layer:
+# `metrics`, the evaluators (`evaluation`), `fitMultiple`, CrossValidator on
+# the stage-once dataset cache (`tuning`) and `pipeline`.
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
 # `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without
@@ -28,6 +30,7 @@ from . import config  # noqa: F401
 from .data import DeviceDataset  # noqa: F401
 from .models import classification, clustering, feature, knn, regression  # noqa: F401
 from .parallel import get_default_device, set_default_device  # noqa: F401
+from . import evaluation, metrics, pipeline, tuning  # noqa: F401,E402
 
 _sys.modules[__name__ + ".knn"] = knn
 _sys.modules[__name__ + ".classification"] = classification

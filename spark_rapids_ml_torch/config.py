@@ -1,7 +1,8 @@
 #
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
-# keys the exact-kNN, LogisticRegression, PCA, LinearRegression,
-# clustering, parquet/streaming, chunk-cache and statistics slices read.
+# core keys and the keys the exact-kNN, LogisticRegression, PCA,
+# LinearRegression, clustering, parquet/streaming, chunk-cache, statistics
+# and meta-layer slices read.
 # The confs live in a process-global dict, overridable from the
 # environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or `set_config()`.  Key
 # names and defaults match the JAX package, except where a comment says
@@ -17,6 +18,19 @@ from typing import Any, Dict, Optional
 _lock = threading.Lock()
 
 _DEFAULTS: Dict[str, Any] = {
+    # The four core keys of the JAX package.  float32_inputs: cast float64
+    # inputs to float32 on the device (read when an estimator is built,
+    # params.py).  num_workers: the devices a fit runs on; None is one
+    # device here (the JAX package counts its visible devices), and a value
+    # above 1 raises at fit until the multi-GPU item (8) of ROADMAP.md.
+    # cpu_fallback_enabled: fit with scikit-learn when an unsupported param
+    # is set; not ported (the card's machine has no scikit-learn), so such
+    # a fit raises NotImplementedError (core.py).  verbose: the logging
+    # level 0-6, accepted and read by nothing.
+    "float32_inputs": True,
+    "num_workers": None,
+    "cpu_fallback_enabled": False,
+    "verbose": 0,
     # Hand-written fused distance + top-k kernel for exact kNN
     # (ops/fused_knn.py, the port of the Pallas kernel).  The JAX package
     # defaults to "off" because its Pallas kernel lost to XLA on a TPU;
@@ -130,13 +144,18 @@ _DEFAULTS: Dict[str, Any] = {
     # `cache_budget_bytes`); 0: `device_data_budget_bytes`, the staging
     # decisions' own budget.
     "device_cache_bytes": 0,
+    # The stage-once dataset cache of CrossValidator
+    # (parallel/device_cache.py `get_or_stage`): "on" stages a CV run's
+    # dataset once and derives every fold's train and eval rows on the
+    # device; "off" restages each fold from the host (the legacy path).
+    "device_cache": "on",
     # Per-iteration checkpoints of the streamed fits: not ported; a
     # non-empty value raises NotImplementedError (ROADMAP.md section 1).
     "streaming_checkpoint_dir": "",
 }
 
 # Keys whose default is None, and the type an environment value takes.
-_TYPES: Dict[str, type] = {"hbm_bytes": int}
+_TYPES: Dict[str, type] = {"hbm_bytes": int, "num_workers": int}
 
 _ENV_PREFIX = "SPARK_RAPIDS_ML_TORCH_"
 

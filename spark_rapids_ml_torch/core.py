@@ -37,19 +37,29 @@
 # the next chunk's host-to-device copy on a side stream while the current
 # one computes.
 #
-# Left for later slices: Spark DataFrames, the device dataset cache, the
-# baseline fold, fitMultiple, the CPU fallback, the sparse (ELL) staging,
-# and the resilience (retry, OOM halving) and telemetry seams.
+# The meta layer: `fitMultiple` stages a dataset once and fits every param
+# map on the same tensors (a DeviceDataset, or a CrossValidator fold view
+# of the stage-once dataset cache, is taken as it is); `_cached_fit_entry`
+# stages a CrossValidator run's dataset in that cache
+# (parallel/device_cache.py); `_combine` / `_CombinedModel` and
+# `_transformEvaluate` score several models on one extraction of the eval
+# rows; `_evaluate_frame` is the front half of the models' `evaluate`.
+#
+# Left for later slices: Spark DataFrames, the baseline fold, the CPU
+# fallback (`cpu_fallback_enabled=True` raises where it would run), the
+# sparse (ELL) staging, and the resilience (retry, OOM halving) and
+# telemetry seams.
 #
 from __future__ import annotations
 
 import json
 import os
 import sys
+import threading
 import time
 from abc import abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -368,6 +378,18 @@ class _TpuEstimator(Estimator, _TpuCaller):
     def _validate_input(self, batch: _ArrayBatch) -> None:
         """Validate the raw host batch before dtype casting and staging."""
 
+    def _enable_fit_multiple_in_single_pass(self) -> bool:
+        return True
+
+    def _supports_fold_weights(self) -> bool:
+        """Whether a CrossValidator fold may be a weight mask over the
+        resident dataset (parallel/device_cache.py `FoldSet.train_view`):
+        the kernels treat a zero-weight row as absent and the fit does not
+        depend on the row count.  LinearRegression, LogisticRegression and
+        PCA say yes; the default, a gathered view of the fold's rows, is
+        always right."""
+        return False
+
     # -- fused stage-and-solve (fused.py) ------------------------------------
 
     def _supports_fused_stats(self) -> bool:
@@ -441,15 +463,20 @@ class _TpuEstimator(Estimator, _TpuCaller):
     def _over_device_budget(self, need_bytes: float) -> bool:
         """Whether a staged dataset of `need_bytes`, beside the bytes the
         device-budget ledger holds (`cache_resident_bytes`: the chunk
-        cache's device tier), is beyond the device budget
+        cache's device tier and the dataset cache's entries, which are
+        evicted first), is beyond the device budget
         (`device_data_budget_bytes`), or `force_streaming_stats` is set;
         with the flag set the ledger is not read.  The decision is kept for
         `fit_report()`."""
         from .config import get_config
-        from .parallel.device_cache import cache_resident_bytes
+        from .parallel.device_cache import cache_resident_bytes, evict_to_fit
 
         forced = bool(get_config("force_streaming_stats"))
         budget = device_data_budget_bytes(self._device())
+        if not forced and need_bytes + cache_resident_bytes() > budget:
+            # resident datasets can be staged again: evict them before the
+            # fit gives way to them
+            evict_to_fit(need_bytes, budget)
         resident = 0 if forced else cache_resident_bytes()
         over = forced or need_bytes + resident > budget
         self._fit_record["budget"] = {"need_bytes": float(need_bytes), "budget_bytes": budget,
@@ -585,6 +612,11 @@ class _TpuEstimator(Estimator, _TpuCaller):
         from .parallel.device_cache import chunk_metrics_snapshot
         from .streaming import is_parquet_path
 
+        if self._use_cpu_fallback():
+            raise NotImplementedError(
+                f"{type(self).__name__}: cpu_fallback_enabled with an unsupported param "
+                f"({sorted(self._fallback_params)}) needs the scikit-learn fallback, "
+                "which is not ported (the Meta layer item (2) of ROADMAP.md)")
         t0 = time.time()
         self._fit_record = {}
         self._chunk_metrics_at_start = chunk_metrics_snapshot()
@@ -615,6 +647,79 @@ class _TpuEstimator(Estimator, _TpuCaller):
         model._fit_report = self._fit_report_record()
         self.logger.info(f"Finished fit in {time.time() - t0:.3f}s")
         return model
+
+    def fitMultiple(self, dataset: DatasetLike, paramMaps: Sequence[Dict[Param, Any]]
+                    ) -> Iterator[Tuple[int, "_TpuModel"]]:
+        """Fit one model per param map, staging the data once: every map's
+        fit runs on the same staged tensors (a DeviceDataset's are taken as
+        they are).  Each map fits on its own (`fit`) when single-pass is
+        off or the data is CSR beyond the device budget (its fits read the
+        blocked-CSR statistics)."""
+        estimator = self.copy()
+        single_pass = estimator._enable_fit_multiple_in_single_pass()
+        batch = None
+        if (single_pass and not isinstance(dataset, DeviceDataset)
+                and type(estimator)._fit_streaming_csr is not _TpuEstimator._fit_streaming_csr):
+            batch = estimator._extract(dataset)
+            if estimator._sparse_over_budget(batch):
+                single_pass = False
+        if not single_pass:
+            def fit_single(index: int) -> Tuple[int, "_TpuModel"]:
+                return index, estimator.fit(dataset, paramMaps[index])
+
+            return _FitMultipleIterator(fit_single, len(paramMaps))
+        if isinstance(dataset, DeviceDataset):
+            staged = estimator._stage_from_device(dataset)
+        else:
+            if batch is None:
+                batch = estimator._extract(dataset)
+            estimator._validate_input(batch)
+            staged = estimator._stage_fit_input(batch)
+        del batch
+
+        def fit_single(index: int) -> Tuple[int, "_TpuModel"]:
+            est_i = estimator.copy(paramMaps[index])
+            attrs = est_i._run_fit_kernel(
+                FitInput(**{**staged.__dict__, "params": dict(est_i._tpu_params)}))
+            model = est_i._create_model(attrs)
+            est_i._copyValues(model, paramMaps[index])
+            model._num_workers = est_i._num_workers
+            model._float32_inputs = est_i._float32_inputs
+            model._fit_report = {"route": "fit_multiple"}
+            return index, model
+
+        return _FitMultipleIterator(fit_single, len(paramMaps))
+
+    def _cached_fit_entry(self, dataset: DatasetLike):
+        """The dataset cache's entry for `dataset` (parallel/device_cache.py
+        `get_or_stage`), staged once on a miss; None keeps the caller on
+        the legacy path: the cache off (conf `device_cache`), the CPU
+        fallback armed, single-pass off, CSR input or the sparse kernel
+        asked for, or the entry beyond the budget or the card's memory.
+        The reservation is the JAX package's: the arrays times (devices +
+        2), 3 on one device, room for the fold views."""
+        from .parallel.device_cache import LAST_DECISION, cache_enabled, get_or_stage
+
+        if not cache_enabled() or self._use_cpu_fallback():
+            return None
+        if not self._enable_fit_multiple_in_single_pass():
+            return None
+        if (self.hasParam("enable_sparse_data_optim")
+                and self.getOrDefault("enable_sparse_data_optim") is True):
+            return None
+        t0 = time.perf_counter()
+        batch = self._extract(dataset)
+        t_extract = time.perf_counter() - t0
+        if _is_sparse(batch.X):
+            return None
+        self._validate_input(batch)
+        X = _ensure_dense(batch.X)
+        entry = get_or_stage(
+            X, batch.y, batch.weight, dtype=self._out_dtype(X),
+            label_dtype=self._fit_label_dtype() if self._is_supervised() else None,
+            device=self._device(), logger=self.logger, working_factor=3.0)
+        LAST_DECISION["extract_s"] = t_extract
+        return entry
 
     def _fit_report_record(self) -> Dict[str, Any]:
         """The fit's record with the numbers of the pass its route ran."""
@@ -651,6 +756,27 @@ def _chunk_cache_report(start: Optional[Dict[str, int]]) -> Dict[str, int]:
         return {}
     delta.update({k: now[k] for k in CHUNK_GAUGES})
     return delta
+
+
+class _FitMultipleIterator:
+    """Thread-safe (index, model) iterator of `fitMultiple`."""
+
+    def __init__(self, fitSingleModel: Callable[[int], Tuple[int, Any]], numModels: int) -> None:
+        self.fitSingleModel = fitSingleModel
+        self.numModels = numModels
+        self.counter = 0
+        self.lock = threading.Lock()
+
+    def __iter__(self) -> "_FitMultipleIterator":
+        return self
+
+    def __next__(self) -> Tuple[int, Any]:
+        with self.lock:
+            index = self.counter
+            if index >= self.numModels:
+                raise StopIteration("No models remaining.")
+            self.counter += 1
+        return self.fitSingleModel(index)
 
 
 class _TpuEstimatorSupervised(_TpuEstimator):
@@ -737,7 +863,9 @@ class _TpuModel(Model, _TpuCaller):
             # transform one dummy row, return every column cut to 0 rows
             dummy = self._transform_mesh(np.zeros((1, d), x_dtype))
             return {c: v[:0] for c, v in dummy.items()}
-        with DeviceContext(self.num_workers) as ctx:
+        # a transform is row-wise: one device runs it whatever worker count
+        # the model was fitted (and saved) with
+        with DeviceContext() as ctx:
             device = ctx.device
         chunk = max(1, chunk_rows_for(d, np.dtype(x_dtype).itemsize) // 2)
         copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -818,3 +946,92 @@ class _TpuModel(Model, _TpuCaller):
         if len(outputs) == 1:
             return next(iter(outputs.values()))
         return outputs
+
+    # -- several models on one evaluation pass ---------------------------------
+
+    @classmethod
+    def _combine(cls, models: List["_TpuModel"]) -> "_CombinedModel":
+        """N models (one per param map) scored on one extraction of the
+        evaluation rows."""
+        return _CombinedModel(models)
+
+    def _transformEvaluate(self, dataset: DatasetLike, evaluator: Any) -> List[float]:
+        """Transform and metric in one call (`_CombinedModel` of one)."""
+        return _CombinedModel([self])._transformEvaluate(dataset, evaluator)
+
+
+def _evaluate_frame(model: "_TpuModel", dataset: DatasetLike):
+    """The front half of the models' `evaluate`: the dataset as a pandas
+    frame, its label and weight columns checked, the model's `_transform`;
+    returns (out_df, labels, predictions, weights), the last three float64
+    on the host (weights None unless the model's weightCol is set)."""
+    pdf = _to_pandas(dataset)
+    label_col = model.getOrDefault("labelCol")
+    if label_col not in pdf.columns:
+        raise ValueError(f"evaluate requires the label column '{label_col}'")
+    if len(pdf) == 0:
+        raise ValueError("Dataset is empty: nothing to evaluate")
+    out_df = model._transform(pdf)
+    y = np.asarray(out_df[label_col], np.float64)
+    preds = np.asarray(out_df[model.getOrDefault("predictionCol")], np.float64)
+    weights = None
+    if model.hasParam("weightCol") and model.isSet("weightCol"):
+        wc = model.getOrDefault("weightCol")
+        if wc not in out_df.columns:
+            raise ValueError(f"weightCol '{wc}' is set on the model but absent from the "
+                             "evaluation dataset")
+        weights = np.asarray(out_df[wc], np.float64)
+    return out_df, y, preds, weights
+
+
+def _to_pandas(dataset: DatasetLike):
+    """A pandas frame of a frame, a pyarrow Table or a parquet path, as the
+    JAX package reads them for `evaluate`."""
+    import pandas as pd
+
+    if isinstance(dataset, pd.DataFrame):
+        return dataset
+    import pyarrow as pa
+
+    if isinstance(dataset, pa.Table):
+        return dataset.to_pandas()
+    if isinstance(dataset, str):
+        import pyarrow.parquet as pq
+
+        if os.path.isdir(dataset) or dataset.endswith(".parquet"):
+            return pq.read_table(dataset).to_pandas()
+        raise ValueError(f"Unsupported dataset path: {dataset}")
+    raise TypeError(f"Cannot interpret dataset of type {type(dataset)} as a DataFrame")
+
+
+class _CombinedModel:
+    """N models scored against one evaluation dataset: a frame's features
+    are extracted once and each model transforms the same host arrays; a
+    `CachedEvalView` scores the rows resident on the device."""
+
+    def __init__(self, models: List[_TpuModel]) -> None:
+        if not models:
+            raise ValueError("_combine requires at least one model")
+        self.models = list(models)
+
+    def _transformEvaluate(self, dataset: DatasetLike, evaluator: Any) -> List[float]:
+        import pandas as pd
+
+        from .parallel.device_cache import CachedEvalView
+
+        if isinstance(dataset, CachedEvalView):
+            return dataset.evaluate(self.models, evaluator)
+        if not isinstance(dataset, pd.DataFrame):
+            return [evaluator.evaluate(m.transform(dataset)) for m in self.models]
+        features_col, features_cols = _resolve_feature_params(self.models[0])
+        batch = extract_arrays(dataset, features_col=features_col,
+                               features_cols=features_cols, dtype=None, supervised=False)
+        X = batch.X if _is_sparse(batch.X) else _ensure_dense(batch.X)
+        results = []
+        for m in self.models:
+            outputs = m._transform_array(X if _is_sparse(X) else np.asarray(X, m._out_dtype(X)))
+            cols = {c: list(v) if v.ndim == 2 else v for c, v in outputs.items()}
+            base = dataset.drop(columns=[c for c in cols if c in dataset.columns])
+            results.append(evaluator.evaluate(
+                pd.concat([base, pd.DataFrame(cols, index=dataset.index)], axis=1)))
+        return results

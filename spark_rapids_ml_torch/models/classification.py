@@ -16,14 +16,15 @@
 # host-driven one) at every size; an unsupported Param or value raises
 # (there is no CPU engine to fall back to); CSR input is densified (the ELL
 # kernel is a later item); the streamed fit evaluates in the fit's dtype
-# (the JAX package's in float32).  `evaluate` (the metrics item) and
-# `cpu()` (scikit-learn) are not ported.
+# (the JAX package's in float32).  `cpu()` (scikit-learn) is not ported.
+# `evaluate` runs the model's transform and the metrics of metrics/ on the
+# host (`LogisticRegressionSummary`).
 #
 # RandomForestClassifier: the port of the JAX package's
 # RandomForestClassifier and RandomForestClassificationModel over the
 # shared layer of models/tree.py (ops/forest.py's histogram builder); the
-# model's `cpu()` is the pure-numpy `_NumpyForestPredictor`, ported.
-# `evaluate` (the metrics item) raises.
+# model's `cpu()` is the pure-numpy `_NumpyForestPredictor`, ported, and
+# `evaluate` gives a `RandomForestClassificationSummary`.
 #
 from __future__ import annotations
 
@@ -289,6 +290,14 @@ class LogisticRegression(
     def _supports_streaming_stats(self) -> bool:
         # epoch streaming: every evaluation streams the file again
         return True
+
+    def _supports_fold_weights(self) -> bool:
+        # a convex w-weighted objective from a zero start
+        # (ops/logistic.py SUPPORTS_ZERO_WEIGHT_ROWS): a fold mask is a zero
+        # weight and the optimum does not depend on the row count
+        from ..ops import logistic as _logistic_ops
+
+        return bool(_logistic_ops.SUPPORTS_ZERO_WEIGHT_ROWS)
 
     def _fit_streaming(self, path: str) -> Dict[str, Any]:
         """Beyond the device budget: the host L-BFGS/OWL-QN whose every
@@ -615,12 +624,11 @@ class LogisticRegressionModel(
             return float(probs[1] > float(self.getOrDefault("threshold")))
         return float(np.argmax(probs))
 
-    def evaluate(self, dataset):
-        """Not ported yet: the metrics subsystem is item 8 of ROADMAP.md."""
-        raise NotImplementedError(
-            "LogisticRegressionModel.evaluate needs the metrics subsystem, "
-            "item 8 of ROADMAP.md"
-        )
+    def evaluate(self, dataset) -> "LogisticRegressionSummary":
+        """Metrics of this model on `dataset` (a pandas frame, a pyarrow
+        Table or a parquet path): the model's transform, then the
+        multiclass metrics on the host."""
+        return _evaluate_classification(self, dataset, LogisticRegressionSummary)
 
     def cpu(self):
         """Not ported: it builds a scikit-learn model, and the port's machine
@@ -634,6 +642,50 @@ class LogisticRegressionModel(
 # ---------------------------------------------------------------------------
 # RandomForestClassifier
 # ---------------------------------------------------------------------------
+
+
+class _ClassificationSummary:
+    """The evaluation summary of a classification model: the predictions
+    frame and the multiclass metrics of metrics/."""
+
+    def __init__(self, predictions, metrics) -> None:
+        self.predictions = predictions
+        self._m = metrics
+
+    @property
+    def accuracy(self) -> float:
+        return float(self._m.accuracy)
+
+    @property
+    def weightedPrecision(self) -> float:
+        return float(self._m.weighted_precision)
+
+    @property
+    def weightedRecall(self) -> float:
+        return float(self._m.weighted_recall)
+
+    def weightedFMeasure(self, beta: float = 1.0) -> float:
+        # a method, as pyspark's summary has it
+        return float(self._m.weighted_f_measure(beta))
+
+
+class LogisticRegressionSummary(_ClassificationSummary):
+    pass
+
+
+class RandomForestClassificationSummary(_ClassificationSummary):
+    pass
+
+
+def _evaluate_classification(model, dataset, summary_cls):
+    """The classification models' `evaluate`: `_evaluate_frame`, then the
+    multiclass metrics of its labels, predictions and weights."""
+    from ..core import _evaluate_frame
+    from ..metrics import MulticlassMetrics
+
+    out_df, y, preds, weights = _evaluate_frame(model, dataset)
+    return summary_cls(predictions=out_df,
+                       metrics=MulticlassMetrics.from_predictions(y, preds, weights=weights))
 
 
 class RandomForestClassifier(
@@ -755,10 +807,8 @@ class RandomForestClassificationModel(
     def predict(self, value) -> float:
         return float(np.argmax(self.predictProbability(value)))
 
-    def evaluate(self, dataset):
-        """Not ported yet: the metrics subsystem is the "Meta layer" item (2)
-        of ROADMAP.md."""
-        raise NotImplementedError(
-            "RandomForestClassificationModel.evaluate needs the metrics "
-            "subsystem, the 'Meta layer' item (2) of ROADMAP.md"
-        )
+    def evaluate(self, dataset) -> "RandomForestClassificationSummary":
+        """Metrics of this model on `dataset` (pyspark
+        RandomForestClassificationModel.evaluate): the model's transform,
+        then the multiclass metrics on the host."""
+        return _evaluate_classification(self, dataset, RandomForestClassificationSummary)

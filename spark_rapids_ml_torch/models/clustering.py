@@ -436,7 +436,8 @@ class DBSCANModel(DBSCANClass, _TpuModel, _DBSCANTpuParams):
             norms = np.linalg.norm(X, axis=1, keepdims=True)
             X = X / np.maximum(norms, 1e-12)
             eps = float(np.sqrt(2.0 * eps))
-        with DeviceContext(self.num_workers) as ctx:
+        # one device labels the rows whatever worker count was saved
+        with DeviceContext() as ctx:
             device = ctx.device
         dtype = self._out_dtype(X)
         st = RowStager(X.shape[0], device)

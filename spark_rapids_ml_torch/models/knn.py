@@ -281,7 +281,8 @@ class NearestNeighborsModel(_NNClass, _NNModelBase, _KNNParams):
         n_items = self.item_features.shape[0]
         if k > n_items:
             raise ValueError(f"k={k} exceeds the number of items ({n_items})")
-        with DeviceContext(self.num_workers) as ctx:
+        # one device searches every item whatever worker count was saved
+        with DeviceContext() as ctx:
             device = ctx.device
         dtype = self._out_dtype(self.item_features)
         items, valid, ids = self._staged_items(device, dtype)

@@ -12,9 +12,10 @@
 #
 # Differences from the JAX package, each deliberate: a value the JAX
 # package sends to its scikit-learn fallback (loss="huber",
-# solver="l-bfgs") raises ValueError; `evaluate` (the metrics item) and
-# `cpu()` (scikit-learn) raise NotImplementedError; the FISTA solve keeps
-# no checkpoint (the resilience item).
+# solver="l-bfgs") raises ValueError; `cpu()` (scikit-learn) raises
+# NotImplementedError; the FISTA solve keeps no checkpoint (the resilience
+# item).  `evaluate` runs the model's transform and the regression metrics
+# of metrics/ on the host (`LinearRegressionSummary`).
 #
 # RandomForestRegressor: the port of the JAX package's RandomForestRegressor
 # and RandomForestRegressionModel over the shared layer of models/tree.py
@@ -366,6 +367,37 @@ class LinearRegressionTrainingSummary:
         self.totalIterations = int(totalIterations)
 
 
+class LinearRegressionSummary:
+    """The evaluation summary of a LinearRegressionModel on a dataset: the
+    predictions frame and the regression metrics of metrics/."""
+
+    def __init__(self, predictions, metrics, fit_intercept: bool = True) -> None:
+        self.predictions = predictions
+        self._m = metrics
+        self._fit_intercept = bool(fit_intercept)
+
+    @property
+    def rootMeanSquaredError(self) -> float:
+        return float(self._m.root_mean_squared_error)
+
+    @property
+    def meanSquaredError(self) -> float:
+        return float(self._m.mean_squared_error)
+
+    @property
+    def meanAbsoluteError(self) -> float:
+        return float(self._m.mean_absolute_error)
+
+    @property
+    def r2(self) -> float:
+        # Spark's throughOrigin = !fitIntercept
+        return float(self._m.r2(through_origin=not self._fit_intercept))
+
+    @property
+    def explainedVariance(self) -> float:
+        return float(self._m.explained_variance)
+
+
 class LinearRegressionModel(
     LinearRegressionClass, _TpuModel, _LinearRegressionTpuParams
 ):
@@ -406,11 +438,19 @@ class LinearRegressionModel(
             totalIterations=self.n_iter_,
         )
 
-    def evaluate(self, dataset):
-        """Not ported yet: the metrics subsystem is item 8 of ROADMAP.md."""
-        raise NotImplementedError(
-            "LinearRegressionModel.evaluate needs the metrics subsystem, item 8 of ROADMAP.md"
-        )
+    def evaluate(self, dataset) -> "LinearRegressionSummary":
+        """Metrics of this model on `dataset` (a pandas frame, a pyarrow
+        Table or a parquet path): the model's transform, then the
+        regression metrics on the host."""
+        from ..core import _evaluate_frame
+        from ..metrics import RegressionMetrics
+
+        out_df, y, preds, weights = _evaluate_frame(self, dataset)
+        # the Spark param, which _copyValues carries onto the model
+        return LinearRegressionSummary(
+            predictions=out_df,
+            metrics=RegressionMetrics.from_predictions(y, preds, weights),
+            fit_intercept=bool(self.getOrDefault("fitIntercept")))
 
     def predict(self, value) -> float:
         """The prediction for one sample, on the host."""

@@ -63,9 +63,9 @@ class DeviceContext:
                  device: Union[str, torch.device, None] = None) -> None:
         if num_workers is not None and int(num_workers) > 1:
             raise NotImplementedError(
-                f"num_workers={num_workers}: the port runs on one device; "
-                "several GPUs are the 'Multi-GPU and multi-process' item of "
-                "ROADMAP.md"
+                f"num_workers={num_workers}: the port fits on one device; "
+                "several GPUs are the 'Multi-GPU and multi-process' item (8) "
+                "of ROADMAP.md"
             )
         self._device = device
         self.device: Optional[torch.device] = None

@@ -4,13 +4,22 @@
 #
 #   the ledger     `device_data_budget_bytes` (the staging decisions' budget,
 #                  core.py `_over_device_budget`), `cache_budget_bytes`, and
-#                  the external claims of `DeviceDatasetCache`: residency
-#                  that is not a staged dataset (the chunk cache's device
-#                  tier) books its bytes here, and every budget decision
-#                  counts them (`cache_resident_bytes`).  The dataset
-#                  entries, fold views and `get_or_stage` of the JAX
-#                  package's cache wait for the Meta layer (ROADMAP.md
-#                  section 1, item 2).
+#                  `DeviceDatasetCache`: the resident datasets, the stagings
+#                  in flight and the external claims (residency that is not
+#                  a staged dataset, such as the chunk cache's device tier),
+#                  which every budget decision counts (`cache_resident_bytes`).
+#   the dataset    `get_or_stage` stages a CrossValidator run's dataset once
+#   cache          (fingerprint-keyed, LRU-evicted, its reservation the
+#                  arrays times a working factor for the fold views); a
+#                  `FoldSet` derives each fold's rows on the device: a weight
+#                  mask (`w * (fold_id != fold)`) for estimators whose kernels
+#                  treat a zero-weight row as absent, else an `index_select`
+#                  of the rows in their order, the tensors a fresh staging of
+#                  the fold would give (one device has no staging layout or
+#                  padding); `CachedEvalView` scores each model on the
+#                  fold's gathered rows.  A staging that runs the card out
+#                  of memory releases its reservation and the caller takes
+#                  the legacy path (`torch.cuda.OutOfMemoryError` only).
 #   ChunkCache     records the decoded chunks of a parquet scan the first
 #                  time it runs and replays them for every later identical
 #                  scan (keyed by the caller: the path's change stamp and
@@ -92,34 +101,339 @@ def cache_budget_bytes(device=None) -> float:
     return float(explicit) if explicit > 0 else device_data_budget_bytes(device)
 
 
+# ---------------------------------------------------------------------------
+# The stage-once dataset cache
+# ---------------------------------------------------------------------------
+
+# Cumulative counters of the dataset registry (mirrored into
+# mesh.STAGE_COUNTS as cache_<kind>): read by tests and chip_smoke.py.
+CACHE_METRICS: Dict[str, int] = {
+    "hits": 0,
+    "misses": 0,
+    "evictions": 0,
+    "inserts": 0,
+    # stagings that met torch.cuda.OutOfMemoryError (the caller then takes
+    # the legacy path)
+    "staging_ooms": 0,
+    "resident_bytes": 0,
+    "resident_entries": 0,
+}
+
+# What the last `get_or_stage` decided ("hit", "staged", "over_budget",
+# "hit_over_budget", "oom"), its bytes and the seconds of its fingerprint and
+# staging (and of the extraction before it, `_cached_fit_entry`), for
+# CrossValidator's fit report.
+LAST_DECISION: Dict[str, Any] = {}
+
+
+def _note(kind: str) -> None:
+    from .mesh import note_stage_count
+
+    with _metrics_lock:
+        CACHE_METRICS[kind] = CACHE_METRICS.get(kind, 0) + 1
+    note_stage_count("cache_" + kind)
+
+
+def cache_enabled() -> bool:
+    from ..config import get_config
+
+    return str(get_config("device_cache")).lower() == "on"
+
+
+# above this an array's bytes are hashed in blocks of this size on a thread
+# pool (hashlib gives up the GIL), and the blocks' digests in order
+_HASH_BLOCK_BYTES = 64 * 1024 * 1024
+
+
+def _hash_array(h, arr: Optional[np.ndarray]) -> None:
+    """Add an array to the digest `h`: shape, dtype and every byte of its
+    content.  The JAX package hashes a large 2-D array's strided row sample
+    and a projection of each row instead; hashing every byte, blocks in
+    parallel, costs less than that projection in float64, and no edit of a
+    row outside the sample can keep the key."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    if arr is None:
+        h.update(b"<none>")
+        return
+    arr = np.ascontiguousarray(arr)
+    h.update(str(arr.shape).encode())
+    h.update(str(arr.dtype).encode())
+    buf = memoryview(arr.reshape(-1).view(np.uint8))
+    if arr.nbytes <= _HASH_BLOCK_BYTES:
+        h.update(buf)
+        return
+    starts = range(0, arr.nbytes, _HASH_BLOCK_BYTES)
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
+        for digest in pool.map(
+                lambda s: hashlib.sha256(buf[s:s + _HASH_BLOCK_BYTES]).digest(), starts):
+            h.update(digest)
+
+
+def dataset_fingerprint(X: np.ndarray, y: Optional[np.ndarray],
+                        weight: Optional[np.ndarray], dtype, label_dtype, device) -> str:
+    """The key of a cache entry: the host arrays' content, the staged
+    dtypes and the device (the JAX package keys its mesh's devices and its
+    shape-bucketing conf, which one device does not have)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=20)
+    _hash_array(h, X)
+    _hash_array(h, y)
+    _hash_array(h, weight)
+    h.update(str(np.dtype(dtype)).encode())
+    h.update(str(np.dtype(label_dtype) if label_dtype is not None else None).encode())
+    h.update(str(device).encode())
+    return h.hexdigest()
+
+
+class CacheEntry:
+    """A dataset resident on the device (`dataset`, a DeviceDataset) and
+    the fold views derived from it.  Fold state lives in each run's
+    `FoldSet`, not here, so two runs sharing an entry keep their own
+    folds.  `nbytes` is the reservation (the arrays times the working
+    factor), `base_bytes` the arrays alone."""
+
+    def __init__(self, fingerprint: str, dataset, nbytes: int,
+                 base_bytes: Optional[int] = None) -> None:
+        self.fingerprint = fingerprint
+        self.dataset = dataset
+        self.nbytes = int(nbytes)
+        self.base_bytes = int(base_bytes if base_bytes is not None else nbytes)
+        self.last_used = 0
+
+    def fold_set(self, folds: np.ndarray) -> "FoldSet":
+        """The fold id of each row (int32, the rows' own order; one device
+        has no padding rows to mark) on the device, and the run's handle
+        to its views."""
+        import torch
+
+        folds = np.ascontiguousarray(np.asarray(folds, np.int32))
+        if folds.shape[0] != self.dataset.n_valid:
+            raise ValueError(f"fold array has {folds.shape[0]} rows, dataset has "
+                             f"{self.dataset.n_valid}")
+        fold_dev = torch.from_numpy(folds).to(self.dataset.device)
+        return FoldSet(self, folds, fold_dev)
+
+    def _gather_view(self, sel: np.ndarray, what: str):
+        """The rows selected by boolean `sel`, in their order, gathered on
+        the device (`index_select`) into a new DeviceDataset: the tensors a
+        fresh staging of those host rows would give.  Only the int64 row
+        ids cross from the host."""
+        import torch
+
+        from ..data import DeviceDataset
+
+        ds = self.dataset
+        rows = np.flatnonzero(sel)
+        if rows.size == 0:
+            raise ValueError(f"{what} selects no rows")
+        idx = torch.from_numpy(rows.astype(np.int64)).to(ds.device)
+        return DeviceDataset(
+            ds.device, ds.X.index_select(0, idx), rows.size,
+            y=None if ds.y is None else ds.y.index_select(0, idx),
+            weight=ds.weight.index_select(0, idx))
+
+
+class FoldSet:
+    """One CV run's fold assignment against a cache entry."""
+
+    def __init__(self, entry: CacheEntry, folds: np.ndarray, fold_dev) -> None:
+        self.entry = entry
+        self.folds = folds  # host (n,) int32
+        self.fold_dev = fold_dev  # the same on the device
+
+    def train_view(self, fold: int):
+        """The weight-mask train view: the resident X and y, and the
+        weights times (fold id != fold).  For estimators whose kernels treat
+        a zero-weight row as absent (`_supports_fold_weights`)."""
+        from ..data import DeviceDataset
+
+        ds = self.entry.dataset
+        w = ds.weight * (self.fold_dev != int(fold)).to(ds.weight.dtype)
+        return DeviceDataset(ds.device, ds.X, ds.n_valid, y=ds.y, weight=w)
+
+    def gather_train_view(self, fold: int):
+        """The gathered train view: the rows outside `fold`, equal to a
+        fresh staging of the fold's host slice, for estimators whose fit
+        depends on the row count (seeded draws per row)."""
+        return self.entry._gather_view(self.folds != fold, f"train fold {fold}")
+
+    def eval_view(self, fold: int, eval_df) -> "CachedEvalView":
+        """The fold's evaluation rows (`eval_df`: their host frame, for the
+        evaluator's label and weight columns)."""
+        sel = np.asarray(self.folds == fold)
+        if not sel.any():
+            raise ValueError(f"fold {fold} has no validation rows")
+        return CachedEvalView(self.entry, fold, sel, eval_df)
+
+
+class CachedEvalView:
+    """`_transformEvaluate` input backed by a cache entry: the fold's rows
+    are gathered on the device once, each model's `_transform_device` runs
+    over them, and only the output columns come back, in the eval frame's
+    row order.  A model without `_transform_device` transforms the fold's
+    host rows instead."""
+
+    def __init__(self, entry: CacheEntry, fold: int, sel: np.ndarray, eval_df) -> None:
+        self.entry = entry
+        self.fold = int(fold)
+        self.sel = sel
+        self.eval_df = eval_df
+        self._view = None  # gathered on first use
+
+    def _eval_rows(self):
+        if self._view is None:
+            self._view = self.entry._gather_view(self.sel, f"eval fold {self.fold}")
+        return self._view
+
+    def evaluate(self, models: List[Any], evaluator: Any) -> List[float]:
+        return [self._evaluate_one(m, evaluator) for m in models]
+
+    def _evaluate_one(self, model: Any, evaluator: Any) -> float:
+        import pandas as pd
+
+        from ..core import _TpuModel
+        from .mesh import RowStager
+
+        if type(model)._transform_device is _TpuModel._transform_device:
+            return evaluator.evaluate(model.transform(self.eval_df))
+        view = self._eval_rows()
+        outs = model._fetch_transform_outputs(RowStager(view.n_valid, view.device),
+                                              model._transform_device(view.X))
+        cols = {c: list(v) if v.ndim == 2 else v for c, v in outs.items()}
+        base = self.eval_df.drop(columns=[c for c in cols if c in self.eval_df.columns])
+        out_df = pd.concat([base.reset_index(drop=True), pd.DataFrame(cols)], axis=1)
+        return evaluator.evaluate(out_df)
+
+
 class DeviceDatasetCache:
-    """The device-budget ledger: external claims (tag -> bytes) that every
-    budget comparison counts and that only their owner releases.  The
-    dataset entries of the JAX package's registry are not ported, so there
-    is nothing for a claim to evict."""
+    """The device-budget ledger: a fingerprint-keyed LRU registry of
+    resident datasets, reservations of stagings in flight, and external
+    claims (tag -> bytes: residency that is not a staged dataset, such as
+    the chunk cache's device tier) that every budget comparison counts and
+    that only their owner releases."""
 
     def __init__(self) -> None:
         self._mu = threading.RLock()
+        self._entries: Dict[str, CacheEntry] = {}
+        self._clock = 0
+        self._pending = 0
         self._external: Dict[str, int] = {}
 
-    def claimed_bytes(self) -> int:
-        """The bytes every budget comparison must see: the external claims
-        (the JAX package adds its resident and in-flight dataset entries)."""
+    def lookup(self, fingerprint: str) -> Optional[CacheEntry]:
         with self._mu:
-            return sum(self._external.values())
+            entry = self._entries.get(fingerprint)
+            if entry is None:
+                return None
+            self._clock += 1
+            entry.last_used = self._clock
+        _note("hits")
+        return entry
+
+    def resident_bytes(self) -> int:
+        with self._mu:
+            return sum(e.nbytes for e in self._entries.values())
+
+    def claimed_bytes(self) -> int:
+        """The bytes every budget comparison must see: resident entries,
+        reservations in flight and external claims."""
+        with self._mu:
+            return self.resident_bytes() + self._pending + sum(self._external.values())
+
+    def _evict_lru(self) -> bool:
+        with self._mu:
+            if not self._entries:
+                return False
+            self.evict(min(self._entries, key=lambda k: self._entries[k].last_used))
+            return True
+
+    def evict(self, fingerprint: str) -> None:
+        """Drop the registry's claim; a run that holds the entry's views
+        keeps them (the tensors free with their last reference)."""
+        with self._mu:
+            entry = self._entries.pop(fingerprint, None)
+        if entry is None:
+            return
+        _note("evictions")
+        self._sync_metrics()
+
+    def reserve(self, need_bytes: int) -> bool:
+        """Claim room for a staging, evicting LRU entries as needed; False
+        when it cannot fit even with the registry empty."""
+        budget = cache_budget_bytes()
+        if need_bytes > budget:
+            return False
+        with self._mu:
+            while self.claimed_bytes() + need_bytes > budget:
+                if not self._evict_lru():
+                    break
+            if self.claimed_bytes() + need_bytes > budget:
+                return False
+            self._pending += int(need_bytes)
+            return True
+
+    def release(self, need_bytes: int) -> None:
+        """Drop the reservation of a staging that failed."""
+        with self._mu:
+            self._pending = max(0, self._pending - int(need_bytes))
+
+    def top_up(self, entry: CacheEntry, extra: int) -> bool:
+        """Grow a just-looked-up entry's reservation by `extra`, evicting
+        other entries (never this one) as needed; False when it cannot."""
+        budget = cache_budget_bytes()
+        with self._mu:
+            while self.claimed_bytes() + extra > budget and len(self._entries) > 1:
+                if not self._evict_lru():
+                    break
+            if entry.fingerprint not in self._entries:
+                return False
+            if self.claimed_bytes() + extra > budget:
+                return False
+            entry.nbytes += int(extra)
+        self._sync_metrics()
+        return True
+
+    def insert(self, entry: CacheEntry) -> None:
+        """Register a staged entry; its reservation becomes the entry's."""
+        with self._mu:
+            self._clock += 1
+            entry.last_used = self._clock
+            self._entries[entry.fingerprint] = entry
+            self._pending = max(0, self._pending - entry.nbytes)
+        _note("inserts")
+        self._sync_metrics()
+
+    def clear(self) -> None:
+        with self._mu:
+            fps = list(self._entries)
+        for fp in fps:
+            self.evict(fp)
+
+    def _sync_metrics(self) -> None:
+        with self._mu:
+            resident, count = self.resident_bytes(), len(self._entries)
+        with _metrics_lock:
+            CACHE_METRICS["resident_bytes"] = resident
+            CACHE_METRICS["resident_entries"] = count
 
     def reserve_external(self, tag: str, need_bytes: int, evict: bool = True) -> bool:
         """Book `need_bytes` for `tag` (a repeat claim for the same tag
-        replaces the old one).  False when the budget cannot hold it; the
-        old claim then stays.  `evict` is the JAX package's switch for
-        evicting dataset entries to make room, of which the port has none;
-        the chunk cache claims with `evict=False` (free room only)."""
+        replaces the old one), evicting LRU dataset entries for room when
+        `evict`.  False when the budget cannot hold it; the old claim then
+        stays.  The chunk cache claims with `evict=False` (free room only:
+        it never displaces a dataset)."""
         budget = cache_budget_bytes()
         need_bytes = int(need_bytes)
         with self._mu:
-            old = self._external.get(tag, 0)
-            extra = need_bytes - old
-            if extra > budget or self.claimed_bytes() + extra > budget:
+            extra = need_bytes - self._external.get(tag, 0)
+            if extra > budget:
+                return False
+            while evict and self.claimed_bytes() + extra > budget:
+                if not self._evict_lru():
+                    break
+            if self.claimed_bytes() + extra > budget:
                 return False
             self._external[tag] = need_bytes
         return True
@@ -159,6 +473,12 @@ def get_device_cache() -> DeviceDatasetCache:
         return _global_cache
 
 
+def clear_device_cache() -> None:
+    """Release every resident dataset entry; external claims stay."""
+    if _global_cache is not None:
+        _global_cache.clear()
+
+
 def reserve_external(tag: str, need_bytes: int) -> bool:
     return get_device_cache().reserve_external(tag, need_bytes)
 
@@ -172,10 +492,100 @@ def release_external_many(tags) -> int:
 
 
 def cache_resident_bytes() -> int:
-    """The bytes the ledger holds, added to every `_over_device_budget`
-    estimate (core.py) so that staging decisions see the device memory the
-    chunk cache occupies."""
+    """The bytes the ledger holds (entries, reservations, external claims),
+    added to every `_over_device_budget` estimate (core.py) so that staging
+    decisions see the device memory the caches occupy."""
     return _global_cache.claimed_bytes() if _global_cache is not None else 0
+
+
+def evict_to_fit(need_bytes: float, budget: float) -> None:
+    """Evict LRU dataset entries until `need_bytes` fits under `budget`
+    beside what stays claimed: residency can be staged again, so a fit's
+    budget decision does not give way to it."""
+    if _global_cache is None:
+        return
+    cache = _global_cache
+    while cache.resident_bytes() and need_bytes + cache.claimed_bytes() > budget:
+        if not cache._evict_lru():
+            break
+
+
+def get_or_stage(X: np.ndarray, y: Optional[np.ndarray], weight: Optional[np.ndarray],
+                 dtype, label_dtype=None, device=None, logger=None,
+                 working_factor: float = 1.0) -> Optional[CacheEntry]:
+    """The resident entry for this dataset, staged once on a miss; None
+    (the caller's legacy path) when the reservation, the arrays' bytes
+    times `working_factor` (room for the fold views), does not fit the
+    budget, or when the staging runs the card out of memory
+    (`torch.cuda.OutOfMemoryError` only: the reservation is released; any
+    other error reaches the caller).  A hit tops the entry's reservation up
+    to this caller's factor, or is None when that does not fit."""
+    import torch
+
+    from ..data import DeviceDataset
+    from .context import resolve_device
+    from .mesh import RowStager
+
+    import time
+
+    dtype = np.dtype(dtype)
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    fp = dataset_fingerprint(X, y, weight, dtype, label_dtype, device)
+    t_fp = time.perf_counter() - t0
+    cache = get_device_cache()
+    factor = max(float(working_factor), 1.0)
+    entry = cache.lookup(fp)
+    LAST_DECISION.clear()
+    LAST_DECISION["fingerprint_s"] = t_fp
+    if entry is not None:
+        want = int(entry.base_bytes * factor)
+        ok = want <= entry.nbytes or cache.top_up(entry, want - entry.nbytes)
+        LAST_DECISION.update(outcome="hit" if ok else "hit_over_budget",
+                             need_bytes=entry.base_bytes, reserved_bytes=want,
+                             budget_bytes=cache_budget_bytes())
+        if not ok:
+            _note("misses")
+            return None
+        return entry
+    ldt = np.dtype(label_dtype) if label_dtype is not None else dtype
+    row_bytes = int(X.shape[1]) * dtype.itemsize + dtype.itemsize
+    if y is not None:
+        row_bytes += ldt.itemsize
+    need = int(X.shape[0]) * row_bytes
+    reserved = int(need * factor)
+    LAST_DECISION.update(need_bytes=need, reserved_bytes=reserved,
+                         budget_bytes=cache_budget_bytes())
+    _note("misses")
+    if not cache.reserve(reserved):
+        LAST_DECISION["outcome"] = "over_budget"
+        if logger is not None:
+            logger.info(f"device cache: dataset (~{need / 2**20:.0f} MiB, reserving "
+                        f"{reserved / 2**20:.0f}) beyond the cache budget; legacy path")
+        return None
+    st = RowStager(X.shape[0], device)
+    t0 = time.perf_counter()
+    try:
+        Xs = st.stage(X, dtype)
+        w = st.mask(dtype, weights=weight)
+        yd = None if y is None else st.stage(np.asarray(y).reshape(-1).astype(ldt), ldt)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    except BaseException as e:
+        cache.release(reserved)
+        if not isinstance(e, torch.cuda.OutOfMemoryError):
+            raise
+        _note("staging_ooms")
+        LAST_DECISION["outcome"] = "oom"
+        if logger is not None:
+            logger.warning("device cache: staging ran the card out of memory; legacy path")
+        return None
+    LAST_DECISION["stage_s"] = time.perf_counter() - t0
+    entry = CacheEntry(fp, DeviceDataset(device, Xs, st.n_valid, y=yd, weight=w),
+                       reserved, base_bytes=need)
+    cache.insert(entry)
+    LAST_DECISION["outcome"] = "staged"
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -877,8 +1287,14 @@ __all__ = [
     "CHUNK_METRICS",
     "ChunkCache",
     "ChunkIntegrityError",
+    "CACHE_METRICS",
+    "CacheEntry",
+    "CachedEvalView",
     "DeviceDatasetCache",
+    "FoldSet",
+    "LAST_DECISION",
     "cache_budget_bytes",
+    "cache_enabled",
     "cache_resident_bytes",
     "cached_chunk_stream",
     "chunk_cache_enabled",
@@ -886,9 +1302,12 @@ __all__ = [
     "chunk_metrics_snapshot",
     "chunk_stream_complete",
     "clear_chunk_cache",
+    "clear_device_cache",
+    "dataset_fingerprint",
     "device_data_budget_bytes",
     "get_chunk_cache",
     "get_device_cache",
+    "get_or_stage",
     "invalidate_for_devices",
     "release_external",
     "release_external_many",

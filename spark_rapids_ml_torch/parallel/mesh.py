@@ -15,12 +15,33 @@
 #
 from __future__ import annotations
 
-from typing import Callable, Optional
+import threading
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 _CHUNK_BYTES = 64 << 20
+
+# Cumulative staging counters: `dataset_stagings` counts every host-to-device
+# staging of a 2-D feature block (`RowStager.stage` of a 2-D array and
+# `stage_sparse`): fit inputs and each chunk of a transform, as the JAX
+# package counts them.  The `cache_*` keys mirror the dataset cache's
+# counters (parallel/device_cache.py).  Tests and chip_smoke.py read their
+# changes: a CrossValidator run on the dataset cache stages once.
+STAGE_COUNTS: Dict[str, int] = {
+    "dataset_stagings": 0,
+    "cache_hits": 0,
+    "cache_misses": 0,
+    "cache_evictions": 0,
+    "cache_inserts": 0,
+}
+_counts_lock = threading.Lock()
+
+
+def note_stage_count(key: str = "dataset_stagings") -> None:
+    with _counts_lock:
+        STAGE_COUNTS[key] = STAGE_COUNTS.get(key, 0) + 1
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -62,6 +83,9 @@ class RowStager:
         if arr.shape[0] != self.n_valid:
             raise ValueError(f"array has {arr.shape[0]} rows, stager expects {self.n_valid}")
         dtype = np.dtype(dtype) if dtype is not None else arr.dtype
+        if arr.ndim == 2:
+            # labels, weights and fold ids ride along a staging of features
+            note_stage_count()
         return self._assemble(arr.shape, dtype,
                               lambda lo, hi: arr[lo:hi].astype(dtype, copy=False))
 
@@ -72,6 +96,7 @@ class RowStager:
         if X.shape[0] != self.n_valid:
             raise ValueError(f"matrix has {X.shape[0]} rows, stager expects {self.n_valid}")
         dtype = np.dtype(dtype) if dtype is not None else np.dtype(X.dtype)
+        note_stage_count()
         return self._assemble(X.shape, dtype,
                               lambda lo, hi: X[lo:hi].toarray().astype(dtype, copy=False))
 

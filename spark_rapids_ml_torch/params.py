@@ -207,6 +207,8 @@ class Params(ABC):
         that._params = None
         if hasattr(self, "_tpu_params"):
             that._tpu_params = dict(self._tpu_params)  # type: ignore[attr-defined]
+        if hasattr(self, "_fallback_params"):
+            that._fallback_params = dict(self._fallback_params)  # type: ignore[attr-defined]
         if extra:
             for p, v in extra.items():
                 if hasattr(that, "_set_params"):
@@ -478,15 +480,21 @@ class _TpuClass(ABC):
 
 class _TpuParams(_TpuClass, Params):
     """Mixin holding `_tpu_params` (the backend-side param dict),
-    `num_workers` and `float32_inputs`."""
+    `num_workers`, `float32_inputs` and the CPU fallback switches (the
+    confs `float32_inputs` and `cpu_fallback_enabled` are read here, when
+    the instance is built, as the JAX package reads them)."""
 
     _float32_inputs: bool = True
 
     def __init__(self) -> None:
+        from .config import get_config
+
         super().__init__()
         self._tpu_params: Dict[str, Any] = {}
         self._num_workers: Optional[int] = None
-        self._float32_inputs = True
+        self._fallback_enabled: bool = bool(get_config("cpu_fallback_enabled"))
+        self._fallback_params: Dict[str, Any] = {}
+        self._float32_inputs = bool(get_config("float32_inputs"))
 
     def _init_tpu_params(self) -> None:
         self._tpu_params = dict(self._get_tpu_params_default())
@@ -511,10 +519,22 @@ class _TpuParams(_TpuClass, Params):
     def tpu_params(self) -> Dict[str, Any]:
         return self._tpu_params
 
+    # alias for parity with the reference attribute name
+    @property
+    def cuml_params(self) -> Dict[str, Any]:
+        return self._tpu_params
+
     @property
     def num_workers(self) -> int:
-        """Number of devices the model runs on; the port runs on one."""
-        return self._num_workers if self._num_workers is not None else 1
+        """Number of devices a fit runs on: the value set, else the conf
+        `num_workers`, else one (the JAX package counts its visible
+        devices).  A fit of more than one raises (parallel/context.py)."""
+        if self._num_workers is not None:
+            return self._num_workers
+        from .config import get_config
+
+        conf = get_config("num_workers")
+        return int(conf) if conf else 1
 
     @num_workers.setter
     def num_workers(self, value: int) -> None:
@@ -544,8 +564,12 @@ class _TpuParams(_TpuClass, Params):
                 if k in mapping:
                     mapped = mapping[k]
                     if mapped is None:
-                        raise ValueError(f"Parameter {k} is not supported.")
-                    if mapped:
+                        if not self._fallback_enabled:
+                            raise ValueError(f"Parameter {k} is not supported.")
+                        # armed for the CPU fallback, which raises at fit
+                        # (core.py `_TpuEstimator._fit`)
+                        self._fallback_params[k] = v
+                    elif mapped:
                         if k in value_map:
                             v = value_map[k](v)
                             if v is None:
@@ -559,3 +583,13 @@ class _TpuParams(_TpuClass, Params):
             else:
                 raise ValueError(f"Unsupported param '{k}'.")
         return self
+
+    def _use_cpu_fallback(self, params: Optional[Dict["Param", Any]] = None) -> bool:
+        """True when the fallback is enabled and an unsupported param was
+        set, as in the JAX package."""
+        if not self._fallback_enabled:
+            return False
+        if self._fallback_params:
+            return True
+        mapping = self._param_mapping()
+        return any(mapping.get(p.name, "absent") is None for p in (params or ()))

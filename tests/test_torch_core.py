@@ -296,11 +296,19 @@ def test_cuda_without_a_card_raises(no_cuda, monkeypatch):
 
 
 def test_more_than_one_worker_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A fit on more than one device is not ported (the multi-GPU item (8)
+    of ROADMAP.md) and raises; a model that carries num_workers > 1 searches
+    and transforms on the one device, as it would on one worker."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*|item \(8\)"):
         DeviceContext(num_workers=2)
     X, Q = _data(8)
-    with pytest.raises(NotImplementedError):
-        NearestNeighbors(k=2, num_workers=4).fit(X).kneighbors(Q)
+    from spark_rapids_ml_torch.feature import PCA
+
+    with pytest.raises(NotImplementedError, match=r"item \(8\)"):
+        PCA(k=2, num_workers=2).fit(X)
+    many, one = (NearestNeighbors(k=2, num_workers=w).fit(X) for w in (4, 1))
+    for a, b in zip(_knn(many, Q), _knn(one, Q)):
+        np.testing.assert_array_equal(a, b)
     with DeviceContext(num_workers=1) as ctx:
         assert ctx.device == torch.device("cpu")
 
@@ -361,3 +369,158 @@ def test_row_stager_weighted_mask():
     assert m.dtype == torch.float32
     np.testing.assert_array_equal(m.numpy(), w.astype(np.float32))
     assert torch.equal(st.mask(np.float64), torch.ones(6, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# F1: models saved with num_workers > 1 transform on one device
+# ---------------------------------------------------------------------------
+
+
+def _saved_with_two_workers(tmp_path, name):
+    """The JAX package fits `name` with num_workers=2 on its 8-device CPU
+    mesh and saves it: (path, its model, the frame)."""
+    from spark_rapids_ml_tpu.classification import LogisticRegression as JaxLR
+    from spark_rapids_ml_tpu.classification import RandomForestClassifier as JaxRF
+    from spark_rapids_ml_tpu.clustering import KMeans as JaxKMeans
+    from spark_rapids_ml_tpu.feature import PCA as JaxPCA
+    from spark_rapids_ml_tpu.regression import LinearRegression as JaxLin
+
+    rng = np.random.default_rng(31)
+    X = (rng.normal(size=(240, 5)) * [1.0, 2.0, 0.5, 1.5, 1.0]).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] > 0).astype(np.float64)
+    df = pd.DataFrame({"features": list(X), "label": y})
+    est = {
+        "pca": lambda: JaxPCA(k=2, num_workers=2).setInputCol("features").setOutputCol("o"),
+        "linear": lambda: JaxLin(regParam=0.1, num_workers=2),
+        "logistic": lambda: JaxLR(regParam=0.01, num_workers=2),
+        "kmeans": lambda: JaxKMeans(k=3, seed=1, num_workers=2),
+        "forest": lambda: JaxRF(numTrees=3, maxDepth=4, seed=2, num_workers=2),
+    }[name]()
+    model = est.fit(df)
+    assert model._num_workers == 2
+    path = str(tmp_path / name)
+    model.save(path)
+    with open(os.path.join(path, "metadata.json")) as f:
+        assert json.load(f)["num_workers"] == 2
+    return path, model, df
+
+
+# the per-model tolerances of the packages' cross-load tests
+_F1_CASES = {
+    "pca": ("PCAModel", "feature", ["o"], 1e-4),
+    "linear": ("LinearRegressionModel", "regression", ["prediction"], 1e-5),
+    "logistic": ("LogisticRegressionModel", "classification",
+                 ["prediction", "probability", "rawPrediction"], 2e-5),
+    "kmeans": ("KMeansModel", "clustering", ["prediction"], 0.0),
+    "forest": ("RandomForestClassificationModel", "classification",
+               ["prediction", "probability"], 0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_F1_CASES))
+def test_a_model_saved_with_two_workers_transforms_in_the_port(tmp_path, name):
+    import importlib
+
+    cls_name, module, cols, tol = _F1_CASES[name]
+    path, ref, df = _saved_with_two_workers(tmp_path, name)
+    cls = getattr(importlib.import_module(f"spark_rapids_ml_torch.{module}"), cls_name)
+    loaded = cls.load(path)
+    assert loaded.num_workers == 2
+    got, want = loaded.transform(df), ref.transform(df)
+    for col in cols:
+        a, b = np.stack(got[col].to_numpy()), np.stack(want[col].to_numpy())
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=f"{name} {col}")
+
+
+# ---------------------------------------------------------------------------
+# F2: the four core conf keys
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("key,value", [
+    ("float32_inputs", False), ("float32_inputs", True), ("num_workers", 2),
+    ("num_workers", 3), ("verbose", 4), ("cpu_fallback_enabled", True),
+    ("cpu_fallback_enabled", False),
+])
+def test_core_conf_keys_match_jax(key, value):
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu.classification import LogisticRegression as JaxLR
+
+    for k in ("float32_inputs", "num_workers", "verbose", "cpu_fallback_enabled"):
+        assert port_config.get_config(k) == jax_config.get_config(k)
+    port_config.set_config(**{key: value})
+    jax_config.set_config(**{key: value})
+    assert port_config.get_config(key) == jax_config.get_config(key) == value
+    a, b = LogisticRegression(), JaxLR()
+    assert a._float32_inputs == b._float32_inputs
+    assert a._fallback_enabled == b._fallback_enabled
+    if key == "num_workers":
+        assert a.num_workers == b.num_workers == value
+        X, y = np.ones((8, 2), np.float32), np.arange(8.0) % 2
+        with pytest.raises(NotImplementedError, match=r"item \(8\)"):
+            a.fit((X, y))
+
+
+def test_cpu_fallback_raises_where_it_would_run():
+    """With cpu_fallback_enabled an unsupported param arms the fallback in
+    both packages; the port's fit raises there (scikit-learn is not
+    ported) and its CV keeps the legacy path."""
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_tpu.classification import LogisticRegression as JaxLR
+
+    with pytest.raises(ValueError, match="not supported"):
+        LogisticRegression(thresholds=[0.4, 0.6])
+    port_config.set_config(cpu_fallback_enabled=True)
+    jax_config.set_config(cpu_fallback_enabled=True)
+    a, b = LogisticRegression(thresholds=[0.4, 0.6]), JaxLR(thresholds=[0.4, 0.6])
+    assert a._use_cpu_fallback() and b._use_cpu_fallback()
+    assert a._fallback_params == b._fallback_params
+    assert a.copy()._use_cpu_fallback()
+    X = np.random.default_rng(0).normal(size=(40, 3)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float64)
+    with pytest.raises(NotImplementedError, match="scikit-learn"):
+        a.fit((X, y))
+    df = pd.DataFrame({"features": list(X), "label": y})
+    assert a._cached_fit_entry(df) is None
+    plain = LogisticRegression()
+    assert not plain._use_cpu_fallback()
+    assert plain._use_cpu_fallback({plain.thresholds: [0.4, 0.6]})
+
+
+# ---------------------------------------------------------------------------
+# F3: cuml_params
+# ---------------------------------------------------------------------------
+
+_ESTIMATORS = {
+    "LogisticRegression": ("classification", {"regParam": 0.01}),
+    "RandomForestClassifier": ("classification", {"numTrees": 2, "maxDepth": 3}),
+    "LinearRegression": ("regression", {"regParam": 0.1}),
+    "RandomForestRegressor": ("regression", {"numTrees": 2, "maxDepth": 3}),
+    "PCA": ("feature", {"k": 2}),
+    "KMeans": ("clustering", {"k": 2, "seed": 1}),
+    "DBSCAN": ("clustering", {"eps": 1.0}),
+    "NearestNeighbors": ("knn", {"k": 2}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ESTIMATORS))
+def test_cuml_params_alias_matches_jax(name):
+    import importlib
+
+    module, kw = _ESTIMATORS[name]
+    port_cls = getattr(importlib.import_module(f"spark_rapids_ml_torch.{module}"), name)
+    jax_cls = getattr(importlib.import_module(f"spark_rapids_ml_tpu.{module}"), name)
+    est, ref = port_cls(**kw), jax_cls(num_workers=1, **kw)
+    assert est.cuml_params is est.tpu_params
+    assert est.cuml_params == ref.cuml_params
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(60, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float64)
+    data = X if name in ("PCA", "KMeans", "DBSCAN", "NearestNeighbors") else (X, y)
+    if name == "PCA":
+        est.setInputCol("features")
+        ref.setInputCol("features")
+        data = pd.DataFrame({"features": list(X)})
+    model, ref_model = est.fit(data), ref.fit(data)
+    assert model.cuml_params is model.tpu_params
+    assert model.cuml_params == ref_model.cuml_params

@@ -2,7 +2,9 @@
 # The port stands alone: no module of spark_rapids_ml_torch, nor
 # chip_smoke.py or compare_kernels.py, imports JAX or the JAX package; the port runs with both
 # made unimportable (its fits from parquet included: streaming.py and the
-# parquet readers of fused.py, the chunk cache and the statistics); and
+# parquet readers of fused.py, the chunk cache and the statistics; and the
+# meta layer: a CrossValidator fit, and the load of a CrossValidatorModel the
+# JAX package saved, which names the JAX package's model class); and
 # chip_smoke.py refuses to run without a CUDA device or without the rest of
 # the repo.
 #
@@ -50,7 +52,27 @@ def _run(code: str, cwd=REPO, env_extra=None, timeout=240):
                           capture_output=True, text=True, timeout=timeout)
 
 
-def test_port_runs_with_jax_unimportable():
+def _jax_saved_cv_model(path: str) -> None:
+    """A CrossValidatorModel the JAX package fits and saves at `path`."""
+    import numpy as np
+    import pandas as pd
+
+    from spark_rapids_ml_tpu.evaluation import RegressionEvaluator
+    from spark_rapids_ml_tpu.regression import LinearRegression
+    from spark_rapids_ml_tpu.tuning import CrossValidator, ParamGridBuilder
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(90, 4))
+    df = pd.DataFrame({"features": list(X), "label": X @ np.array([1.0, 2.0, 3.0, 4.0])})
+    lr = LinearRegression(num_workers=1)
+    grid = ParamGridBuilder().addGrid(lr.regParam, [0.0, 1.0]).build()
+    CrossValidator(estimator=lr, estimatorParamMaps=grid, evaluator=RegressionEvaluator(),
+                   numFolds=2, seed=1).fit(df).save(path)
+
+
+def test_port_runs_with_jax_unimportable(tmp_path):
+    cv_dir = str(tmp_path / "jax_cv")
+    _jax_saved_cv_model(cv_dir)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -102,6 +124,19 @@ def test_port_runs_with_jax_unimportable():
         "    assert est.fit(path).fit_report()['route'] == 'streamed'\n"
         "config.reset_config()\n"
         "assert RandomForestClassifier(numTrees=1).fit(path).fit_report()['route'] == 'staged_parquet'\n"
+        "import pandas as pd\n"
+        "from spark_rapids_ml_torch.evaluation import RegressionEvaluator\n"
+        "from spark_rapids_ml_torch.tuning import CrossValidator, CrossValidatorModel, "
+        "ParamGridBuilder\n"
+        "df = pd.DataFrame({'features': list(X), 'label': yl})\n"
+        "lin = LinearRegression()\n"
+        "cv = CrossValidator(estimator=lin, estimatorParamMaps=ParamGridBuilder().addGrid(\n"
+        "    lin.regParam, [0.0, 1.0]).build(), evaluator=RegressionEvaluator(), numFolds=2)\n"
+        "m = cv.fit(df)\n"
+        "assert m.bestIndex == 0 and m.fit_report()['used_cache'], m.fit_report()\n"
+        f"loaded = CrossValidatorModel.load({cv_dir!r})\n"
+        "assert type(loaded.bestModel) is type(m.bestModel) and loaded.bestIndex == 0\n"
+        "assert loaded.transform(df)['prediction'].shape == (50,)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

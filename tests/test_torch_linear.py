@@ -386,8 +386,11 @@ def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         est._cpu_fit(None)
     model = est.fit((X, y))
-    with pytest.raises(NotImplementedError, match="metrics"):
+    # evaluate is ported (the meta layer); like the JAX package's it takes a
+    # frame, a pyarrow Table or a parquet path, not an (X, y) tuple
+    with pytest.raises(TypeError, match="Cannot interpret"):
         model.evaluate((X, y))
+    assert model.evaluate(pd.DataFrame({"features": list(X), "label": y})).r2 > 0.5
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         model.cpu()
     with pytest.raises(ValueError, match="entries"):

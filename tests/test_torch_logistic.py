@@ -455,8 +455,11 @@ def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="ELL"):
         LogisticRegression(enable_sparse_data_optim=True).fit((X, y))
     model = LogisticRegression().fit((X, y))
-    with pytest.raises(NotImplementedError, match="metrics"):
+    # evaluate is ported (the meta layer); like the JAX package's it takes a
+    # frame, a pyarrow Table or a parquet path, not an (X, y) tuple
+    with pytest.raises(TypeError, match="Cannot interpret"):
         model.evaluate((X, y))
+    assert model.evaluate(pd.DataFrame({"features": list(X), "label": y})).accuracy > 0.5
     with pytest.raises(NotImplementedError, match="scikit-learn"):
         model.cpu()
     # accepted and read by nothing
