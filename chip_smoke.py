@@ -222,13 +222,36 @@ Phases, each of which makes the script exit non-zero when it fails:
    held besides: one staging on the cached path, bestIndex equal,
    avgMetrics within 1e-6 relative of the legacy path's.
 
+13. ApproximateNearestNeighbors through the public entry points (torch
+   ops, no hand-written kernel of its own; the fused kernel gives the
+   exact ground truth and `umap_knn_graph`'s euclidean branch): (x)
+   BASELINE.json configs[4], 10,000,000 x 128 float32 blobs of 100 centres
+   made on the card, the first 10,000 rows as queries, k = 10: the exact
+   ground truth (NearestNeighbors, timed; the fused function's kernel
+   entry at this shape), IVF-Flat (nlist sqrt(n), nprobe 20; recall held
+   above tests/test_ann.py's 0.85) and IVF-PQ (M 8, n_bits 8, refine 2;
+   recall recorded), each with its build by part, the index's upload, a
+   first and a warm kneighbors (queries/s) and the warm search's parts
+   (probe, fold, host re-rank); (y) CAGRA, graph_degree 32, on the first
+   1,000,000 of (x)'s rows (recall recorded), and bench.py:255-303's
+   bench_ann cell, 200,000 x 64 blobs of 100 centres: CAGRA (held at
+   0.95), IVF-Flat nlist 448, nprobe 20 (held at 0.85) and IVF-PQ with 16
+   subspaces and refine 4 (held at 0.7), each CAGRA build by NN-descent
+   round and one more round by part; (z) on that data: IVF-Flat with
+   every list probed against the fused kernel's ids (ties aside), cosine
+   on IVF-Flat (0.85) and CAGRA (0.9) with 1 - cos within 2e-3, save,
+   load and kneighbors bit-equal, `umap_knn_graph` euclidean against the
+   plain blocked form and manhattan against cdist(p=1) + top-k.
+
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
 of the clustering cells' numbers, one of the forest cells' numbers
 ({"forest": [...]}), one of the parquet cells' numbers
 ({"parquet": [...]}), one of the chunk cache and statistics cells'
 numbers ({"cache_stats": [...]}), one of the meta layer's cells
-({"meta": [...]}), a JSON object of the kernels' numbers,
+({"meta": [...]}), one of the ANN cells ({"ann": [...]}), a JSON object
+of the kernels' numbers (phase 13 adds the float32 fused function at
+(x)'s shape),
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -572,17 +595,17 @@ def reset_counts() -> None:
     fk.LAUNCHES = fk.LAUNCHES_F64 = fk.SPLIT_LAUNCHES = fk.MERGE_LAUNCHES = 0
 
 
-def library_topk(items_t, queries_t, k: int):
+def library_topk(items_t, queries_t, k: int, block: int = 1024):
     """The yardstick: one blocked torch.matmul + torch.topk computing the
-    same function (1024 queries a block), IEEE arithmetic."""
+    same function (`block` queries a block), IEEE arithmetic."""
     import torch
 
     x2 = (items_t * items_t).sum(1)
     before = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for q0 in range(0, queries_t.shape[0], 1024):
-            Qb = queries_t[q0 : q0 + 1024]
+        for q0 in range(0, queries_t.shape[0], block):
+            Qb = queries_t[q0 : q0 + block]
             d2 = (Qb * Qb).sum(1, keepdim=True) - 2.0 * (Qb @ items_t.T) + x2
             torch.topk(d2, k, dim=1, largest=False)
     finally:
@@ -3927,6 +3950,453 @@ def phase_meta(device, args, wide_X, wide_y) -> dict:
     return {"cells": cells}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: ApproximateNearestNeighbors
+# ---------------------------------------------------------------------------
+
+# (x) BASELINE.json configs[4], (y) CAGRA's cell and bench.py's bench_ann
+# cell (bench.py:255-303), (z) the checks on (y)'s 200k x 64 data
+ANN_X_ROWS, ANN_Y_ROWS, ANN_Z_ROWS = 10_000_000, 1_000_000, 200_000
+ANN_QUERIES, ANN_K = 10_000, 10
+# tests/test_ann.py's recall floors, by algorithm
+ANN_FLOORS = {"ivfflat": 0.85, "ivfpq": 0.7, "cagra": 0.95}
+
+
+def card_blobs(n: int, d: int, centres: int, seed: int, device):
+    """`make_blobs` made on the card: centres uniform in (-10, 10)^d, n //
+    centres rows each (the first n % centres one more), unit gaussian
+    spread, rows in random order; float32."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    C = torch.rand((centres, d), generator=gen, device=device) * 20.0 - 10.0
+    label = torch.randperm(n, generator=gen, device=device) % centres
+    X = torch.randn((n, d), generator=gen, device=device)
+    return X.add_(C[label])
+
+
+def ann_recall(got: np.ndarray, truth: np.ndarray) -> float:
+    """recall@k: the share of the exact k nearest that the search found."""
+    hits = (got[:, :, None] == truth[:, None, :]).any(axis=2).sum()
+    return float(hits / truth.size)
+
+
+def _synced(device):
+    import torch
+
+    torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def exact_neighbours(device, X, Q, k: int):
+    """The port's exact NearestNeighbors (the fused kernel): (ids, seconds
+    of the kneighbors call, the model)."""
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+
+    model = NearestNeighbors(k=k).fit(X)
+    t0 = _synced(device)
+    _, _, df = model.kneighbors(Q)
+    return np.stack(df["indices"]), time.perf_counter() - t0, model
+
+
+def ann_search_split(device, model, Q, k: int) -> dict:
+    """The warm search's parts: `_search` with a LayerTimer (probe and
+    fold, or the beam's entry and steps, and the host re-rank; ms between
+    CUDA events, so the re-rank's is its host time)."""
+    import torch
+
+    timer = LayerTimer()
+    model._search(np.ascontiguousarray(Q, np.float32), k, timer=timer)
+    torch.cuda.synchronize(device)
+    totals = timer.totals()
+    return {"ms": {name: round(v["ms"], 3) for name, v in totals.items()},
+            "span_calls": {name: v["calls"] for name, v in totals.items()}}
+
+
+def ann_cell(device, name: str, X, Q, truth, algo: str, params: dict, floor=None,
+             metric: str = "euclidean", round_split: bool = False) -> dict:
+    """One ANN cell through the public entry points: fit (the build, its
+    parts), the index's upload, a first and a warm kneighbors (queries/s),
+    the warm search's parts, recall@k against `truth`; `floor`, where
+    given, is held.  With `round_split`, one more NN-descent round from the
+    built graph runs under a LayerTimer (its parts, device ms)."""
+    import torch
+
+    from spark_rapids_ml_torch.knn import ApproximateNearestNeighbors
+    from spark_rapids_ml_torch.models.knn import _INDEX_ARRAYS
+    from spark_rapids_ml_torch.ops import cagra as cagra_ops
+    from spark_rapids_ml_torch.ops import ivf as ivf_ops
+
+    from spark_rapids_ml_torch.ops import kmeans as kmeans_ops
+
+    k = truth.shape[1]
+    t0 = _synced(device)
+    model = ApproximateNearestNeighbors(k=k, algorithm=algo, algoParams=params,
+                                        metric=metric).fit(X)
+    build_s = _synced(device) - t0
+    parts = ({"rounds_s": list(cagra_ops.LAST_BUILD["rounds"])} if algo == "cagra"
+             else dict(ivf_ops.LAST_BUILD))
+    lloyd_passes = int(kmeans_ops.LAST_FIT.get("n_iter", 0)) + 1  # the final cost pass
+    t0 = _synced(device)
+    model._staged_index(_INDEX_ARRAYS[algo], device)
+    upload_s = _synced(device) - t0
+    t0 = _synced(device)
+    model.kneighbors(Q)
+    first_s = _synced(device) - t0
+    t0 = _synced(device)
+    _, _, df = model.kneighbors(Q)
+    warm_s = _synced(device) - t0
+    got = np.stack(df["indices"])
+    dist = np.stack(df["distances"])
+    rec = ann_recall(got, truth)
+    split = ann_search_split(device, model, Q, k)
+    index_bytes = sum(np.asarray(model._attrs[nm]).nbytes for nm in _INDEX_ARRAYS[algo])
+    cell = {"cell": name, "algorithm": algo, "params": params, "metric": metric,
+            "items": list(X.shape), "queries": int(Q.shape[0]), "k": k, "build_s": build_s,
+            "build_parts_s": parts, "upload_s": upload_s,
+            "upload_gb_per_s": index_bytes / upload_s / 1e9, "first_kneighbors_s": first_s,
+            "warm_kneighbors_s": warm_s, "queries_per_s": Q.shape[0] / warm_s,
+            "search_parts": split, f"recall_at_{k}": rec, "floor": floor,
+            "bounds_ms": ann_bounds(device, model, X, Q, k, split, lloyd_passes)}
+    if algo != "cagra":
+        cell["index_shape"] = {"nsub_cap": list(model._attrs["ivf_bucket_ids"].shape),
+                               "max_sub": int(model._attrs["ivf_sub_table"].shape[1])}
+    if round_split:
+        items, graph = model._staged_index(_INDEX_ARRAYS["cagra"], device)
+        n, deg = graph.shape
+        sample = int(params.get("nn_descent_sample", deg))
+        gen = cagra_ops._generator(1, device)
+        timer = LayerTimer()
+        t0 = _synced(device)
+        cagra_ops._nn_descent_round(items, kmeans_ops.row_norms(items), graph.long(),
+                                    cagra_ops._own_round(gen, n, deg, sample, device), deg,
+                                    sample, timer=timer)
+        cell["one_round_s"] = _synced(device) - t0
+        cell["one_round_device_ms"] = {nm: round(v["ms"], 3)
+                                       for nm, v in timer.totals().items()}
+        C = 2 * deg + min(sample, 2 * deg) * deg + deg
+        d = X.shape[1]
+        # the round's function: n C products of d, X read once; the gather
+        # form moves each row's C candidate rows twice (written, read)
+        cell["one_round_bound_ms"] = max(2.0 * n * C * d / _PEAK_FP32,
+                                         4.0 * n * (d + 3 * deg) / _PEAK_BYTES_PER_S) * 1e3
+        cell["one_round_gather_bound_ms"] = 2.0 * n * C * d * 4 / _PEAK_BYTES_PER_S * 1e3
+    log(f"  {name}: build {build_s:.3f} s {json.dumps(parts, default=float)}, upload "
+        f"{upload_s:.3f} s; kneighbors first {first_s:.3f} s, warm {warm_s:.3f} s "
+        f"({Q.shape[0] / warm_s:.1f} queries/s); parts {json.dumps(split)}; recall@{k} "
+        f"{rec:.4f}" + (f" (floor {floor})" if floor is not None else " (no floor)"))
+    if round_split:
+        log(f"    one more NN-descent round {cell['one_round_s']:.3f} s, device ms "
+            f"{cell['one_round_device_ms']}, bound {cell['one_round_bound_ms']:.3f} ms "
+            f"(FP32 products), the gather form's bytes {cell['one_round_gather_bound_ms']:.3f} ms")
+    if got.shape != (Q.shape[0], k) or not np.isfinite(dist).all() or (got < 0).any():
+        raise AssertionError(f"{name}: kneighbors gave {got.shape}, an unreachable slot or a "
+                             "non-finite distance")
+    if floor is not None and not rec >= floor:
+        raise AssertionError(f"{name}: recall@{k} {rec:.4f} below the floor {floor}")
+    del model
+    torch.cuda.empty_cache()
+    return cell
+
+
+def ann_bounds(device, model, X, Q, k: int, split: dict, lloyd_passes: int) -> dict:
+    """Least device ms of each layer this run needed, from its shapes and
+    this run's probe: IEEE float32 products at the FP32 peak, bytes (each
+    input read once) at the HBM rate, the larger of the two."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import ivf as ivf_ops
+    from spark_rapids_ml_torch.parallel import RowStager
+
+    n, d = X.shape
+    q = Q.shape[0]
+
+    def b(flops, nbytes):
+        return max(flops / _PEAK_FP32, nbytes / _PEAK_BYTES_PER_S) * 1e3
+
+    ap = dict(model._tpu_params.get("algo_params") or {})
+    if model.algorithm_ == "cagra":
+        deg = model._attrs["cagra_graph"].shape[1]
+        beam = max(int(ap.get("itopk_size", 64)), k)
+        steps = split["span_calls"].get("step", 0)
+        per_q = beam * deg + deg  # candidates scored a step
+        return {"entry": b(2.0 * q * 4 * beam * d, 4.0 * (n * d + q * d)),
+                "steps": b(2.0 * steps * q * per_q * d, 4.0 * (n * d + n * deg + q * d))}
+    nlist = model.nlist_
+    nprobe = max(1, min(int(ap.get("nprobe", 20)), nlist))
+    n_train = min(n, max(nlist * 256, 16384))
+    centers, sub_table = model._staged_index(("ivf_centers", "ivf_sub_table"), device)
+    valid = torch.as_tensor(model._attrs["ivf_bucket_valid"], device=device).sum(dim=1)
+    per_parent = torch.where(sub_table >= 0, valid[sub_table.clamp(min=0)], 0).sum(dim=1)
+    Qs = RowStager(q, device).stage(Q, np.float32)
+    _, probe, _ = ivf_ops._probe(Qs, centers, sub_table, nprobe)
+    cand = float(per_parent[probe].sum())  # the rows this run's probes scanned
+    out = {"assign": b(2.0 * n * nlist * d, 4.0 * n * d),
+           "probe": b(2.0 * q * nlist * d, 4.0 * (nlist * d + q * d)),
+           "candidates_scanned": cand}
+    if model.algorithm_ == "ivfflat":
+        out["quantizer"] = b(2.0 * lloyd_passes * n_train * nlist * d, 4.0 * n_train * d)
+        out["fold"] = b(2.0 * cand * d, 4.0 * (n * d + q * d))
+    else:
+        M = int(model._attrs.get("pq_M", 8))
+        ksub = model._attrs["pq_codebooks"].shape[1]
+        # the tables: q nprobe (M ksub) products of d / M; the fold: M table
+        # adds a candidate, the codes read once
+        out["tables"] = b(2.0 * q * nprobe * ksub * d, 4.0 * q * nprobe * M * ksub)
+        out["fold"] = b(float(M) * cand, float(n * M))
+    return out
+
+
+def same_ids_ties_aside(name: str, got, want, X, Q) -> float:
+    """Ids equal slot for slot, except where both ids sit at float64 squared
+    distances within 1e-5 of ||q||^2 + max ||x||^2 (the matmul identity's
+    float32 rounding, which may swap near ties); the share equal."""
+    diff = np.argwhere(got != want)
+    X64, Q64 = X.astype(np.float64), Q.astype(np.float64)
+    scale = (Q64 * Q64).sum(1) + (X64 * X64).sum(1).max()
+    for i, j in diff:
+        dg = ((Q64[i] - X64[got[i, j]]) ** 2).sum()
+        dw = ((Q64[i] - X64[want[i, j]]) ** 2).sum()
+        if abs(dg - dw) > 1e-5 * scale[i]:
+            raise AssertionError(f"{name}: query {i} slot {j}: id {got[i, j]} at {dg} against "
+                                 f"{want[i, j]} at {dw}: not a tie")
+    share = 1.0 - len(diff) / got.size
+    log(f"  {name}: ids equal on {share:.6f} of slots, every other slot a tie")
+    return share
+
+
+def hold_at_blob_norms(name: str, kd, kp, td, tp, X, Q) -> float:
+    """The kernel's (d2, positions) against its twin's where rows have
+    large norms and small distances (blobs centred up to 10 from the
+    origin, queries among the items): both forms cancel ||q||^2 + ||x||^2
+    (about 4,400 at 128 dims) to reach a d2 near 0, so d2 is held within
+    1e-5 of that sum, not of d2 (phase 3's rule, on unit-scale rows), and
+    ids slot for slot, ties aside."""
+    kd, td = kd.cpu().double().numpy(), td.cpu().double().numpy()
+    kp, tp = kp.cpu().numpy(), tp.cpu().numpy()
+    if not (np.array_equal(np.isfinite(kd), np.isfinite(td)) and np.isfinite(td).all()):
+        raise AssertionError(f"{name}: non-finite or differing tails")
+    scale = (Q.astype(np.float64) ** 2).sum(1)[:, None] + float(
+        (X[:: max(1, X.shape[0] // 1_000_000)].astype(np.float64) ** 2).sum(1).max())
+    err = float(np.abs(kd - td).max())
+    worst = float((np.abs(kd - td) / scale).max())
+    log(f"  {name}: max|d2 kernel - d2 twin| = {err:.3e}, {worst:.2e} of ||q||^2 + max ||x||^2 "
+        "(limit 1e-5)")
+    if worst > 1e-5:
+        raise AssertionError(f"{name}: d2 differs by {worst:.2e} of the norms")
+    same_ids_ties_aside(name, kp, tp, X, Q)
+    return err
+
+
+def fused_10m_entry(device, nn_model, Q, k: int, launches: dict, X) -> dict:
+    """The float32 fused function at (x)'s shape, as phase 13 launches it:
+    timed, held against its plain version on 1,000 of the queries (the
+    plain version's 10M x 10k takes about 12 s), beside its bound and the
+    library's blocked matmul + topk."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    items_t, valid_t, _ = nn_model._device_items[1]
+    n, d = items_t.shape
+    q = Q.shape[0]
+    queries_t = torch.as_tensor(Q, device=device)
+    ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k), reps=2)
+    q1 = queries_t[:1000]
+    kd, kp = fk.fused_topk_sqdist(items_t, valid_t, q1, k)
+    plain = {}
+
+    def run_plain():
+        plain["out"] = fk.fused_topk_sqdist_reference(items_t, valid_t, q1, k, bq=1024, bn=8192)
+
+    plain_ms = cuda_ms(run_plain, reps=1, warm=False)
+    err = hold_at_blob_norms("fused function at (x), 1,000 queries: kernel vs twin", kd, kp,
+                             *plain["out"], X, Q[:1000])
+    library_ms = cuda_ms(lambda: library_topk(items_t, queries_t, k, block=256), reps=1,
+                         warm=False)
+    flops = 2.0 * q * n * d
+    nbytes = 4.0 * (n * d + q * d + 2 * n) + 8.0 * q * k
+    bound_ms, bound_by = bound(3 * flops, _PEAK_TF32, nbytes)
+    log(f"  fused_topk_sqdist at {n} x {d}, {q} queries, k={k}: {ms:.3f} ms "
+        f"({q / ms * 1e3:.1f} queries/s), bound {bound_ms:.3f} ms ({bound_by}, share "
+        f"{bound_ms / ms:.1%}); twin {plain_ms:.3f} ms on 1,000 queries; library matmul+topk "
+        f"{library_ms:.3f} ms (256-query blocks); launches {launches}")
+    return entry("fused_knn_tf32", launches["main"], err, ms, plain_ms, bound_ms, bound_by,
+                 library_ms, f"{n}x{d} float32 items, {q} queries, k={k} (phase 13 (x)); "
+                 "plain_ms and max_abs_err on 1,000 of the queries; library_ms in 256-query "
+                 "blocks")
+
+
+def phase_ann_x(device, seed: int) -> tuple:
+    """(x) BASELINE.json configs[4]: 10M x 128 blobs, 100 centres, made on
+    the card; queries the first 10k rows, k = 10; the exact ground truth on
+    the fused kernel, then IVF-Flat (nlist sqrt(n), nprobe 20) and IVF-PQ
+    (M 8, n_bits 8, refine 2)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    t0 = _synced(device)
+    Xd = card_blobs(ANN_X_ROWS, 128, 100, seed, device)
+    X = Xd.cpu().numpy()
+    del Xd
+    torch.cuda.empty_cache()
+    Q = X[:ANN_QUERIES]
+    log(f"  (x) data: {X.shape} float32 blobs, 100 centres, made on the card and copied to the "
+        f"host: {time.perf_counter() - t0:.2f} s")
+    reset_counts()
+    truth, gt_s, nn_model = exact_neighbours(device, X, Q, ANN_K)
+    launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"(x) ground truth did not run the fused kernels: {launches}")
+    log(f"  (x) exact ground truth (NearestNeighbors, the fused kernel; items staged): "
+        f"{gt_s:.3f} s, {ANN_QUERIES / gt_s:.1f} queries/s; launches {launches}")
+    kernel = fused_10m_entry(device, nn_model, Q, ANN_K, launches, X)
+    del nn_model
+    torch.cuda.empty_cache()
+    cells = [{"cell": "(x) exact ground truth", "items": list(X.shape), "queries": ANN_QUERIES,
+              "k": ANN_K, "kneighbors_s": gt_s, "queries_per_s": ANN_QUERIES / gt_s}]
+    nprobe = 20
+    cells.append(ann_cell(device, "(x) IVF-Flat", X, Q, truth, "ivfflat", {"nprobe": nprobe},
+                          floor=ANN_FLOORS["ivfflat"]))
+    cells.append(ann_cell(device, "(x) IVF-PQ", X, Q, truth, "ivfpq", {"nprobe": nprobe}))
+    return cells, kernel, X
+
+
+def phase_ann_y(device, X10m, seed: int) -> tuple:
+    """(y) CAGRA (graph_degree 32) at 1M x 128 (the first 1M of (x)'s
+    rows), then bench.py's bench_ann cell: 200k x 64 blobs, 100 centres,
+    CAGRA and IVF-Flat (nlist 448, nprobe 20), and IVF-PQ in
+    tests/test_ann.py's regime (4 dims a subspace, refine 4)."""
+    X1 = np.ascontiguousarray(X10m[:ANN_Y_ROWS])
+    Q1 = X1[:ANN_QUERIES]
+    truth1, gt1_s, m1 = exact_neighbours(device, X1, Q1, ANN_K)
+    del m1
+    log(f"  (y) exact ground truth at {X1.shape}: {gt1_s:.3f} s")
+    cells = [ann_cell(device, "(y) CAGRA 1M x 128", X1, Q1, truth1, "cagra",
+                      {"graph_degree": 32}, round_split=True)]
+    X2, _ = make_blobs(ANN_Z_ROWS, 64, 100, 1.0, seed + 4)
+    X2 = X2.astype(np.float32)
+    Q2 = X2[:ANN_QUERIES]
+    truth2, gt2_s, nn2 = exact_neighbours(device, X2, Q2, ANN_K)
+    log(f"  (y) exact ground truth at {X2.shape}: {gt2_s:.3f} s")
+    cells.append(ann_cell(device, "(y) CAGRA 200k x 64", X2, Q2, truth2, "cagra",
+                          {"graph_degree": 32}, floor=ANN_FLOORS["cagra"], round_split=True))
+    cells.append(ann_cell(device, "(y) IVF-Flat 200k x 64", X2, Q2, truth2, "ivfflat",
+                          {"nlist": 448, "nprobe": 20}, floor=ANN_FLOORS["ivfflat"]))
+    cells.append(ann_cell(device, "(y) IVF-PQ 200k x 64, 16 subspaces, refine 4", X2, Q2,
+                          truth2, "ivfpq", {"nlist": 448, "nprobe": 20, "M": 16,
+                                            "refine_ratio": 4}, floor=ANN_FLOORS["ivfpq"]))
+    return cells, (X2, Q2, truth2, nn2)
+
+
+def phase_ann_z(device, X2, Q2, truth2, nn2) -> list:
+    """(z) on (y)'s 200k x 64 data: IVF-Flat with every list probed against
+    the fused kernel's ids; cosine on IVF-Flat and CAGRA; save, load and
+    kneighbors equal; `umap_knn_graph` for euclidean (the fused kernel)
+    and manhattan against their plain forms."""
+    import torch
+
+    from spark_rapids_ml_torch.knn import (
+        ApproximateNearestNeighbors,
+        ApproximateNearestNeighborsModel,
+    )
+    from spark_rapids_ml_torch.ops.distances import finalize_sqdist, umap_knn_graph
+    from spark_rapids_ml_torch.ops.knn import knn_topk_blocked, knn_topk_single, smallest_k
+
+    k = ANN_K
+    out = {"cell": "(z) checks at 200k x 64"}
+    # full probe: the fold over every sub-list is exact
+    model = ApproximateNearestNeighbors(k=k, algoParams={"nlist": 448, "nprobe": 448}).fit(X2)
+    t0 = _synced(device)
+    _, _, df = model.kneighbors(Q2)
+    out["full_probe_s"] = _synced(device) - t0
+    out["full_probe_ids_equal_share"] = same_ids_ties_aside(
+        "(z) IVF-Flat full probe against the fused kernel", np.stack(df["indices"]), truth2,
+        X2, Q2)
+    # save, load, kneighbors equal
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ann")
+        model.save(path)
+        loaded = ApproximateNearestNeighborsModel.load(path)
+        _, _, df2 = loaded.kneighbors(Q2)
+    if not (np.array_equal(np.stack(df["indices"]), np.stack(df2["indices"]))
+            and np.array_equal(np.stack(df["distances"]), np.stack(df2["distances"]))):
+        raise AssertionError("(z) a loaded model's kneighbors differs from the saved one's")
+    log("  (z) save, load, kneighbors: equal ids and distances")
+    del model, loaded
+    # cosine: the exact truth is euclidean on unit rows
+    U = X2 / np.maximum(np.linalg.norm(X2, axis=1, keepdims=True), 1e-12).astype(np.float32)
+    ctruth, _, m = exact_neighbours(device, U, U[:ANN_QUERIES], k)
+    del m
+    for algo, params, floor in (("ivfflat", {"nlist": 448, "nprobe": 20}, ANN_FLOORS["ivfflat"]),
+                                ("cagra", {"graph_degree": 32}, 0.9)):
+        cm = ApproximateNearestNeighbors(k=k, algorithm=algo, algoParams=params,
+                                         metric="cosine").fit(X2)
+        _, _, cdf = cm.kneighbors(Q2)
+        ids, dist = np.stack(cdf["indices"]), np.stack(cdf["distances"])
+        rec = ann_recall(ids, ctruth)
+        cos = 1.0 - (U[:ANN_QUERIES, None, :].astype(np.float64)
+                     * U[ids].astype(np.float64)).sum(-1)
+        err = float(np.abs(dist - cos).max())
+        out[f"cosine_{algo}"] = {"recall_at_10": rec, "max_abs_distance_err": err}
+        log(f"  (z) cosine {algo} {params}: recall@10 {rec:.4f} (floor {floor}), "
+            f"|1 - cos error| {err:.2e} (limit 2e-3)")
+        if rec < floor or err > 2e-3:
+            raise AssertionError(f"(z) cosine {algo}: recall {rec:.4f} or distance error {err}")
+        del cm
+    # umap_knn_graph: euclidean rides the fused kernel, manhattan the tiled form
+    items_t, valid_t, ids_t = nn2._device_items[1]
+    Qt = torch.as_tensor(Q2, device=device)
+    dist, ids = umap_knn_graph(items_t, valid_t, ids_t, Qt, k, "euclidean")
+    umap_d2, _ = knn_topk_single(items_t, valid_t, ids_t, Qt, k)
+    pd2, pids = knn_topk_blocked(items_t, valid_t, ids_t, Qt, k)
+    out["umap_euclidean_err"] = hold_at_blob_norms(
+        "(z) umap_knn_graph euclidean against the plain blocked form", umap_d2, ids, pd2,
+        pids, X2, Q2)
+    # the final distances are the root of the squared ones, nothing else
+    if not torch.equal(dist, finalize_sqdist(umap_d2, "euclidean")):
+        raise AssertionError("(z) umap_knn_graph euclidean: distances are not sqrt(d2)")
+    q_man = Qt[:1000]
+    md, mi = umap_knn_graph(items_t, valid_t, ids_t, q_man, k, "manhattan")
+    man_ms = cuda_ms(lambda: umap_knn_graph(items_t, valid_t, ids_t, q_man, k, "manhattan"),
+                     reps=1)
+
+    def plain_manhattan():
+        return smallest_k(torch.cdist(q_man, items_t, p=1.0), k)
+
+    pmd, ppos = plain_manhattan()
+    plain_ms = cuda_ms(plain_manhattan, reps=1)
+    out["umap_manhattan_err"] = compare("(z) umap_knn_graph manhattan against cdist(p=1) + "
+                                        "top-k", md, mi, pmd, ids_t[ppos], exact=False)
+    out["umap_manhattan_ms"] = {"tiled": man_ms, "cdist_plain": plain_ms, "queries": 1000}
+    log(f"  (z) manhattan, 1,000 queries over {X2.shape}: tiled {man_ms:.3f} ms, cdist + "
+        f"top-k {plain_ms:.3f} ms")
+    return [out]
+
+
+def phase_ann(device, args) -> dict:
+    """Phase 13: ApproximateNearestNeighbors, (x), (y) and (z)."""
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    config.reset_config()
+    device_cache.clear_device_cache()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cells, kernel, X = phase_ann_x(device, args.seed)
+    log(f"  (x) done at {time.perf_counter() - t_phase:.1f} s")
+    ycells, z_data = phase_ann_y(device, X, args.seed)
+    del X
+    log(f"  (y) done at {time.perf_counter() - t_phase:.1f} s")
+    cells += ycells + phase_ann_z(device, *z_data)
+    log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"cells": cells, "kernel": kernel}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -4070,6 +4540,10 @@ def main() -> int:
     meta = phase_meta(device, args, wide_X, wide_y)
     del wide_X, wide_y
 
+    stage("phase 13: ApproximateNearestNeighbors: (x) IVF-Flat and IVF-PQ at BASELINE.json's "
+          "10M x 128, (y) CAGRA at 1M x 128 and bench.py's 200k x 64 ANN cell, (z) checks")
+    ann = phase_ann(device, args)
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
@@ -4078,7 +4552,8 @@ def main() -> int:
     print(json.dumps({"parquet": parquet["cells"]}, default=float))
     print(json.dumps({"cache_stats": cache_stats["cells"]}, default=float))
     print(json.dumps({"meta": meta["cells"]}, default=float))
-    print(json.dumps({"kernels": main_out["kernels"] + f64}))
+    print(json.dumps({"ann": ann["cells"]}, default=float))
+    print(json.dumps({"kernels": main_out["kernels"] + f64 + [ann["kernel"]]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -5,8 +5,9 @@
 # PyTorch, and the JAX package's one Pallas kernel is a CUDA C++ kernel
 # written for sm_90a (ops/fused_knn.py, ops/csrc/fused_knn.cu).
 #
-# Ported so far: exact NearestNeighbors (`spark_rapids_ml_torch.knn`),
-# LogisticRegression and RandomForestClassifier
+# Ported so far: exact and approximate NearestNeighbors (IVF-Flat, IVF-PQ,
+# CAGRA; `spark_rapids_ml_torch.knn`) with the metric kNN of
+# `ops/distances.py`, LogisticRegression and RandomForestClassifier
 # (`spark_rapids_ml_torch.classification`), PCA
 # (`spark_rapids_ml_torch.feature`), LinearRegression and
 # RandomForestRegressor (`spark_rapids_ml_torch.regression`), and KMeans and

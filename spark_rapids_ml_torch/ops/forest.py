@@ -37,11 +37,11 @@
 #
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from ..utils import timer_span
 from .kmeans import _generator, gumbel
 
 GINI, ENTROPY, VARIANCE = 0, 1, 2  # split criteria
@@ -50,11 +50,6 @@ GINI, ENTROPY, VARIANCE = 0, 1, 2  # split criteria
 # of a histogram chunk, the sorted block of columns of the edges (values
 # and int64 indices), the transposed chunk of `digitize`
 _CHUNK_BYTES = 1 << 29
-
-
-def _span(timer, name: str):
-    """`timer.span(name)` where a caller times the layers, else nothing."""
-    return timer.span(name) if timer is not None else contextlib.nullcontext()
 
 
 def bin_dtype(n_bins: int) -> torch.dtype:
@@ -349,9 +344,9 @@ def _grow_one_tree(
 
     for level, A_l in enumerate(widths):
         last = level == max_depth - 1
-        with _span(timer, "histogram"):
+        with timer_span(timer, "histogram"):
             hist = _histogram(Xb, slot, A_l, n_bins, values, classes, S)
-        with _span(timer, "split"):
+        with timer_span(timer, "split"):
             fmask = None
             if max_features < d:
                 # per-node feature subset: Gumbel top-K mask over features
@@ -374,7 +369,7 @@ def _grow_one_tree(
             count_arr[sids] = n_parent
             left_arr[sids] = torch.where(can_split, left_ids, -1).to(torch.int32)
 
-        with _span(timer, "route"):
+        with timer_span(timer, "route"):
             # route rows: left child if bin id <= split bin
             slot_c = torch.clamp(slot, max=A_l - 1)
             active = slot < A_l
@@ -410,7 +405,7 @@ def _grow_one_tree(
             del n_left
         base += 2 * A_l
 
-    with _span(timer, "leaf"):
+    with timer_span(timer, "leaf"):
         if classification:
             flat = torch.zeros(((n_nodes + 1) * S,), dtype=dtype, device=dev)
             flat.index_add_(0, node * S + classes, w)
@@ -427,9 +422,9 @@ def _forest_prep(X: torch.Tensor, y: torch.Tensor, valid: torch.Tensor, n_bins: 
     """Once per fit: the bin edges, the rows' bin ids and their statistic
     channels: (m, 3) = (1, y, y^2) in X's dtype for regression, the (m,)
     int64 class id for classification (each row adds to one channel)."""
-    with _span(timer, "prep.edges"):
+    with timer_span(timer, "prep.edges"):
         edges = compute_bin_edges(X, n_bins, valid=valid)
-    with _span(timer, "prep.digitize"):
+    with timer_span(timer, "prep.digitize"):
         Xb = digitize(X, edges)
     if criterion == VARIANCE:
         yf = y.to(X.dtype)

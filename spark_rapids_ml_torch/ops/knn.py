@@ -7,7 +7,9 @@
 #   knn_topk_blocked    plain torch, queries in blocks, one (block, n)
 #                       distance tile at a time;
 #   knn_topk_coltiled   plain torch, both axes in blocks, each tile folded
-#                       into a running (block, k) top-k.
+#                       into a running (block, k) top-k;
+#   smallest_k          the k smallest distances of each row in
+#                       `lax.top_k`'s order, for IVF and CAGRA.
 #
 # The JAX package's `pallas_knn` default is "off" and its "auto" runs a
 # measured probe, both because its Pallas kernel lost to XLA on the TPU.
@@ -53,6 +55,27 @@ def _merge_topk(run_d, run_i, blk_d, blk_i, k: int):
     cat_i = torch.cat([run_i, blk_i.expand(blk_d.shape[0], -1)], dim=1)
     srt, order = torch.sort(cat_d, dim=1, stable=True)
     return srt[:, :k], torch.gather(cat_i, 1, order[:, :k])
+
+
+def smallest_k(values: torch.Tensor, k: int):
+    """(values, positions) of the k smallest entries of each row, ascending,
+    ties to the lower position: `lax.top_k(-values, k)`.  `values` are
+    distances: non-negative or +inf.  In float32 one int64 key per entry,
+    the value's bits above the position, makes every entry distinct, so
+    `torch.topk` (which promises no order among equal values) returns that
+    exact order (the bits of non-negative floats order as the floats do);
+    other dtypes take a stable sort."""
+    width = values.shape[-1]
+    if values.dtype != torch.float32 or width >= 2**31:
+        srt, pos = torch.sort(values, dim=-1, stable=True)
+        return srt[..., :k], pos[..., :k]
+    pb = max(1, width - 1).bit_length()
+    # the sign bit off: -0.0 ranks as +0.0, as the comparison does
+    bits = (values.view(torch.int32) & 0x7FFFFFFF).to(torch.int64)
+    pos = torch.arange(width, dtype=torch.int64, device=values.device)
+    keys = torch.topk((bits << pb) | pos, k, dim=-1, largest=False, sorted=True).values
+    pos = keys & ((1 << pb) - 1)
+    return torch.gather(values, -1, pos), pos
 
 
 def knn_topk_blocked(items, item_valid, item_ids, queries, k: int,

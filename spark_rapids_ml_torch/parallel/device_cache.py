@@ -75,11 +75,10 @@ def _budget_device(device=None):
     return torch.device(device if device is not None else get_default_device())
 
 
-def device_data_budget_bytes(device=None) -> float:
-    """The bytes a staged dataset may take on `device` (default: the
-    default device): `hbm_bytes` (when None: the card's memory on a card,
-    the JAX package's 16 GiB on the CPU) times `mem_ratio_for_data`.  One
-    device, where the JAX package multiplies by its device count."""
+def device_memory_bytes(device=None) -> int:
+    """`hbm_bytes`, or when it is None the memory of `device` (default: the
+    default device): the card's on a card, the JAX package's 16 GiB on the
+    CPU."""
     from ..config import get_config
 
     hbm = get_config("hbm_bytes")
@@ -89,7 +88,16 @@ def device_data_budget_bytes(device=None) -> float:
         dev = _budget_device(device)
         hbm = (torch.cuda.get_device_properties(dev).total_memory
                if dev.type == "cuda" and torch.cuda.is_available() else _JAX_HBM_BYTES)
-    return float(hbm) * float(get_config("mem_ratio_for_data"))
+    return int(hbm)
+
+
+def device_data_budget_bytes(device=None) -> float:
+    """The bytes a staged dataset may take on `device` (default: the
+    default device): `device_memory_bytes` times `mem_ratio_for_data`.  One
+    device, where the JAX package multiplies by its device count."""
+    from ..config import get_config
+
+    return float(device_memory_bytes(device)) * float(get_config("mem_ratio_for_data"))
 
 
 def cache_budget_bytes(device=None) -> float:

@@ -89,6 +89,13 @@ class RowStager:
         return self._assemble(arr.shape, dtype,
                               lambda lo, hi: arr[lo:hi].astype(dtype, copy=False))
 
+    def copy(self, arr: np.ndarray) -> torch.Tensor:
+        """(n_rows, ...) host array -> device tensor of its own dtype, by
+        the same chunked copies, not counted as a dataset staging (an
+        index's arrays)."""
+        arr = np.asarray(arr)
+        return self._assemble(arr.shape, arr.dtype, lambda lo, hi: arr[lo:hi])
+
     def stage_sparse(self, X, dtype: Optional[np.dtype] = None) -> torch.Tensor:
         """Host CSR matrix -> DENSE device tensor, densified chunk by chunk,
         so the host never holds the whole dense matrix."""

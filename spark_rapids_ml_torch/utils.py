@@ -2,10 +2,12 @@
 # Utilities — the port of the pieces of spark_rapids_ml_tpu/utils.py the
 # port uses: the per-class logger, the host batch record, the partition
 # layout of a fit and `prefetch_iter`, the producer thread of the fused
-# pass and of the parquet streams.
+# pass and of the parquet streams; and `timer_span`, the layer timer hook
+# of the ops that take `timer=`.
 #
 from __future__ import annotations
 
+import contextlib
 import logging
 import queue
 import sys
@@ -16,6 +18,11 @@ from typing import Iterable, Iterator, List, Optional, Type, Union
 import numpy as np
 
 _logger_initialized = set()
+
+
+def timer_span(timer, name: str):
+    """`timer.span(name)` where a caller times the layers, else nothing."""
+    return timer.span(name) if timer is not None else contextlib.nullcontext()
 
 
 def get_logger(cls: Union[Type, str], level: int = logging.INFO) -> logging.Logger:

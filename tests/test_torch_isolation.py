@@ -1,7 +1,8 @@
 #
 # The port stands alone: no module of spark_rapids_ml_torch, nor
 # chip_smoke.py or compare_kernels.py, imports JAX or the JAX package; the port runs with both
-# made unimportable (its fits from parquet included: streaming.py and the
+# made unimportable (ApproximateNearestNeighbors' three algorithms, and its
+# fits from parquet included: streaming.py and the
 # parquet readers of fused.py, the chunk cache and the statistics; and the
 # meta layer: a CrossValidator fit, and the load of a CrossValidatorModel the
 # JAX package saved, which names the JAX package's model class); and
@@ -88,6 +89,12 @@ def test_port_runs_with_jax_unimportable(tmp_path):
         "_, _, df = NearestNeighbors(k=3).fit(X).kneighbors(X[:5])\n"
         "idx = np.stack(df['indices'])\n"
         "assert (idx[:, 0] == np.arange(5)).all(), idx\n"
+        "from spark_rapids_ml_torch.knn import ApproximateNearestNeighbors\n"
+        "for algo in ('ivfflat', 'ivfpq', 'cagra'):\n"
+        "    ann = ApproximateNearestNeighbors(k=3, algorithm=algo, algoParams={\n"
+        "        'nlist': 4, 'M': 2, 'graph_degree': 8}).fit(X)\n"
+        "    idx = np.stack(ann.kneighbors(X[:5])[2]['indices'])\n"
+        "    assert idx.shape == (5, 3) and (algo == 'ivfpq' or (idx[:, 0] == np.arange(5)).all())\n"
         "from spark_rapids_ml_torch.classification import LogisticRegression\n"
         "y = (X[:, 0] > 0).astype(np.float64)\n"
         "pred = LogisticRegression(regParam=0.01).fit((X, y)).transform(X)['prediction']\n"
