@@ -120,15 +120,16 @@ Phases, each of which makes the script exit non-zero when it fails:
    entry points (no hand-written kernel: the histogram is `scatter_add_`
    over row chunks, the rest torch ops): (l) the reference benchmark's
    random_forest_classifier_50t_d13 (numTrees=50, maxDepth=13,
-   maxBins=128, bench.py:1013-1016; 20 of its 50 trees) and (m)
+   maxBins=128, bench.py:1013-1016; 6 of its 50 trees) and (m)
    random_forest_regressor_30t_d6
-   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed) on
+   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed; 10
+   of its 30 trees) on
    phase 5's (b) rows, 1,000,000 x 3000; (n) BASELINE.json's classifier
    (maxDepth=16, bench.py:221-224) on (h)'s 100,000,000 x 64 standard
-   normal rows with a linear label, its 100 trees cut to 4;
+   normal rows with a linear label, its 100 trees cut to 2;
    (o) float64 with weights in [0.2, 2), bootstrap and a feature subset
    (gini, entropy and variance), card against CPU.  Each of (l)-(n): fits
-   from a DeviceDataset and from numpy (at (l) and (m) 10 trees: the
+   from a DeviceDataset and from numpy (at (l) and (m) 3 trees, at (n) 1: the
    same first trees), a transform of 1,000,000 rows, the
    card's busy share over a one-tree fit, and two trees (one at (n))
    grown by ops/forest.py `forest_fit` from draws the phase makes, with
@@ -243,15 +244,42 @@ Phases, each of which makes the script exit non-zero when it fails:
    load and kneighbors bit-equal, `umap_knn_graph` euclidean against the
    plain blocked form and manhattan against cdist(p=1) + top-k.
 
+14. UMAP through the public entry points (torch ops; the fused kernel
+   gives its brute-force graph and every transform's neighbours), on (x)'s
+   host rows before they are freed: (aa) BASELINE.json configs[4]: a
+   tenth of the 10M x 128 rows (about 1M, the reference fits UMAP on one
+   worker's sample), n_neighbors 15, build_algo "auto" (NN-descent),
+   200 epochs, spectral init, random_state 0: the fit's seconds by part
+   (sampling, staging, the kNN graph, smooth_knn_dist, the fuzzy set,
+   find_ab_params, the init's host SVD, the SGD with ms an epoch against
+   its bytes bound and the form chosen), a transform of 10,000 held-out
+   rows (queries/s), and trustworthiness on 5,000 of the fit's rows held
+   at UMAP_TRUST_FLOOR; (bb) bench.py:814-860's bench_umap cells, 100,000
+   x 32 standard normal rows and 100 epochs, 1,000,000 x 32 and 50, no
+   random_state: the measured probe's verdict and both warm epoch times;
+   (cc) the fused kernel on UMAP's path: a brute-force fit of 50,000 of
+   (x)'s rows (k = 16, items = queries) and (aa)'s transform at
+   n_neighbors 40, which launches the k > 32 merge
+   (`merge_partials_kernel<float>`): the launches counted, each kernel held
+   against its plain version (on the blobs every differing id slot a tie,
+   the share recorded; at the same shapes on standard normal rows ids
+   equal on 99.9% of slots), the merge bit for bit and its device time
+   from a CUDA graph; (dd) a float64
+   fit on the card against the CPU (2,000 x 16, the same draws handed to
+   both: the optimizer's inputs within 1e-12, its result within 1e-9),
+   two random_state=0 fits bit-equal, a CSR fit against the dense fit of
+   the same rows (1e-6), save and load bit-equal, a cosine fit.
+
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
 of the clustering cells' numbers, one of the forest cells' numbers
 ({"forest": [...]}), one of the parquet cells' numbers
 ({"parquet": [...]}), one of the chunk cache and statistics cells'
 numbers ({"cache_stats": [...]}), one of the meta layer's cells
-({"meta": [...]}), one of the ANN cells ({"ann": [...]}), a JSON object
-of the kernels' numbers (phase 13 adds the float32 fused function at
-(x)'s shape),
+({"meta": [...]}), one of the ANN cells ({"ann": [...]}), one of the
+UMAP cells ({"umap": [...]}), a JSON object of the kernels' numbers
+(phase 13 adds the float32 fused function at (x)'s shape, phase 14 the
+fused function at UMAP's two shapes and the k > 32 merge),
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -2896,12 +2924,14 @@ def phase_forest_float64(device, n: int, seed: int) -> dict:
     return {"cells": recs}
 
 
-# (n): BASELINE.json configs[3]'s rows; its 100 trees cut to what the
-# script's time allows (about 3.2 s a tree on an H100)
-RF_N_ROWS, RF_N_TREES = 100_000_000, 4
-# (l) grows 20 of the reference benchmark's 50 trees (phase 10's parquet
-# fits took the minute the other 30 would)
-RF_L_TREES = 20
+# The phase's trees, cut to what the script's time allows (its limit is
+# 1,200 s; phase 14, UMAP, took about a minute of it): (n) BASELINE.json
+# configs[3]'s rows, 2 of its 100 trees (about 3.2 s a tree on an H100),
+# its fit from numpy 1; (l) 6 of the reference benchmark's 50 trees
+# (1.5 s a tree), (m) 10 of its 30 (0.8 s a tree), their fits from numpy 3
+# (the same first trees)
+RF_N_ROWS, RF_N_TREES = 100_000_000, 2
+RF_L_TREES, RF_M_TREES, RF_NUMPY_TREES = 6, 10, 3
 
 
 def phase_forest(device, args, wide_X, wide_y) -> dict:
@@ -2933,12 +2963,13 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
                                                 maxBins=128, seed=0), **kw})
 
     # the fit from a DeviceDataset grows RF_L_TREES of the 50 trees, the fit
-    # from numpy 10 (the same first trees): a tree costs the same as in the
-    # 50-tree fit, and the other trees would add a minute to the script
+    # from numpy RF_NUMPY_TREES (the same first trees): a tree costs the same
+    # as in the 50-tree fit, and the other trees would add a minute to the
+    # script
     cells.append(phase_forest_cell(device, f"(l) random_forest_classifier_50t_d13 {n}x{d}, "
                                    f"{RF_L_TREES} of its 50 trees", Xl,
                                    yl, rfc, wide_X, wide_y, 2, False, 2, args.seed + 71,
-                                   1_000_000, numpy_trees=10))
+                                   1_000_000, numpy_trees=RF_NUMPY_TREES))
     clf_model = cells[-1].pop("model")
 
     # (m): a label made from the seed, a nonlinear function of a few columns
@@ -2949,12 +2980,13 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
     ym_host = ym.cpu().numpy()
 
     def rfr(**kw):
-        return RandomForestRegressor(**{**dict(numTrees=30, maxDepth=6,
+        return RandomForestRegressor(**{**dict(numTrees=RF_M_TREES, maxDepth=6,
                                                maxBins=128, seed=0), **kw})
 
-    cells.append(phase_forest_cell(device, f"(m) random_forest_regressor_30t_d6 {n}x{d}", Xl, ym,
+    cells.append(phase_forest_cell(device, f"(m) random_forest_regressor_30t_d6 {n}x{d}, "
+                                   f"{RF_M_TREES} of its 30 trees", Xl, ym,
                                    rfr, wide_X, ym_host, 0, False, 2, args.seed + 73,
-                                   1_000_000, numpy_trees=10))
+                                   1_000_000, numpy_trees=RF_NUMPY_TREES))
     # check 6: the DeviceDataset fit and the fit from numpy are two card fits
     # from one seed; the regression channels sum with atomics
     log(f"  (m): two card fits from one seed give equal trees: "
@@ -2985,7 +3017,8 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
 
     cells.append(phase_forest_cell(device, f"(n) RandomForestClassifier depth 16 {nn_}x64, "
                                    f"{RF_N_TREES} of BASELINE's 100 trees", Xn, yn, rfn,
-                                   Xn_host, yn_host, 2, False, 1, args.seed + 74, 1_000_000))
+                                   Xn_host, yn_host, 2, False, 1, args.seed + 74, 1_000_000,
+                                   numpy_trees=1))
     cells[-1].pop("model")
     del Xn, yn, Xn_host, yn_host
     torch.cuda.empty_cache()
@@ -4389,12 +4422,428 @@ def phase_ann(device, args) -> dict:
     cells, kernel, X = phase_ann_x(device, args.seed)
     log(f"  (x) done at {time.perf_counter() - t_phase:.1f} s")
     ycells, z_data = phase_ann_y(device, X, args.seed)
-    del X
     log(f"  (y) done at {time.perf_counter() - t_phase:.1f} s")
     cells += ycells + phase_ann_z(device, *z_data)
     log(f"  phase 13 {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
-    return {"cells": cells, "kernel": kernel}
+    # (x)'s host rows stay for phase 14
+    return {"cells": cells, "kernel": kernel, "X": X}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: UMAP
+# ---------------------------------------------------------------------------
+
+# (aa) BASELINE.json configs[4] (UMAP / approx k-NN on 10M x 128) fits on a
+# tenth of (x)'s rows, as the reference fits UMAP on one worker's sample;
+# (bb) bench.py's bench_umap cells (bench.py:814-860); (cc) the fused kernel
+# on UMAP's path: a brute-force fit, and a transform at k > 32; (dd) checks
+UMAP_AA_FRACTION = 0.1
+UMAP_QUERIES = 10_000
+UMAP_TRUST_ROWS = 5_000
+UMAP_BB = ((100_000, 100, 5), (1_000_000, 50, 7))  # rows, epochs, numpy seed
+UMAP_CC_ROWS, UMAP_CC_K = 50_000, 40
+# (dd)'s float64 epochs, card against CPU: few, since the SGD grows a
+# last-place difference about tenfold an epoch
+UMAP_DD_EPOCHS = 6
+# trustworthiness (k = 15, 5,000 of the fit's rows) held at (aa), from CPU
+# runs of the port and the JAX package on card_blobs at a cut size
+# (PERF.md section 6)
+UMAP_TRUST_FLOOR = 0.99
+
+
+def trustworthiness(X, emb, k: int, device) -> float:
+    """scikit-learn's trustworthiness (the card has no scikit-learn): 1 -
+    2 / (n k (2n - 3k - 1)) times the sum, over each row's k nearest in the
+    embedding, of how far past k each ranks among the row's nearest in the
+    input space; float64 distances on `device`, self excluded."""
+    import torch
+
+    Xt = torch.as_tensor(np.asarray(X, np.float64), device=device)
+    Et = torch.as_tensor(np.asarray(emb, np.float64), device=device)
+    n = Xt.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=device)
+    order = torch.argsort(torch.cdist(Xt, Xt).masked_fill_(eye, float("inf")), dim=1,
+                          stable=True)
+    ranks = torch.empty_like(order).scatter_(
+        1, order, torch.arange(1, n + 1, device=device).expand(n, n).contiguous())
+    near = torch.argsort(torch.cdist(Et, Et).masked_fill_(eye, float("inf")), dim=1,
+                         stable=True)[:, :k]
+    t = float((torch.gather(ranks, 1, near) - k).clamp_min(0).sum())
+    return 1.0 - t * (2.0 / (n * k * (2.0 * n - 3.0 * k - 1.0)))
+
+
+def umap_epoch_bound(n: int, k: int, dim: int, nsr: int, itemsize: int) -> tuple:
+    """(least ms of one SGD epoch on the card, "bytes"): the rows it
+    gathers (each edge's tail and its nsr negative samples, dim values
+    each), the edge list read once (int32 tails, frequencies) and the
+    embedding read and written once, at 3.35 TB/s.  Its arithmetic (about
+    30 operations an edge and 25 a sample) takes a tenth of that at
+    67 TFLOP/s."""
+    E = n * k
+    nbytes = E * (1 + nsr) * dim * itemsize + E * (4 + itemsize) + 2 * n * dim * itemsize
+    flops = 30.0 * E + 25.0 * E * nsr
+    return bound(flops, _PEAK_FP32, nbytes)
+
+
+def _fit_parts(parts: dict) -> str:
+    keys = ("sample", "stage", "knn_graph", "smooth_knn_dist", "fuzzy_set", "supervised",
+            "find_ab_params", "init", "sgd")
+    return ", ".join(f"{k} {parts[k]:.3f}" for k in keys if k in parts)
+
+
+def umap_aa(device, X, seed: int) -> tuple:
+    """(aa) BASELINE.json configs[4]: a tenth of (x)'s 10M x 128 blobs
+    (about 1M fit rows), n_neighbors 15, build_algo "auto" (NN-descent past
+    50,000 rows), the auto epochs (200), spectral init, random_state 0;
+    then 10,000 held-out rows transformed (the fused kernel, k = 15), and
+    trustworthiness on 5,000 of the fit's rows held at its floor."""
+    from spark_rapids_ml_torch.models import umap as umap_models
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+    from spark_rapids_ml_torch.ops import umap as umap_ops
+    from spark_rapids_ml_torch.umap import UMAP
+
+    t0 = _synced(device)
+    model = UMAP(sample_fraction=UMAP_AA_FRACTION, n_neighbors=15, random_state=seed).fit(X)
+    fit_s = _synced(device) - t0
+    parts, dec = dict(umap_models.LAST_FIT), dict(umap_ops.LAST_KERNEL_DECISION)
+    n, epochs = parts["n_rows"], parts["n_epochs"]
+    emb = model.embedding_
+    if parts["graph"] != "nn_descent" or emb.shape != (n, 2) or not np.isfinite(emb).all():
+        raise AssertionError(f"(aa) fit: graph {parts['graph']}, embedding {emb.shape}, "
+                             f"finite {np.isfinite(emb).all()}")
+    epoch_ms = parts["sgd"] / epochs * 1e3
+    bound_ms, _ = umap_epoch_bound(n, 15, 2, 5, 4)
+    log(f"  (aa) fit of {n} of {X.shape[0]} rows x {X.shape[1]}: {fit_s:.3f} s; parts (s): "
+        f"{_fit_parts(parts)}; SGD {epochs} epochs, {dec['kernel']} ({dec['decided_by']}), "
+        f"{epoch_ms:.3f} ms an epoch against a {bound_ms:.4f} ms bound "
+        f"({bound_ms / epoch_ms:.2%})")
+    keep = np.random.default_rng(seed).random(X.shape[0]) < UMAP_AA_FRACTION
+    Q = np.ascontiguousarray(X[np.flatnonzero(~keep)[:UMAP_QUERIES]])
+    reset_counts()
+    t0 = _synced(device)
+    out = model.transform(Q)  # the first stages the training rows
+    first_s = _synced(device) - t0
+    t0 = _synced(device)
+    out2 = model.transform(Q)
+    warm_s = _synced(device) - t0
+    launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
+    if (min(launches.values()) < 1 or out.shape != (len(Q), 2) or not np.isfinite(out).all()
+            or not np.array_equal(out, out2)):
+        raise AssertionError(f"(aa) transform: launches {launches}, {out.shape}, or two "
+                             "transforms differ")
+    sub = np.random.default_rng(seed + 1).choice(n, UMAP_TRUST_ROWS, replace=False)
+    trust = trustworthiness(model.raw_data_[sub], emb[sub], 15, device)
+    log(f"  (aa) transform of {len(Q)} held-out rows (fused kernel, k = 15): first {first_s:.3f}"
+        f" s (training rows staged), warm {warm_s:.3f} s, {len(Q) / warm_s:.1f} queries/s; "
+        f"launches {launches}; trustworthiness {trust:.4f} on {UMAP_TRUST_ROWS} fit rows "
+        f"(floor {UMAP_TRUST_FLOOR})")
+    if trust < UMAP_TRUST_FLOOR:
+        raise AssertionError(f"(aa) trustworthiness {trust:.4f} below {UMAP_TRUST_FLOOR}")
+    cell = {"cell": "(aa) BASELINE.json configs[4], UMAP", "rows": list(X.shape),
+            "fit_rows": n, "fit_s": fit_s, "parts_s": {k: v for k, v in parts.items()
+                                                       if isinstance(v, float)},
+            "graph": parts["graph"], "n_epochs": epochs, "kernel": dec,
+            "epoch_ms": epoch_ms, "epoch_bound_ms": bound_ms,
+            "transform_first_s": first_s, "transform_warm_s": warm_s,
+            "transform_queries_per_s": len(Q) / warm_s, "transform_launches": launches,
+            "trustworthiness": trust, "trust_floor": UMAP_TRUST_FLOOR}
+    return cell, model, Q
+
+
+def umap_bb(device) -> list:
+    """(bb) bench.py's bench_umap cells: standard normal rows x 32,
+    n_neighbors 15, no random_state (the measured probe decides the
+    form): 100,000 rows and 100 epochs, 1,000,000 rows and 50 epochs."""
+    from spark_rapids_ml_torch.models import umap as umap_models
+    from spark_rapids_ml_torch.ops import umap as umap_ops
+    from spark_rapids_ml_torch.umap import UMAP
+
+    cells = []
+    for n, epochs, rs in UMAP_BB:
+        X = np.random.default_rng(rs).standard_normal((n, 32)).astype(np.float32)
+        t0 = _synced(device)
+        m = UMAP(n_neighbors=15, n_epochs=epochs).fit(X)
+        fit_s = _synced(device) - t0
+        parts, dec = dict(umap_models.LAST_FIT), dict(umap_ops.LAST_KERNEL_DECISION)
+        if not np.isfinite(m.embedding_).all() or dec["warm_epoch_sec_generic"] is None:
+            raise AssertionError(f"(bb) {n} x 32: not finite, or no probe: {dec}")
+        sgd_epoch_ms = parts["sgd"] / epochs * 1e3
+        bound_ms, _ = umap_epoch_bound(n, 15, 2, 5, 4)
+        log(f"  (bb) {n} x 32, {epochs} epochs: fit {fit_s:.3f} s ({n / fit_s:.1f} rows/s); "
+            f"parts (s): {_fit_parts(parts)}; probe: generic "
+            f"{dec['warm_epoch_sec_generic'] * 1e3:.3f} ms, structured "
+            f"{dec['warm_epoch_sec_structured'] * 1e3:.3f} ms a warm epoch -> {dec['kernel']} "
+            f"({dec['decided_by']}); SGD {sgd_epoch_ms:.3f} ms an epoch, bound "
+            f"{bound_ms:.4f} ms")
+        cells.append({"cell": f"(bb) bench_umap {n}x32, {epochs} epochs", "fit_s": fit_s,
+                      "rows_per_s": n / fit_s, "graph": parts["graph"],
+                      "parts_s": {k: v for k, v in parts.items() if isinstance(v, float)},
+                      "kernel": dec, "sgd_epoch_ms": sgd_epoch_ms,
+                      "epoch_bound_ms": bound_ms})
+    return cells
+
+
+def umap_fused_entry(device, items_t, valid_t, queries_t, k: int, launches: int, X, Q,
+                     what: str, seed: int) -> tuple:
+    """The float32 fused function at one of UMAP's shapes: timed and held
+    against its plain version twice.  On UMAP's own rows, (x)'s blobs: d2
+    within 1e-5 of the norms the identity cancels and every differing id
+    slot a tie (phase 13's rule; near ties are many on blobs this dense, so
+    the share is recorded, not held).  At the same shape on unit-scale
+    standard normal rows (phase 3's regime, here with queries among the
+    items): the same d2 rule, and ids equal on 99.9% of slots, every other
+    slot a tie.  Beside its bound and the
+    library's matmul + topk.  Returns (the kernel entry, the main kernel's
+    partial lists on UMAP's rows and their split count)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    n, d = items_t.shape
+    q = queries_t.shape[0]
+    ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, queries_t, k), reps=3)
+    kd, kp = fk.fused_topk_sqdist(items_t, valid_t, queries_t, k)
+    plain = {}
+
+    def run_plain():
+        plain["out"] = fk.fused_topk_sqdist_reference(items_t, valid_t, queries_t, k, bq=1024,
+                                                      bn=8192)
+
+    plain_ms = cuda_ms(run_plain, reps=1, warm=False)
+    err = hold_at_blob_norms(f"(cc) fused function, {what}: kernel vs twin", kd, kp,
+                             *plain["out"], X, Q)
+    share = float((kp == plain["out"][1]).float().mean())
+    del kd, kp, plain
+    gen = torch.Generator(device=device).manual_seed(seed)
+    Xn = torch.randn((n, d), generator=gen, device=device)
+    Qn = Xn[:q].contiguous() if q < n else Xn
+    vn = torch.ones(n, device=device)
+    nd, npos = fk.fused_topk_sqdist(Xn, vn, Qn, k)
+    td, tpos = fk.fused_topk_sqdist_reference(Xn, vn, Qn, k, bq=1024, bn=8192)
+    name = f"(cc) fused function at the shape of {what}, standard normal rows: kernel vs twin"
+    hold_at_blob_norms(name, nd, npos, td, tpos, Xn.cpu().numpy(), Qn.cpu().numpy())
+    share_normal = float((npos == tpos).float().mean())
+    if share_normal < 0.999:
+        raise AssertionError(f"{name}: ids equal on {share_normal:.6f} of slots, below 0.999")
+    del Xn, Qn, vn, nd, npos, td, tpos
+    library_ms = cuda_ms(lambda: library_topk(items_t, queries_t, k, block=1024), reps=1,
+                         warm=False)
+    flops = 2.0 * q * n * d
+    nbytes = 4.0 * (n * d + q * d + 2 * n) + 8.0 * q * k
+    bound_ms, bound_by = bound(3 * flops, _PEAK_TF32, nbytes)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = fk.auto_splits(n, q, k, sms)
+    part_d, part_i = fk.topk_partials(items_t, valid_t, queries_t, k, splits)
+    log(f"  (cc) fused_topk_sqdist, {what}: {ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}, "
+        f"share {bound_ms / ms:.1%}); twin {plain_ms:.3f} ms; library matmul+topk "
+        f"{library_ms:.3f} ms; launches on UMAP's path {launches}; S = {splits}")
+    return entry("fused_knn_tf32", launches, err, ms, plain_ms, bound_ms, bound_by, library_ms,
+                 f"{n}x{d} float32 items, {q} queries, k={k}, S={splits} ({what}); library_ms "
+                 "in 1024-query blocks", ids_equal_share_blobs=share,
+                 ids_equal_share_normal=share_normal), part_d, part_i, splits
+
+
+def umap_cc(device, X10m, aa_model, Q, seed: int) -> tuple:
+    """(cc) the fused kernel on UMAP's path: a brute-force fit of the first
+    50,000 of (x)'s rows (build_algo "auto" takes brute force at this size:
+    items = queries, k = 16), and a transform of (aa)'s 10,000 held-out rows
+    with n_neighbors 40, which launches the k > 32 merge
+    (`merge_partials_kernel<float>`); each launch counted, each kernel held
+    against its plain version, the merge's device time from a CUDA graph."""
+    import torch
+
+    from spark_rapids_ml_torch.models import umap as umap_models
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+    from spark_rapids_ml_torch.umap import UMAP
+
+    Xc = np.ascontiguousarray(X10m[:UMAP_CC_ROWS])
+    reset_counts()
+    t0 = _synced(device)
+    model = UMAP(n_neighbors=15, random_state=0).fit(Xc)
+    fit_s = _synced(device) - t0
+    fit_launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
+    parts = dict(umap_models.LAST_FIT)
+    if parts["graph"] != "brute_force_knn" or min(fit_launches.values()) < 1:
+        raise AssertionError(f"(cc) fit: graph {parts['graph']}, launches {fit_launches}")
+    log(f"  (cc) brute-force fit of {Xc.shape}: {fit_s:.3f} s; parts (s): {_fit_parts(parts)};"
+        f" launches {fit_launches}")
+    Xt = torch.as_tensor(Xc, device=device)
+    ones = torch.ones(Xt.shape[0], device=device)
+    kernels = [umap_fused_entry(device, Xt, ones, Xt, 16, fit_launches["main"], Xc, Xc,
+                                f"UMAP's brute-force fit graph, {UMAP_CC_ROWS} x 128",
+                                seed)[0]]
+    del Xt, ones
+    aa_model._set_params(n_neighbors=UMAP_CC_K)
+    try:
+        reset_counts()
+        t0 = _synced(device)
+        out = aa_model.transform(Q)
+        t_s = _synced(device) - t0
+        launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
+    finally:
+        aa_model._set_params(n_neighbors=15)
+    if min(launches.values()) < 1 or not np.isfinite(out).all():
+        raise AssertionError(f"(cc) transform at k = {UMAP_CC_K}: launches {launches}")
+    log(f"  (cc) transform of {len(Q)} rows at n_neighbors {UMAP_CC_K}: {t_s:.3f} s; launches "
+        f"{launches}")
+    items_t, valid_t = aa_model._device_items[1][:2]
+    Qt = torch.as_tensor(Q, device=device)
+    fused, part_d, part_i, splits = umap_fused_entry(
+        device, items_t, valid_t, Qt, UMAP_CC_K, launches["main"], aa_model.raw_data_, Q,
+        f"(aa)'s transform at n_neighbors {UMAP_CC_K}", seed + 1)
+    kernels.append(fused)
+    merge = merge_entry(part_d, part_i, (Qt * Qt).sum(dim=1), UMAP_CC_K, launches["merge"])
+    merge.update(name="merge_partials_kernel<float32>, k > 32",
+                 shape=merge["shape"] + "; UMAP transform, its first launches on a real path")
+    kernels.append(merge)
+    cells = [{"cell": "(cc) the fused kernel on UMAP's path", "fit_rows": UMAP_CC_ROWS,
+              "fit_s": fit_s, "fit_launches": fit_launches, "transform_k": UMAP_CC_K,
+              "transform_s": t_s, "transform_launches": launches, "splits": splits}]
+    return cells, kernels, model
+
+
+def _spy_optimizer(store: dict, draws):
+    """Wrap ops/umap.py's optimize_embedding for one fit: record its
+    inputs, hand it `draws`.  Returns the function to put back."""
+    from spark_rapids_ml_torch.ops import umap as umap_ops
+
+    real = umap_ops.optimize_embedding
+
+    def spy(*args, **kw):
+        store["args"] = [a.detach().cpu().numpy() for a in args[:4]] + list(args[4:])
+        store["kw"] = dict(kw)
+        return real(*args, draws=draws, **kw)
+
+    umap_ops.optimize_embedding = spy
+    return real
+
+
+def umap_dd(device, seed: int, cc_model, Xc) -> dict:
+    """(dd) checks: a float64 fit on the card against the CPU (2,000 x 16
+    blobs, the same draws handed to both, the structured form on both): the
+    optimizer's inputs equal (init and edges bit for bit, weights, rho and
+    sigma within 1e-12) and the card's optimizer from the CPU fit's inputs
+    within 1e-9 of the CPU's embedding (6 epochs: the SGD grows last-place
+    differences of exp and pow about tenfold an epoch); two random_state=0
+    fits on the card bit-equal; a CSR fit equal to the dense fit of the same
+    rows; save and load bit-equal; a cosine fit."""
+    import scipy.sparse as sp
+    import torch
+
+    from spark_rapids_ml_torch import config, set_default_device
+    from spark_rapids_ml_torch.ops import umap as umap_ops
+    from spark_rapids_ml_torch.umap import UMAP, UMAPModel
+
+    out = {"cell": "(dd) checks"}
+    X64, _ = make_blobs(2000, 16, 8, 1.0, seed + 14)
+    draws = [np.random.default_rng(seed + 15 + e).integers(0, 2000, (2000 * 15, 5))
+             for e in range(UMAP_DD_EPOCHS)]
+    kw = dict(n_neighbors=15, random_state=seed, n_epochs=UMAP_DD_EPOCHS, float32_inputs=False)
+    got = {}
+    config.set_config(umap_kernel="structured")
+    try:
+        for where in ("card", "cpu"):
+            set_default_device(device if where == "card" else "cpu")
+            store = {}
+            real = _spy_optimizer(store, draws)
+            try:
+                got[where] = (UMAP(**kw).fit(X64), store)
+            finally:
+                umap_ops.optimize_embedding = real
+        set_default_device(device)
+        (mc, sc), (mh, sh) = got["card"], got["cpu"]
+        for i in range(3):
+            if not np.array_equal(sc["args"][i], sh["args"][i]):
+                raise AssertionError(f"(dd) float64: optimizer input {i} differs card vs CPU")
+        errs = {"weights": np.abs(sc["args"][3] - sh["args"][3]).max(),
+                "rho": np.abs(mc.rho_ - mh.rho_).max(),
+                "sigma": np.abs(mc.sigma_ - mh.sigma_).max()}
+        emb = umap_ops.optimize_embedding(
+            *(torch.as_tensor(a, device=device) for a in sh["args"][:4]), *sh["args"][4:],
+            draws=draws, **sh["kw"])
+        errs["optimizer"] = np.abs(emb.cpu().numpy() - mh.embedding_).max()
+        errs["whole_fit_not_held"] = np.abs(mc.embedding_ - mh.embedding_).max()
+    finally:
+        config.reset_config()
+        set_default_device(device)
+    log(f"  (dd) float64 card against CPU, 2000 x 16, {UMAP_DD_EPOCHS} epochs, the same draws: "
+        f"{errs} "
+        "(limits 1e-12, 1e-12, 1e-12, 1e-9; the whole fit is not held: an edge whose weight "
+        "sits one unit in the last place from a floor((e + 1) f) crossing is sampled in "
+        "another epoch)")
+    if max(errs["weights"], errs["rho"], errs["sigma"]) > 1e-12 or errs["optimizer"] > 1e-9:
+        raise AssertionError(f"(dd) float64 card against CPU: {errs}")
+    out["float64_card_vs_cpu"] = {k: float(v) for k, v in errs.items()}
+    # two random_state=0 fits bit-equal (the structured form: no atomics)
+    Xr, _ = make_blobs(20_000, 32, 20, 1.0, seed + 16)
+    Xr = Xr.astype(np.float32)
+    a = UMAP(n_neighbors=15, random_state=0, n_epochs=100).fit(Xr)
+    form = umap_ops.LAST_KERNEL_DECISION["kernel"]
+    b = UMAP(n_neighbors=15, random_state=0, n_epochs=100).fit(Xr)
+    if not (form == "structured" and np.array_equal(a.embedding_, b.embedding_)
+            and np.array_equal(a.transform(Xr[:1000]), b.transform(Xr[:1000]))):
+        raise AssertionError(f"(dd) two random_state=0 fits differ (form {form})")
+    log(f"  (dd) two random_state=0 fits of 20000 x 32 ({form}): bit-equal")
+    # CSR against dense
+    rng = np.random.default_rng(seed + 17)
+    Xs = rng.normal(size=(5000, 64)).astype(np.float32)
+    Xs[rng.random(Xs.shape) < 0.7] = 0.0
+    ckw = dict(n_neighbors=15, random_state=0, n_epochs=50, init="random")
+    m_s, m_d = UMAP(**ckw).fit(sp.csr_matrix(Xs)), UMAP(**ckw).fit(Xs)
+    csr_err = float(np.abs(m_s.embedding_ - m_d.embedding_).max())
+    t_err = float(np.abs(m_s.transform(sp.csr_matrix(Xs[:500])) - m_d.transform(Xs[:500])).max())
+    log(f"  (dd) CSR fit against the dense fit of the same 5000 x 64 rows: max |diff| "
+        f"{csr_err:.3e}, transform {t_err:.3e} (limit 1e-6)")
+    if max(csr_err, t_err) > 1e-6:
+        raise AssertionError(f"(dd) CSR fit differs from the dense fit: {csr_err}, {t_err}")
+    out["csr_vs_dense"] = {"fit": csr_err, "transform": t_err}
+    # save and load
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "umap")
+        cc_model.save(path)
+        loaded = UMAPModel.load(path)
+        same = (np.array_equal(loaded.embedding_, cc_model.embedding_)
+                and np.array_equal(loaded.transform(Xc[:1000]), cc_model.transform(Xc[:1000])))
+    if not same:
+        raise AssertionError("(dd) a loaded UMAP model differs from the saved one")
+    log("  (dd) save, load, transform: bit-equal")
+    # cosine
+    cm = UMAP(n_neighbors=15, random_state=0, n_epochs=50, metric="cosine").fit(Xr[:5000])
+    if cm.embedding_.shape != (5000, 2) or not np.isfinite(cm.embedding_).all():
+        raise AssertionError("(dd) cosine fit")
+    ct = cm.transform(Xr[5000:6000])
+    if not np.isfinite(ct).all():
+        raise AssertionError("(dd) cosine transform")
+    log("  (dd) cosine fit of 5000 x 32 and its transform: finite")
+    out["same_seed_bit_equal"] = out["save_load_bit_equal"] = True
+    return out
+
+
+def phase_umap(device, args, X10m) -> dict:
+    """Phase 14: UMAP, (aa), (bb), (cc) and (dd)."""
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    config.reset_config()
+    device_cache.clear_device_cache()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    aa, aa_model, Q = umap_aa(device, X10m, args.seed)
+    log(f"  (aa) done at {time.perf_counter() - t_phase:.1f} s")
+    cells = [aa] + umap_bb(device)
+    log(f"  (bb) done at {time.perf_counter() - t_phase:.1f} s")
+    cc, kernels, cc_model = umap_cc(device, X10m, aa_model, Q, args.seed)
+    del aa_model
+    torch.cuda.empty_cache()
+    log(f"  (cc) done at {time.perf_counter() - t_phase:.1f} s")
+    cells += cc + [umap_dd(device, args.seed, cc_model, np.ascontiguousarray(
+        X10m[:UMAP_CC_ROWS]))]
+    log(f"  phase 14 {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return {"cells": cells, "kernels": kernels}
 
 
 def phase_build(args) -> None:
@@ -4544,6 +4993,10 @@ def main() -> int:
           "10M x 128, (y) CAGRA at 1M x 128 and bench.py's 200k x 64 ANN cell, (z) checks")
     ann = phase_ann(device, args)
 
+    stage("phase 14: UMAP: (aa) BASELINE.json's configs[4] on a tenth of (x)'s 10M x 128 rows, "
+          "(bb) bench.py's bench_umap cells, (cc) the fused kernel on UMAP's path, (dd) checks")
+    umap = phase_umap(device, args, ann.pop("X"))
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
@@ -4553,7 +5006,9 @@ def main() -> int:
     print(json.dumps({"cache_stats": cache_stats["cells"]}, default=float))
     print(json.dumps({"meta": meta["cells"]}, default=float))
     print(json.dumps({"ann": ann["cells"]}, default=float))
-    print(json.dumps({"kernels": main_out["kernels"] + f64 + [ann["kernel"]]}))
+    print(json.dumps({"umap": umap["cells"]}, default=float))
+    print(json.dumps({"kernels": main_out["kernels"] + f64 + [ann["kernel"]] + umap["kernels"]},
+                     default=float))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -10,8 +10,10 @@
 # `ops/distances.py`, LogisticRegression and RandomForestClassifier
 # (`spark_rapids_ml_torch.classification`), PCA
 # (`spark_rapids_ml_torch.feature`), LinearRegression and
-# RandomForestRegressor (`spark_rapids_ml_torch.regression`), and KMeans and
-# DBSCAN (`spark_rapids_ml_torch.clustering`), with the generic staged fit,
+# RandomForestRegressor (`spark_rapids_ml_torch.regression`), KMeans and
+# DBSCAN (`spark_rapids_ml_torch.clustering`), and UMAP
+# (`spark_rapids_ml_torch.umap`: fit, dense and CSR, supervised, and
+# transform through the fused kernel), with the generic staged fit,
 # the fused stage-and-solve pass, the chunked transform, `DeviceDataset`, the
 # fits from parquet and beyond the card's memory (`streaming`) with the chunk
 # cache's replays (`parallel.device_cache`), the one-pass statistics
@@ -29,7 +31,7 @@ __version__ = "0.1.0"
 
 from . import config  # noqa: F401
 from .data import DeviceDataset  # noqa: F401
-from .models import classification, clustering, feature, knn, regression  # noqa: F401
+from .models import classification, clustering, feature, knn, regression, umap  # noqa: F401
 from .parallel import get_default_device, set_default_device  # noqa: F401
 from . import evaluation, metrics, pipeline, tuning  # noqa: F401,E402
 
@@ -38,3 +40,4 @@ _sys.modules[__name__ + ".classification"] = classification
 _sys.modules[__name__ + ".clustering"] = clustering
 _sys.modules[__name__ + ".feature"] = feature
 _sys.modules[__name__ + ".regression"] = regression
+_sys.modules[__name__ + ".umap"] = umap

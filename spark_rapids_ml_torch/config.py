@@ -1,8 +1,8 @@
 #
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
 # core keys and the keys the exact-kNN, LogisticRegression, PCA,
-# LinearRegression, clustering, parquet/streaming, chunk-cache, statistics
-# and meta-layer slices read.
+# LinearRegression, clustering, parquet/streaming, chunk-cache, statistics,
+# meta-layer and UMAP slices read.
 # The confs live in a process-global dict, overridable from the
 # environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or `set_config()`.  Key
 # names and defaults match the JAX package, except where a comment says
@@ -149,6 +149,13 @@ _DEFAULTS: Dict[str, Any] = {
     # dataset once and derives every fold's train and eval rows on the
     # device; "off" restages each fold from the host (the legacy path).
     "device_cache": "on",
+    # UMAP's SGD epoch (ops/umap.py `optimize_embedding`): "structured"
+    # (the head-major form: sums over k and one sorted segment sum, no
+    # atomics), "generic" (`index_add_` scatters), or "auto": a measured
+    # probe of both, or, where a fit sets random_state or runs fewer than
+    # 10 epochs, the prior: structured on a card (the form whose fits
+    # repeat bit for bit), generic on the CPU.
+    "umap_kernel": "auto",
     # Per-iteration checkpoints of the streamed fits: not ported; a
     # non-empty value raises NotImplementedError (ROADMAP.md section 1).
     "streaming_checkpoint_dir": "",

@@ -18,6 +18,7 @@ from .models.feature import PCAModel
 from .models.knn import NearestNeighborsModel
 from .models.regression import LinearRegressionModel, RandomForestRegressionModel
 from .models.tree import _RandomForestModel
+from .models.umap import UMAPModel
 
 
 def model_params(model: Any) -> Dict[str, Any]:
@@ -165,3 +166,27 @@ def rf_model_to_reference_attributes(model: _RandomForestModel) -> Dict[str, Any
     if isinstance(model, RandomForestClassificationModel):
         out["num_classes"] = int(model.num_classes)
     return out
+
+
+def umap_model_from_reference(attrs: Dict[str, Any], params: Dict[str, Any]) -> UMAPModel:
+    """A port `UMAPModel` from the JAX model's attributes and param maps
+    (CSR training rows stay CSR)."""
+    model = UMAPModel(**dict(attrs))
+    _ReadWriteMixin._restore_params(model, params)
+    return model
+
+
+def umap_model_to_reference_attributes(model: UMAPModel) -> Dict[str, Any]:
+    """The attributes the JAX `UMAPModel(**attrs)` takes: the embedding,
+    the training rows (a CSR matrix stays CSR), rho, sigma, a, b."""
+    raw = model.raw_data_
+    return {
+        "embedding_": np.array(model.embedding_),
+        "raw_data_": raw.copy() if _is_sparse(raw) else np.array(raw),
+        "rho_": np.array(model.rho_),
+        "sigma_": np.array(model.sigma_),
+        "a_": float(model.a_),
+        "b_": float(model.b_),
+        "n_cols": int(model.n_cols),
+        "dtype": str(model.dtype),
+    }

@@ -96,16 +96,26 @@ class RowStager:
         arr = np.asarray(arr)
         return self._assemble(arr.shape, arr.dtype, lambda lo, hi: arr[lo:hi])
 
-    def stage_sparse(self, X, dtype: Optional[np.dtype] = None) -> torch.Tensor:
+    def stage_sparse(self, X, dtype: Optional[np.dtype] = None,
+                     row_transform: Optional[Callable[[np.ndarray], np.ndarray]] = None
+                     ) -> torch.Tensor:
         """Host CSR matrix -> DENSE device tensor, densified chunk by chunk,
-        so the host never holds the whole dense matrix."""
+        so the host never holds the whole dense matrix.  `row_transform`,
+        where given, maps each dense host chunk before its copy (a metric's
+        row preprocessing)."""
         X = X.tocsr()
         if X.shape[0] != self.n_valid:
             raise ValueError(f"matrix has {X.shape[0]} rows, stager expects {self.n_valid}")
         dtype = np.dtype(dtype) if dtype is not None else np.dtype(X.dtype)
         note_stage_count()
-        return self._assemble(X.shape, dtype,
-                              lambda lo, hi: X[lo:hi].toarray().astype(dtype, copy=False))
+
+        def chunk(lo: int, hi: int) -> np.ndarray:
+            dense = X[lo:hi].toarray().astype(dtype, copy=False)
+            if row_transform is not None:
+                dense = np.asarray(row_transform(dense), dtype=dtype)
+            return dense
+
+        return self._assemble(X.shape, dtype, chunk)
 
     def mask(self, dtype=np.float32, weights: Optional[np.ndarray] = None) -> torch.Tensor:
         """Validity times sample weight for each row: 1 for every real row

@@ -324,6 +324,17 @@ def test_logistic_config_keys_match_jax_defaults(key):
     assert port_config.get_config(key) == jax_config.get_config(key)
 
 
+@pytest.mark.parametrize("value", [None, "generic", "structured", "auto"])
+def test_umap_kernel_conf_key_matches_jax(value):
+    """UMAP's `umap_kernel`: the same key, default and values as the JAX
+    package's (what "auto" decides differs by device: ops/umap.py)."""
+    if value is not None:
+        port_config.set_config(umap_kernel=value)
+        jax_config.set_config(umap_kernel=value)
+    assert port_config.get_config("umap_kernel") == jax_config.get_config("umap_kernel")
+    assert port_config.get_config("umap_kernel") == (value or "auto")
+
+
 def _supervised_datasets():
     rng = np.random.default_rng(2)
     X = rng.normal(size=(10, 3))

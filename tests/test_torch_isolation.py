@@ -5,7 +5,8 @@
 # fits from parquet included: streaming.py and the
 # parquet readers of fused.py, the chunk cache and the statistics; and the
 # meta layer: a CrossValidator fit, and the load of a CrossValidatorModel the
-# JAX package saved, which names the JAX package's model class); and
+# JAX package saved, which names the JAX package's model class; and UMAP,
+# whose import alone brings in neither); and
 # chip_smoke.py refuses to run without a CUDA device or without the rest of
 # the repo.
 #
@@ -188,6 +189,41 @@ def test_cache_and_summarize_run_with_jax_unimportable():
         "assert s1['count'] == 3000 and (s1['mean'] == s2['mean']).all()\n"
         "assert abs(s1['mean'] - X.mean(axis=0)).max() < 1e-5\n"
         "assert describe(X).shape == (8, 4)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_umap_imports_and_fits_without_jax():
+    """`spark_rapids_ml_torch.umap` in a fresh interpreter: neither JAX nor
+    the JAX package is in `sys.modules` after the import, and a fit,
+    transform, save and load run with both unimportable."""
+    code = (
+        "import sys\n"
+        "import spark_rapids_ml_torch.umap\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'spark_rapids_ml_tpu')]\n"
+        "assert not bad, bad\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['spark_rapids_ml_tpu'] = None\n"
+        "import os, tempfile\n"
+        "import numpy as np, scipy.sparse as sp\n"
+        "import spark_rapids_ml_torch as p\n"
+        "from spark_rapids_ml_torch.umap import UMAP, UMAPModel\n"
+        "p.set_default_device('cpu')\n"
+        "X = np.random.default_rng(0).normal(size=(120, 6)).astype(np.float32)\n"
+        "m = UMAP(n_neighbors=8, n_epochs=20, random_state=0).fit(X)\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'u')\n"
+        "m.save(path)\n"
+        "assert (UMAPModel.load(path).transform(X[:7]) == m.transform(X[:7])).all()\n"
+        "c = UMAP(n_neighbors=8, n_epochs=5, init='spectral').fit(sp.csr_matrix(X))\n"
+        "assert np.isfinite(c.embedding_).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
