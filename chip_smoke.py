@@ -56,7 +56,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    regParam=1e-3, sample weights.  Each cell: staging into a
    DeviceDataset, moments and standardize, the oracle per call by part
    beside its bytes bound and the memory a call adds, fits from the
-   DeviceDataset (cold, least of three warm) and from host arrays
+   DeviceDataset (cold, then one warm) and from host arrays
    (identical coefficients), iterations and oracle calls, a transform;
    held: the oracle's (f, g) against a float64 host recomputation (a
    65,536-row slice of (a) within 1e-5, (c) within 1e-12), the objective
@@ -120,17 +120,17 @@ Phases, each of which makes the script exit non-zero when it fails:
    entry points (no hand-written kernel: the histogram is `scatter_add_`
    over row chunks, the rest torch ops): (l) the reference benchmark's
    random_forest_classifier_50t_d13 (numTrees=50, maxDepth=13,
-   maxBins=128, bench.py:1013-1016; 6 of its 50 trees) and (m)
+   maxBins=128, bench.py:1013-1016; 3 of its 50 trees) and (m)
    random_forest_regressor_30t_d6
-   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed; 10
+   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed; 4
    of its 30 trees) on
    phase 5's (b) rows, 1,000,000 x 3000; (n) BASELINE.json's classifier
    (maxDepth=16, bench.py:221-224) on (h)'s 100,000,000 x 64 standard
-   normal rows with a linear label, its 100 trees cut to 2;
+   normal rows with a linear label, its 100 trees cut to 1;
    (o) float64 with weights in [0.2, 2), bootstrap and a feature subset
    (gini, entropy and variance), card against CPU.  Each of (l)-(n): fits
-   from a DeviceDataset and from numpy (at (l) and (m) 3 trees, at (n) 1: the
-   same first trees), a transform of 1,000,000 rows, the
+   from a DeviceDataset and from numpy (1 tree: the same first tree), a
+   transform of 1,000,000 rows, the
    card's busy share over a one-tree fit, and two trees (one at (n))
    grown by ops/forest.py `forest_fit` from draws the phase makes, with
    each layer (prep: the edges' sort and digitize; per tree: histogram,
@@ -269,6 +269,37 @@ Phases, each of which makes the script exit non-zero when it fails:
    both: the optimizer's inputs within 1e-12, its result within 1e-9),
    two random_state=0 fits bit-equal, a CSR fit against the dense fit of
    the same rows (1e-6), save and load bit-equal, a cosine fit.
+15. sparse LogisticRegression and the resilience layer (torch ops, no
+   hand-written kernel): (ee) 10,000,000 rows x 2^18 columns (HashingTF's
+   default numFeatures) in the Criteo display-ads layout (13 integer
+   fields present with probability 0.8, 26 categorical fields, each field
+   hashed into its own column range; labels from a planted sparse weight
+   vector, a quarter positive), made on the card from --seed and fetched
+   as canonical CSR, fitted through the ELL route (regParam 1e-6,
+   maxIter 100, tol 1e-6, standardization): the host CSR -> ELL, the
+   staging, the column layout, the moments, the oracle per evaluation
+   beside its bytes bound, ms an L-BFGS iteration, iterations and fit
+   seconds; two fits of the same rows (the entry point's, the staged
+   rows' with checkpoint_dir) bit-equal, the checkpoint's cost; the objective against a float64 fit on the card and against a
+   float64 evaluation at the model (1e-5); 10,000 held-out rows
+   transformed (rows/s, AUC); OWL-QN (elasticNetParam 1) on the first
+   1,000,000 rows, its objective against a float64 evaluation.  (ff) 5
+   classes on the first 1,000,000 rows (labels from a quarter of planted
+   margins plus Gumbel noise), the objective against its float64
+   evaluation (1e-5).  (gg) on those 1,000,000 rows: a preemption
+   injected at iteration 10 retried within the fit and a fit killed there
+   resumed by a new estimator, both bit-equal to the uninterrupted fit; a
+   real device-side assert at iteration 10 in a child process, classified
+   as a device loss, and a second child resuming from the checkpoint
+   bit-equal (the children run beside the parent's other work); KMeans
+   k=20 on 10,000,000 x 64 rows of (h)'s generator resumed after an
+   injected preemption at iteration 5 (index_add_'s atomics keep two
+   uninterrupted fits from being bit-equal: the resumed centres are held
+   within 10 times their distance, the cost within 1e-5); the watchdog (a
+   deadline a quarter of the 1M-row fit's time: DispatchTimeout within
+   the deadline + 2 s, then a fit that waits for the abandoned one); a
+   real torch.cuda.OutOfMemoryError in the transform (ballast leaves less
+   than one chunk free) recovered by halving, the predictions equal.
 
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
@@ -277,7 +308,8 @@ of the clustering cells' numbers, one of the forest cells' numbers
 ({"parquet": [...]}), one of the chunk cache and statistics cells'
 numbers ({"cache_stats": [...]}), one of the meta layer's cells
 ({"meta": [...]}), one of the ANN cells ({"ann": [...]}), one of the
-UMAP cells ({"umap": [...]}), a JSON object of the kernels' numbers
+UMAP cells ({"umap": [...]}), one of phase 15's cells ({"sparse": [...]}),
+a JSON object of the kernels' numbers
 (phase 13 adds the float32 fused function at (x)'s shape, phase 14 the
 fused function at UMAP's two shapes and the k > 32 merge),
 the card's name and power limit, and
@@ -962,12 +994,23 @@ def _host_rows(X, chunk: int = 1 << 16):
         yield slice(lo, min(lo + chunk, X.shape[0]))
 
 
+def _chunk_map(fn, X) -> list:
+    """`fn` of each row chunk of X (`_host_rows`), in chunk order, computed
+    on 4 host threads (numpy's conversions and products run without the
+    interpreter lock); summing the list in order gives the serial loop's
+    result bit for bit."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        return list(ex.map(fn, _host_rows(X)))
+
+
 def host_moments(X, w):
     """Weighted mean and ddof-1 std of X's columns in float64 on the host,
     two passes over row chunks (std 0 -> 1, as the estimator does)."""
     wsum = w.sum()
-    mean = sum(w[r] @ X[r].astype(np.float64) for r in _host_rows(X)) / wsum
-    var = sum(w[r] @ (X[r].astype(np.float64) - mean) ** 2 for r in _host_rows(X))
+    mean = sum(_chunk_map(lambda r: w[r] @ X[r].astype(np.float64), X)) / wsum
+    var = sum(_chunk_map(lambda r: w[r] @ (X[r].astype(np.float64) - mean) ** 2, X))
     std = np.sqrt(var / max(wsum - 1.0, 1.0))
     return mean, np.where(std == 0.0, 1.0, std)
 
@@ -983,25 +1026,31 @@ def host_objective(X, y, w, coef, intercept, l2: float, l1: float, std=None,
     binomial = coef.shape[0] == 1
     wsum, loss = w.sum(), 0.0
     g_coef, g_b = np.zeros_like(coef), np.zeros(coef.shape[0])
-    for r in _host_rows(X):
+
+    def chunk(r):
+        """(loss, gradient of the coefficients, of the intercepts) of rows r"""
         x = X[r].astype(np.float64)
         m = x @ coef.T + intercept
         wr = w[r] / wsum
         if binomial:
             s = 2.0 * y[r] - 1.0
             z = -s * m[:, 0]
-            loss += (np.logaddexp(0.0, z) * wr).sum()
+            part = (np.logaddexp(0.0, z) * wr).sum()
             res = (-s / (1.0 + np.exp(-z)) * wr)[:, None]
         else:
             lse = np.logaddexp.reduce(m, axis=1)
             lab = y[r].astype(np.int64)
-            loss += ((lse - m[np.arange(len(lab)), lab]) * wr).sum()
+            part = ((lse - m[np.arange(len(lab)), lab]) * wr).sum()
             res = np.exp(m - lse[:, None])
             res[np.arange(len(lab)), lab] -= 1.0
             res *= wr[:, None]
+        return part, (res.T @ x if with_grad else None), res.sum(0)
+
+    for part, gc, gb in _chunk_map(chunk, X):
+        loss += part
         if with_grad:
-            g_coef += res.T @ x
-            g_b += res.sum(0)
+            g_coef += gc
+            g_b += gb
     pen = coef * (std if std is not None else 1.0)
     f = loss + 0.5 * l2 * (pen * pen).sum() + l1 * np.abs(pen).sum()
     if not with_grad:
@@ -1102,7 +1151,7 @@ def device_busy_share(fn) -> tuple:
 def phase_logistic_cell(device, name: str, X, y, w, classes: int, fit_kw: dict,
                         transform_rows: int, seed: int, weight_col: bool) -> dict:
     """One LogisticRegression cell through the public entry points: fits
-    from a DeviceDataset (cold, then the least of three warm) and from host
+    from a DeviceDataset (cold, then one warm) and from host
     arrays, the layers timed apart, the oracle and the objective held
     against float64 host recomputations, and a transform."""
     import torch
@@ -1155,7 +1204,7 @@ def phase_logistic_cell(device, name: str, X, y, w, classes: int, fit_kw: dict,
 
     torch.cuda.reset_peak_memory_stats(device)
     rec["fit_cold_s"], model, calls = fit(ds)
-    warm = [fit(ds) for _ in range(3)]
+    warm = [fit(ds)]
     rec["fit_warm_s"] = min(t for t, _, _ in warm)
     rec["rows_per_s"] = n / rec["fit_warm_s"]
     rec["iterations"], rec["oracle_calls"] = model.summary.totalIterations, calls
@@ -1216,18 +1265,43 @@ def phase_logistic_cell(device, name: str, X, y, w, classes: int, fit_kw: dict,
     return rec
 
 
-def phase_logistic(device, args) -> dict:
+def start_logistic_rows(args) -> tuple:
+    """Phase 5's (a) and (b) rows, made by bench.py's generator on one host
+    thread (numpy's generator runs without the interpreter lock) while
+    phases 1-5 run: futures of ((X, y), seconds)."""
+    import concurrent.futures
+
+    def timed(n: int, d: int):
+        t0 = time.perf_counter()
+        out = gen_binary(n, d, seed=0)
+        return out, time.perf_counter() - t0
+
+    ex = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="phase5-rows")
+    futures = (ex.submit(timed, args.lr_rows, args.lr_dim),
+               ex.submit(timed, args.lr_wide_rows, args.lr_wide_dim))
+    ex.shutdown(wait=False)
+    return futures
+
+
+def _made_rows(future, name: str):
+    """The rows of a `start_logistic_rows` future, with how they were made."""
+    t0 = time.perf_counter()
+    (X, y), gen_s = future.result()
+    log(f"  {name} data {X.shape} float32 from bench.py's _gen_binary(seed=0): {gen_s:.2f} s "
+        f"on a host thread beside the phases before, {time.perf_counter() - t0:.2f} s waited")
+    return X, y
+
+
+def phase_logistic(device, args, rows) -> dict:
     """(a) bench.py's headline, (b) the reference benchmark's width, (c)
-    softmax + OWL-QN + weights in float64, also fitted on the CPU."""
+    softmax + OWL-QN + weights in float64, also fitted on the CPU.  `rows`
+    are `start_logistic_rows`' futures."""
     from spark_rapids_ml_torch import set_default_device
     from spark_rapids_ml_torch.classification import LogisticRegression
 
     cells = []
     bench_kw = dict(regParam=1e-4, elasticNetParam=0.0, tol=1e-8)
-    t0 = time.perf_counter()
-    X, y = gen_binary(args.lr_rows, args.lr_dim, seed=0)
-    log(f"  (a) data {X.shape} float32 from bench.py's _gen_binary(seed=0): "
-        f"{time.perf_counter() - t0:.2f} s")
+    X, y = _made_rows(rows[0], "(a)")
     sl = np.random.default_rng(args.seed + 11).choice(len(y), size=min(65536, len(y)),
                                                      replace=False)
     check_oracle("(a) 65,536-row slice", X[sl], y[sl], np.ones(len(sl), np.float32), 2, 1e-4,
@@ -1238,9 +1312,7 @@ def phase_logistic(device, args) -> dict:
     model_a, X_a = cells[-1]["model"], X
     del X, y
 
-    t0 = time.perf_counter()
-    X, y = gen_binary(args.lr_wide_rows, args.lr_wide_dim, seed=0)
-    log(f"  (b) data {X.shape} float32 from _gen_binary(seed=0): {time.perf_counter() - t0:.2f} s")
+    X, y = _made_rows(rows[1], "(b)")
     cells.append(phase_logistic_cell(
         device, f"(b) {args.lr_wide_rows}x{args.lr_wide_dim} float32 binomial", X, y, None, 2,
         dict(bench_kw, maxIter=200), 1_000_000, args.seed, weight_col=False))
@@ -1286,21 +1358,32 @@ def _fp32_bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _timed_fit(make, data, device):
+def _timed_fit(make, data, device, profiled: bool = False):
     """(seconds, model, GB) of one `make().fit(data)`, the card idle before
     and after; GB is max_memory_allocated during the fit less what was
     allocated before it (a DeviceDataset's rows, for one): the memory the
-    route itself takes."""
+    route itself takes.  `profiled` runs the fit under `device_busy_share`
+    and appends the card's busy share to the tuple."""
     import torch
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     base = torch.cuda.memory_allocated(device)
-    t0 = time.perf_counter()
-    model = make().fit(data)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0, model,
-            (torch.cuda.max_memory_allocated(device) - base) / 1e9)
+    out = {}
+
+    def fit():
+        out["model"] = make().fit(data)
+
+    if profiled:
+        wall_ms, busy = device_busy_share(fit)
+        seconds = wall_ms / 1e3
+    else:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    gb = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    return (seconds, out["model"], gb) + ((busy,) if profiled else ())
 
 
 def float64_stats(Xt, w=None, y=None) -> dict:
@@ -1951,7 +2034,11 @@ def phase_kmeans_cell(device, name: str, X, w, k: int, fit_kw: dict, host_X=None
     def make():
         return KMeans(k=k, **fit_kw)
 
-    rec["fit_s"], model, gb = _timed_fit(make, ds, device)
+    # one fit, timed under torch.profiler (its trace adds nothing measurable
+    # to a KMeans fit's few launches an iteration: 3.528 s plain against
+    # 3.483 s profiled at (h) on an H100)
+    rec["fit_s"], model, gb, rec["device_busy_share"] = _timed_fit(make, ds, device,
+                                                                   profiled=True)
     fit = dict(km.LAST_FIT)
     rec.update(n_iter=model.n_iter_, moved=fit["moved"], stepwise=fit["stepwise"],
                seed_stride=fit["stride"],
@@ -1982,8 +2069,7 @@ def phase_kmeans_cell(device, name: str, X, w, k: int, fit_kw: dict, host_X=None
         f"{L['blocks_per_pass']} blocks; row norms once per fit {L['row_norms_ms']:.3f} ms "
         f"({_share(L['row_norms_bound_ms'], L['row_norms_ms'])}); seeding {L['seed_ms']:.3f} ms on "
         f"{L['seed_rows']} rows; shift fetch {L['shift_fetch_ms']:.4f} ms; final cost = one pass")
-    wall_ms, rec["device_busy_share"] = device_busy_share(lambda: make().fit(ds))
-    log(f"  {name}: one fit under torch.profiler {wall_ms:.1f} ms, the card busy in kernels "
+    log(f"  {name}: the fit under torch.profiler: the card busy in kernels "
         f"{rec['device_busy_share'] or 0:.1%} of it")
 
     # checks
@@ -2925,13 +3011,14 @@ def phase_forest_float64(device, n: int, seed: int) -> dict:
 
 
 # The phase's trees, cut to what the script's time allows (its limit is
-# 1,200 s; phase 14, UMAP, took about a minute of it): (n) BASELINE.json
-# configs[3]'s rows, 2 of its 100 trees (about 3.2 s a tree on an H100),
-# its fit from numpy 1; (l) 6 of the reference benchmark's 50 trees
-# (1.5 s a tree), (m) 10 of its 30 (0.8 s a tree), their fits from numpy 3
-# (the same first trees)
-RF_N_ROWS, RF_N_TREES = 100_000_000, 2
-RF_L_TREES, RF_M_TREES, RF_NUMPY_TREES = 6, 10, 3
+# 1,200 s; phases 14 and 15 take about two and a half minutes of it): (n)
+# BASELINE.json configs[3]'s rows, 1 of its 100 trees (about 3.4 s a tree
+# on an H100),
+# its fit from numpy 1; (l) 3 of the reference benchmark's 50 trees
+# (1.5 s a tree), (m) 4 of its 30 (0.8 s a tree), their fits from numpy 1
+# (the same first tree)
+RF_N_ROWS, RF_N_TREES = 100_000_000, 1
+RF_L_TREES, RF_M_TREES, RF_NUMPY_TREES = 3, 4, 1
 
 
 def phase_forest(device, args, wide_X, wide_y) -> dict:
@@ -3043,9 +3130,32 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
 # ---- parquet and beyond the card's memory ---------------------------------------
 
 
-def write_reference_parquet(path: str, X, y, slab: int = 50_000) -> None:
+# (p)'s file holds phase 5's (b) rows with its first columns scaled by these
+# (phase 10's spectral gap)
+PARQUET_SCALE = np.array([16.0, 8.0, 4.0], np.float32)
+
+
+def start_reference_parquet(path: str, X, y):
+    """Write (p)'s file (`write_reference_parquet` of X with its first
+    columns times `PARQUET_SCALE`, slab by slab, X left as it is) on a host
+    thread: a future of the seconds it took."""
+    import concurrent.futures
+
+    def write() -> float:
+        t0 = time.perf_counter()
+        write_reference_parquet(path, X, y, scale=PARQUET_SCALE)
+        return time.perf_counter() - t0
+
+    ex = concurrent.futures.ThreadPoolExecutor(1, thread_name_prefix="parquet-writer")
+    future = ex.submit(write)
+    ex.shutdown(wait=False)
+    return future
+
+
+def write_reference_parquet(path: str, X, y, slab: int = 50_000, scale=None) -> None:
     """bench.py:900-931's layout: FixedSizeList float32 `features`, float64
-    `label`, written in `slab`-row row groups (default compression)."""
+    `label`, written in `slab`-row row groups (default compression).
+    `scale` multiplies a copy of each slab's first columns."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -3053,9 +3163,11 @@ def write_reference_parquet(path: str, X, y, slab: int = 50_000) -> None:
     writer = None
     try:
         for at in range(0, n, slab):
+            rows = np.array(X[at:at + slab], copy=True)
+            if scale is not None:
+                rows[:, :len(scale)] *= scale
             t = pa.table({
-                "features": pa.FixedSizeListArray.from_arrays(
-                    pa.array(np.ascontiguousarray(X[at:at + slab]).reshape(-1)), d),
+                "features": pa.FixedSizeListArray.from_arrays(pa.array(rows.reshape(-1)), d),
                 "label": pa.array(np.asarray(y[at:at + slab], np.float64))})
             if writer is None:
                 writer = pq.ParquetWriter(path, t.schema)
@@ -3204,7 +3316,7 @@ def capture(module, name: str, store: dict):
         setattr(module, name, orig)
 
 
-def phase_parquet_reference(device, tmp: str, X, y, path: str) -> list:
+def phase_parquet_reference(device, tmp: str, X, y, path: str, written) -> list:
     """(p) the reference benchmark's 1M x 3000 input as parquet, fitted
     through the entry points (PCA k=3 and OLS on the fused pass from
     parquet, LogisticRegression and KMeans k=1000 on stage_parquet +
@@ -3216,16 +3328,16 @@ def phase_parquet_reference(device, tmp: str, X, y, path: str) -> list:
     phase 11."""
     # (e)'s spectral gap (phase 6): three columns scaled by 16, 8 and 4, so
     # that the top three components are defined and the full solver of
-    # (q) meets the randomized one of (p); undone (exactly) at the end
-    scale = np.array([16.0, 8.0, 4.0], np.float32)
-    X[:, :3] *= scale
+    # (q) meets the randomized one of (p); undone (exactly) at the end.  The
+    # file, written beside phases 8 and 9, holds the scaled rows too
+    X[:, :3] *= PARQUET_SCALE
     try:
-        return _parquet_reference_cells(device, tmp, X, y, path)
+        return _parquet_reference_cells(device, tmp, X, y, path, written)
     finally:
-        X[:, :3] /= scale
+        X[:, :3] /= PARQUET_SCALE
 
 
-def _parquet_reference_cells(device, tmp: str, X, y, path: str) -> list:
+def _parquet_reference_cells(device, tmp: str, X, y, path: str, written) -> list:
     import torch
 
     from spark_rapids_ml_torch import DeviceDataset, fused, streaming
@@ -3238,11 +3350,11 @@ def _parquet_reference_cells(device, tmp: str, X, y, path: str) -> list:
     n, d = X.shape
     cells = []
     t0 = time.perf_counter()
-    write_reference_parquet(path, X, y)
-    t_write = time.perf_counter() - t0
+    t_write = written.result()
     size = os.path.getsize(path)
     log(f"  (p) wrote {n} x {d} float32 rows + labels as parquet (50,000-row row groups): "
-        f"{size / 1e9:.2f} GB in {t_write:.2f} s")
+        f"{size / 1e9:.2f} GB in {t_write:.2f} s on a host thread beside phases 8 and 9, "
+        f"{time.perf_counter() - t0:.2f} s waited")
     dec_p = decode_alone(path, d, parallel=True)
     log(f"  (p) the decode alone, range readers: {dec_p['MB']:.0f} MB in {dec_p['seconds']:.2f} s "
         f"= {dec_p['MBps']:,.0f} MB/s ({dec_p['readers_used']} of {dec_p['readers']} readers: "
@@ -3464,16 +3576,16 @@ def epoch_readings(rec: dict, n: int, name: str) -> None:
         f"{n / ep[0]:,.0f} rows/s; epochs 2-{len(ep)} mean {later:.4f} s = "
         f"{n / later:,.0f} rows/s (PR 9: 1.30 M rows/s an epoch, each a decode)")
 
-def phase_parquet(device, args, wide_X, wide_y, tmp: str) -> dict:
-    """Phase 10: (p) and (q) on phase 5's 1M x 3000 rows written as parquet,
-    (r) bench.py's 2M x 64 streaming cell, in `tmp`; both files stay for
-    phase 11."""
+def phase_parquet(device, args, wide_X, wide_y, tmp: str, written) -> dict:
+    """Phase 10: (p) and (q) on phase 5's 1M x 3000 rows written as parquet
+    (`written`: `start_reference_parquet`'s future), (r) bench.py's 2M x 64
+    streaming cell, in `tmp`; both files stay for phase 11."""
     import shutil
 
     du = shutil.disk_usage(tmp)
     log(f"  temporary directory {tmp}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} GB")
     paths = {"p": os.path.join(tmp, "ref_1m_3k.parquet"), "r": os.path.join(tmp, "stream.parquet")}
-    cells = phase_parquet_reference(device, tmp, wide_X, wide_y, paths["p"])
+    cells = phase_parquet_reference(device, tmp, wide_X, wide_y, paths["p"], written)
     cells += phase_parquet_streaming(device, tmp, args.r_rows, args.seed, paths["r"])
     return {"cells": cells, "paths": paths}
 
@@ -4846,6 +4958,770 @@ def phase_umap(device, args, X10m) -> dict:
     return {"cells": cells, "kernels": kernels}
 
 
+# ---- Sparse LogisticRegression (ELL) and resilience -------------------------
+
+SPARSE_ROWS = 10_000_000
+SPARSE_COLS = 1 << 18  # pyspark.ml HashingTF's default numFeatures
+SPARSE_SUB_ROWS = 1_000_000
+SPARSE_HELD_OUT = 10_000
+SPARSE_GEN_ROWS = 1_000_000  # rows of one generator chunk, each with its own seed
+CRITEO_INT, CRITEO_CAT = 13, 26  # the Criteo display-ads layout's fields
+SPARSE_KW = dict(regParam=1e-6, elasticNetParam=0.0, maxIter=100, tol=1e-6,
+                 standardization=True)
+SPARSE_FF_CLASSES = 5
+SPARSE_KILL_AT = 10
+SPARSE_KMEANS_ROWS = 10_000_000
+SPARSE_OOM_FREE = 200 << 20  # bytes the ballast leaves: less than one transform chunk
+
+
+def criteo_chunk(seed: int, index: int, n: int, device):
+    """Rows `index * SPARSE_GEN_ROWS ...` of the Criteo-layout generator, on
+    the card: (vals (n, 39) float32, cols (n, 39) int32, present (n, 39)
+    bool).  Each field hashes into its own column range (13 integer fields,
+    present with probability 0.8, value log(2 + count), column by count; 26
+    categorical fields, value 1, a skewed category), so a row's columns rise
+    with its fields: canonical CSR, no duplicates.  A chunk has its own
+    generator, so the first rows of a larger draw are a smaller draw."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + index)
+    fields = CRITEO_INT + CRITEO_CAT
+    width = SPARSE_COLS // fields
+    base = torch.arange(fields, device=device, dtype=torch.int64) * width
+    u = torch.rand((n, fields), generator=g, device=device, dtype=torch.float64)
+    scale = 2.0 ** (torch.arange(CRITEO_INT, device=device) % 8).to(torch.float64)
+    count = torch.floor(-torch.log1p(-u[:, :CRITEO_INT]) * scale)
+    offset = torch.empty((n, fields), dtype=torch.int64, device=device)
+    offset[:, :CRITEO_INT] = count.to(torch.int64) % width
+    offset[:, CRITEO_INT:] = torch.clamp((width * u[:, CRITEO_INT:] ** 3).to(torch.int64),
+                                         max=width - 1)
+    vals = torch.ones((n, fields), dtype=torch.float32, device=device)
+    vals[:, :CRITEO_INT] = torch.log(2.0 + count).to(torch.float32)
+    present = torch.ones((n, fields), dtype=torch.bool, device=device)
+    present[:, :CRITEO_INT] = torch.rand((n, CRITEO_INT), generator=g, device=device) < 0.8
+    return vals, (base + offset).to(torch.int32), present
+
+
+def _planted(seed: int, classes: int, device):
+    """The planted sparse weight vectors (classes, d) of the labels."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed * 7919 + classes)
+    W = torch.randn((classes, SPARSE_COLS), generator=g, device=device)
+    return W * (torch.rand((classes, SPARSE_COLS), generator=g, device=device) < 0.1)
+
+
+def _chunk_margins(vals, cols, present, W):
+    """(n, classes) margins of a chunk under W (classes, d)."""
+    n, f = vals.shape
+    g = W.T[cols.reshape(-1).long()].reshape(n, f, W.shape[0])
+    return ((vals * present).unsqueeze(2) * g).sum(dim=1)
+
+
+def criteo_csr(n: int, seed: int, device, classes: int = 2, first_chunk: int = 0,
+               threshold=None):
+    """n rows of the generator as host CSR (float32 values, int32 indices,
+    canonical) and labels: binary labels are the planted margin plus
+    logistic noise above its 0.75 quantile over these rows (about a quarter
+    positive, as in the Kaggle Criteo set; `threshold` reuses a quantile),
+    `classes` > 2 the argmax of a quarter of planted margins plus Gumbel
+    noise.  Returns
+    (csr, y, threshold, seconds on the card, seconds of the host copy)."""
+    import scipy.sparse as sp
+    import torch
+
+    W = _planted(seed, classes, device)
+    noise_g = torch.Generator(device=device).manual_seed(seed * 104729 + classes + first_chunk)
+    data, indices, counts, scores = [], [], [], []
+    t_card = t_copy = 0.0
+    done = 0
+    index = first_chunk
+    while done < n:
+        rows = min(SPARSE_GEN_ROWS, n - done)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, cols, present = criteo_chunk(seed, index, rows, device)
+        m = _chunk_margins(vals, cols, present, W)
+        u = torch.rand(m.shape, generator=noise_g, device=device).clamp_(1e-7, 1 - 1e-7)
+        if classes == 2:
+            score = m[:, 1] - m[:, 0] + torch.log(u[:, 0] / (1 - u[:, 0]))
+        else:
+            # planted margins a quarter of the Gumbel noise's scale: classes
+            # that overlap, as clicks do, not a separable set
+            score = 0.25 * m - torch.log(-torch.log(u))
+        d_vals, d_cols = vals[present], cols[present]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        data.append(d_vals.cpu().numpy())
+        indices.append(d_cols.cpu().numpy())
+        counts.append(present.sum(dim=1).cpu().numpy())
+        scores.append(score)
+        t_copy += time.perf_counter() - t1
+        t_card += t1 - t0
+        done += rows
+        index += 1
+        del vals, cols, present, m, u, d_vals, d_cols
+    score = torch.cat(scores)
+    if classes == 2:
+        if threshold is None:
+            threshold = float(torch.kthvalue(score.cpu(), int(0.75 * n)).values)
+        y = (score > threshold).to(torch.float64).cpu().numpy()
+    else:
+        y = torch.argmax(score, dim=1).to(torch.float64).cpu().numpy()
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.concatenate(counts), out=indptr[1:])
+    csr = sp.csr_matrix((np.concatenate(data), np.concatenate(indices), indptr),
+                        shape=(n, SPARSE_COLS))
+    csr.has_canonical_format = True  # columns rise within each row by construction
+    return csr, y, threshold, t_card, t_copy
+
+
+def auc(scores, labels) -> float:
+    """Area under the ROC curve (ties ranked by their mean)."""
+    from scipy.stats import rankdata
+
+    ranks = rankdata(scores)
+    pos = labels > 0
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def ell_oracle_bound_ms(oracle) -> float:
+    """Least ms of one evaluation of an `EllOracle`, each input read once
+    and the output written once: the values and column ids (for the
+    margins), the column-sorted values and their rows (for the gradient),
+    the weights and labels as the oracle holds them, theta in and the
+    gradient out in float64."""
+    ins = (oracle.X, oracle.cols, oracle.sorted_vals, oracle.layout.rows, oracle.w_scaled,
+           oracle.sgn if oracle.binomial else oracle.labels)
+    nbytes = sum(t.numel() * t.element_size() for t in ins) + 2 * 8 * oracle.n_param
+    return nbytes / _PEAK_BYTES_PER_S * 1e3
+
+
+def _synced(device):
+    import torch
+
+    torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def _same_model(a: dict, b: dict) -> bool:
+    return (np.array_equal(a["coef_"], b["coef_"]) and np.array_equal(a["intercept_"],
+                                                                      b["intercept_"])
+            and a["objective_history"] == b["objective_history"])
+
+
+def _objective64(fi, coef, intercept, std, l2: float, l1: float, classes: int) -> float:
+    """The objective of a model on the staged ELL rows, in float64 on the
+    card: one evaluation of the float64 ELL oracle at the model's
+    standardized coefficients (the scaling has no centring)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import logistic as lo
+    from spark_rapids_ml_torch.ops import sparse as ops
+
+    cols = fi.extra["ell_cols"]
+    vals = ops.ell_scale_columns(fi.X.double(), cols, 1.0 / torch.as_tensor(std,
+                                                                              device=fi.X.device))
+    binomial = classes == 2
+    oracle = lo.EllOracle(vals, cols, fi.w.double(), fi.y, classes, l2, True, binomial,
+                          d=fi.pdesc.n)
+    coef_s = np.asarray(coef, np.float64) * np.asarray(std, np.float64)
+    theta = np.concatenate([coef_s.reshape(-1), np.asarray(intercept, np.float64).reshape(-1)])
+    f, _ = oracle(theta)
+    del oracle, vals
+    return f + l1 * float(np.abs(coef_s).sum())
+
+
+def _std_of(fi) -> np.ndarray:
+    from spark_rapids_ml_torch.ops import sparse as ops
+
+    _, std = ops.ell_weighted_moments(fi.X.double(), fi.extra["ell_cols"], fi.w.double(),
+                                      fi.pdesc.n)
+    return std.cpu().numpy()
+
+
+def sparse_ee(device, seed: int, card: str, tmp: str) -> tuple:
+    """(ee): the 10M x 2^18 binary fit, its layers, checkpoint cost, the
+    float64 reference, the held-out transform.  Returns (cell, its first 1M
+    rows, their labels, the model, (the held-out rows, their
+    transform))."""
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch import resilience as res
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.core import FitInput
+    from spark_rapids_ml_torch.ops import logistic as lo
+    from spark_rapids_ml_torch.ops import sparse as ops
+    from spark_rapids_ml_torch.utils import _ArrayBatch
+
+    rec = {"cell": f"(ee) sparse binary LogisticRegression {SPARSE_ROWS} x {SPARSE_COLS}",
+           "card": card, "params": SPARSE_KW}
+    csr, y, thr, t_card, t_copy = criteo_csr(SPARSE_ROWS, seed, device)
+    rec.update(nnz=int(csr.nnz), positive_share=float(y.mean()), gen_card_s=t_card,
+               gen_copy_s=t_copy)
+    log(f"  (ee) {SPARSE_ROWS} rows, {csr.nnz:,} entries ({csr.nnz / SPARSE_ROWS:.2f} a row), "
+        f"{y.mean():.4f} positive: made on the card {t_card:.2f} s, copied to the host as "
+        f"CSR {t_copy:.2f} s")
+    # the fit through the entry point, its staging kept for the layers
+    # below and the host conversion and the staging timed inside it
+    est = LogisticRegression(**SPARSE_KW)
+    kept, conv = {}, {}
+    real_conversion, real_stage = ops.ell_from_csr, est._stage_fit_input
+
+    def timed_conversion(c):
+        t = time.perf_counter()
+        out = real_conversion(c)
+        conv["s"], conv["K"] = time.perf_counter() - t, int(out[0].shape[1])
+        conv["GB"] = (out[0].nbytes + out[1].nbytes) / 1e9
+        return out
+
+    def kept_stage(batch):
+        t = time.perf_counter()
+        kept["fi"] = real_stage(batch)
+        kept["s"] = _synced(device) - t
+        return kept["fi"]
+
+    ops.ell_from_csr, est._stage_fit_input = timed_conversion, kept_stage
+    try:
+        lo.ORACLE_CALLS = 0
+        t0 = _synced(device)
+        model = est.fit((csr, y))
+        rec["fit_public_s"] = _synced(device) - t0
+    finally:
+        ops.ell_from_csr = real_conversion
+        del est._stage_fit_input
+    rec["iterations"], rec["oracle_calls"] = model.summary.totalIterations, lo.ORACLE_CALLS
+    a = model._get_model_attributes()
+    fi = kept["fi"]
+    rec.update(csr_to_ell_s=conv["s"], ell_K=conv["K"], ell_GB=conv["GB"],
+               staging_s=kept["s"] - conv["s"])
+    log(f"  (ee) fit through the entry point: {rec['fit_public_s']:.2f} s, "
+        f"{rec['iterations']} iterations, {rec['oracle_calls']} oracle calls, objective "
+        f"{model.objective!r}; in it the host CSR -> ELL {rec['csr_to_ell_s']:.2f} s (K = "
+        f"{rec['ell_K']}, {rec['ell_GB']:.2f} GB) and the staging {rec['staging_s']:.2f} s")
+    Xv, cv, d = fi.X, fi.extra["ell_cols"], fi.pdesc.n
+    t0 = _synced(device)
+    layout = ops.ell_column_layout(Xv, cv, d)
+    rec["layout_s"] = _synced(device) - t0
+    rec["entries"] = int(layout.rows.numel())
+    rec["moments_ms"] = cuda_ms(lambda: ops.ell_weighted_moments(Xv, cv, fi.w, d, layout=layout),
+                                reps=2)
+    _, std = ops.ell_weighted_moments(Xv, cv, fi.w, d, layout=layout)
+    oracle = lo.EllOracle(Xv, cv, fi.w, fi.y, 2, SPARSE_KW["regParam"], True, True, d,
+                          layout=layout, inv_std=1.0 / std)
+    theta = np.random.default_rng(seed).normal(scale=1e-3, size=oracle.n_param)
+    th = torch.as_tensor(theta, dtype=oracle.dtype, device=device)
+    m = oracle.margins(th)
+    _, r = oracle.loss_and_residual(m)
+    rec["oracle_ms"] = cuda_ms(lambda: oracle.value_and_grad(th), reps=5)
+    rec["margins_ms"] = cuda_ms(lambda: oracle.margins(th), reps=5)
+    rec["gradient_ms"] = cuda_ms(lambda: oracle.gradient(r), reps=5)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        oracle(theta)
+    rec["oracle_call_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    rec["oracle_bound_ms"] = ell_oracle_bound_ms(oracle)
+    del oracle, m, r, layout, std
+    log(f"  (ee) column layout (sort) {rec['layout_s']:.3f} s ({rec['entries']:,} entries); "
+        f"moments {rec['moments_ms']:.2f} ms")
+    log(f"  (ee) oracle per evaluation on the card {rec['oracle_ms']:.3f} ms (margins "
+        f"{rec['margins_ms']:.3f}, gradient {rec['gradient_ms']:.3f}); bytes bound "
+        f"{rec['oracle_bound_ms']:.3f} ms, share {rec['oracle_bound_ms'] / rec['oracle_ms']:.1%};"
+        f" a call from the solver {rec['oracle_call_ms']:.3f} ms")
+
+    # the entry point's fit beside its conversion and staging, then the same
+    # fit of the staged rows with checkpoints
+    rec["fit_staged_s"] = rec["fit_public_s"] - rec["csr_to_ell_s"] - rec["staging_s"]
+    rec["ms_per_iteration"] = rec["fit_staged_s"] / max(rec["iterations"], 1) * 1e3
+    rec["host_ms_per_iteration"] = (rec["fit_staged_s"] * 1e3 - rec["oracle_calls"]
+                                    * rec["oracle_ms"]) / max(rec["iterations"], 1)
+    ckpt_dir = os.path.join(tmp, "ee_ckpt")
+    config.set_config(checkpoint_dir=ckpt_dir)
+    saves0 = res.counts_snapshot().get("checkpoint_saves_total", 0)
+    t0 = _synced(device)
+    checked = est._run_fit_kernel(fi)
+    rec["fit_checkpointed_s"] = _synced(device) - t0
+    config.reset_config()
+    rec["checkpoint_saves"] = res.counts_snapshot().get("checkpoint_saves_total", 0) - saves0
+    n_param = d + 1
+    state = {"w": np.zeros(n_param), "f": 0.0, "g": np.zeros(n_param),
+             "S": np.zeros((10, n_param)), "Y": np.zeros((10, n_param)), "rho": np.zeros(10),
+             "k": 0, "it": 1, "hist": np.zeros(101), "converged": False}
+    path = res.checkpoint_file_for(ckpt_dir, "timing")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        res.save_checkpoint(path, "timing", state)
+    rec["save_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    res.clear_checkpoint(path)
+    rec["checkpoint_bytes"] = 16 * 10 * n_param
+    rec["checkpoint_overhead_s"] = rec["fit_checkpointed_s"] - rec["fit_staged_s"]
+    log(f"  (ee) the fit beside the conversion and the staging {rec['fit_staged_s']:.2f} s "
+        f"({rec['ms_per_iteration']:.2f} ms an iteration, {rec['host_ms_per_iteration']:.2f} of "
+        f"it beside the oracle); the staged rows' fit with checkpoint_dir "
+        f"{rec['fit_checkpointed_s']:.2f} s ({rec['checkpoint_saves']} saves, "
+        f"overhead {rec['checkpoint_overhead_s']:.2f} s); one save of the optimizer state "
+        f"({rec['checkpoint_bytes'] / 1e6:.1f} MB of S and Y) {rec['save_ms']:.1f} ms")
+    if not _same_model(checked, a):
+        raise AssertionError("(ee): fits of the same rows are not bit-equal")
+    log("  (ee) two fits (the entry point's, the staged rows' with checkpoints) bit-equal: held")
+
+    # the float64 fit on the card, the same rows
+    fi64 = FitInput(**{**fi.__dict__, "X": fi.X.double(), "w": fi.w.double(),
+                       "dtype": np.dtype(np.float64)})
+    est64 = LogisticRegression(float32_inputs=False, **SPARSE_KW)
+    t0 = _synced(device)
+    ref64 = est64._fit_array(fi64)
+    rec["fit_float64_s"] = _synced(device) - t0
+    del fi64
+    rec["objective"], rec["objective_float64_fit"] = a["objective"], ref64["objective"]
+    rel = abs(a["objective"] - ref64["objective"]) / abs(ref64["objective"])
+    rec.update(_hold("(ee)", "objective against the float64 fit", rel, 1e-5))
+    std64 = _std_of(fi)
+    obj = _objective64(fi, a["coef_"], a["intercept_"], std64, SPARSE_KW["regParam"], 0.0, 2)
+    rec.update(_hold("(ee)", "objective against its float64 evaluation",
+                     abs(a["objective"] - obj) / abs(obj), 1e-5))
+    log(f"  (ee) float64 fit on the card {rec['fit_float64_s']:.2f} s, "
+        f"{ref64['num_iters']} iterations, objective {ref64['objective']!r}")
+    del fi
+
+    # the held-out rows, transformed (densified chunk by chunk)
+    Xh, yh, _, _, _ = criteo_csr(SPARSE_HELD_OUT, seed, device,
+                                 first_chunk=SPARSE_ROWS // SPARSE_GEN_ROWS, threshold=thr)
+    t0 = _synced(device)
+    out = model.transform(Xh)
+    rec["transform_s"] = time.perf_counter() - t0
+    rec["transform_rows_per_s"] = SPARSE_HELD_OUT / rec["transform_s"]
+    p1 = out["probability"][:, 1]
+    rec["auc"] = auc(p1, yh)
+    if not (np.isfinite(out["probability"]).all() and out["probability"].shape ==
+            (SPARSE_HELD_OUT, 2) and rec["auc"] > 0.6):
+        raise AssertionError("(ee): the transform's outputs are wrong")
+    log(f"  (ee) transform of {SPARSE_HELD_OUT} held-out rows {rec['transform_s']:.2f} s "
+        f"({rec['transform_rows_per_s']:,.0f} rows/s), AUC {rec['auc']:.4f}")
+
+    sub, ysub = csr[:SPARSE_SUB_ROWS], y[:SPARSE_SUB_ROWS]
+    del csr, y
+    torch.cuda.empty_cache()
+    rec["label_threshold"] = thr
+    return rec, sub, ysub, model, (Xh, out)
+
+
+def sparse_ee_owlqn(device, rec: dict, sub, ysub) -> None:
+    """(ee)'s OWL-QN fit (elasticNetParam 1) on its first 1M rows, the
+    objective held against its float64 evaluation; into `rec`."""
+    import torch
+
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.utils import _ArrayBatch
+
+    est = LogisticRegression(**dict(SPARSE_KW, elasticNetParam=1.0))
+    t0 = _synced(device)
+    m1 = est.fit((sub, ysub))
+    rec["owlqn_fit_s"] = _synced(device) - t0
+    rec["owlqn_iterations"] = m1.summary.totalIterations
+    rec["owlqn_zero_coefficients"] = int((m1.coef_ == 0).sum())
+    fi1 = est._stage_fit_input(_ArrayBatch(X=sub, y=ysub))
+    obj = _objective64(fi1, m1.coef_, m1.intercept_, _std_of(fi1), 0.0,
+                       SPARSE_KW["regParam"], 2)
+    rec.update(_hold("(ee) OWL-QN", "objective against its float64 evaluation",
+                     abs(m1.objective - obj) / abs(obj), 1e-5))
+    log(f"  (ee) OWL-QN (elasticNetParam 1) on the first {SPARSE_SUB_ROWS} rows: "
+        f"{rec['owlqn_fit_s']:.2f} s, {rec['owlqn_iterations']} iterations, "
+        f"{rec['owlqn_zero_coefficients']} of {m1.coef_.size} coefficients zero")
+    del fi1
+    torch.cuda.empty_cache()
+
+
+def sparse_ff(device, seed: int, card: str) -> dict:
+    """(ff): 5-class ELL fit on the first 1M rows of the generator: the
+    objective held against a float64 fit of the same rows on the card and
+    against its own float64 evaluation."""
+    import torch
+
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.core import FitInput
+    from spark_rapids_ml_torch.utils import _ArrayBatch
+
+    rec = {"cell": f"(ff) sparse multinomial LogisticRegression {SPARSE_SUB_ROWS} x "
+                   f"{SPARSE_COLS}, {SPARSE_FF_CLASSES} classes", "card": card}
+    X, y, _, _, _ = criteo_csr(SPARSE_SUB_ROWS, seed, device, classes=SPARSE_FF_CLASSES)
+    est = LogisticRegression(**SPARSE_KW)
+    t0 = _synced(device)
+    model = est.fit((X, y))
+    rec["fit_s"] = _synced(device) - t0
+    rec["iterations"] = model.summary.totalIterations
+    fi = est._stage_fit_input(_ArrayBatch(X=X, y=y))
+    fi64 = FitInput(**{**fi.__dict__, "X": fi.X.double(), "w": fi.w.double(),
+                       "dtype": np.dtype(np.float64)})
+    t0 = _synced(device)
+    ref64 = LogisticRegression(float32_inputs=False, **SPARSE_KW)._fit_array(fi64)
+    rec["fit_float64_s"] = _synced(device) - t0
+    del fi64
+    obj = _objective64(fi, model.coef_, model.intercept_, _std_of(fi), SPARSE_KW["regParam"],
+                       0.0, SPARSE_FF_CLASSES)
+    del fi
+    rec["objective"], rec["objective_float64_fit"] = model.objective, ref64["objective"]
+    rec["iterations_float64_fit"], rec["objective_float64"] = ref64["num_iters"], obj
+    rec.update(_hold("(ff)", "objective against the float64 fit",
+                     abs(model.objective - ref64["objective"]) / abs(ref64["objective"]), 1e-5))
+    rec.update(_hold("(ff)", "objective against its float64 evaluation",
+                     abs(model.objective - obj) / abs(obj), 1e-5))
+    log(f"  (ff) fit {rec['fit_s']:.2f} s, {rec['iterations']} iterations, objective "
+        f"{model.objective!r}; the float64 fit {rec['fit_float64_s']:.2f} s, "
+        f"{ref64['num_iters']} iterations, objective {ref64['objective']!r}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+STICKY_CHILD = r'''
+import time
+t0 = time.perf_counter()
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+from spark_rapids_ml_torch import config, resilience, set_default_device
+from spark_rapids_ml_torch.classification import LogisticRegression
+from spark_rapids_ml_torch.resilience import faults
+
+device = torch.device("cuda:0")
+set_default_device(device)
+torch.ones(1, device=device).sum().item()
+stamps = {"import_and_cuda_s": time.perf_counter() - t0}
+mode, ckpt, out = sys.argv[2], sys.argv[3], sys.argv[4]
+X, y, _, _, _ = chip_smoke.criteo_csr(chip_smoke.SPARSE_SUB_ROWS, int(sys.argv[5]), device,
+                                      threshold=float(sys.argv[6]))
+stamps["data_s"] = time.perf_counter() - t0 - stamps["import_and_cuda_s"]
+config.set_config(checkpoint_dir=ckpt)
+if mode == "kill":
+    seen = {"n": 0}
+    real = faults.maybe_inject
+
+    def poison(site):
+        if site == "lbfgs_iteration":
+            seen["n"] += 1
+            if seen["n"] == chip_smoke.SPARSE_KILL_AT + 1:
+                # an index out of range on the card: a real device-side assert
+                t = torch.zeros(4, device=device)
+                t[torch.tensor([1 << 20], device=device)] += 1.0
+                torch.cuda.synchronize()
+        real(site)
+
+    faults.maybe_inject = poison
+    try:
+        LogisticRegression(**chip_smoke.SPARSE_KW).fit((X, y))
+    except Exception as e:
+        stamps["to_the_error_s"] = time.perf_counter() - t0
+        print(json.dumps({"error": str(e).splitlines()[0],
+                          "action": resilience.classify_error(e),
+                          "sticky": resilience.is_sticky_cuda_error(e),
+                          "files": sorted(os.listdir(ckpt)), "stamps": stamps}), flush=True)
+        os._exit(3)
+    sys.exit(4)
+m = LogisticRegression(**chip_smoke.SPARSE_KW).fit((X, y))
+import numpy as np
+np.savez(out, coef=m.coef_, intercept=m.intercept_, hist=np.asarray(m.summary.objectiveHistory))
+stamps["to_the_end_s"] = time.perf_counter() - t0
+print(json.dumps({"resumed": [e.detail for e in resilience.get_events("lbfgs_resume")],
+                  "stamps": stamps}), flush=True)
+'''
+
+
+def _start_child(tmp: str, mode: str, ckpt: str, out: str, seed: int, threshold: float):
+    """Start STICKY_CHILD in a fresh process, its output into files in
+    `tmp`; `_finish_child` waits for it."""
+    script = os.path.join(tmp, "sticky_child.py")
+    with open(script, "w") as f:
+        f.write(STICKY_CHILD)
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(tmp, f"child_{mode}.{k}"), "w+") for k in ("out", "err")]
+    proc = subprocess.Popen([sys.executable, script, root, mode, ckpt, out, str(seed),
+                             repr(threshold)], stdout=logs[0], stderr=logs[1], text=True)
+    return proc, logs, time.perf_counter()
+
+
+def _child_json(child, timeout: float = 300.0) -> tuple:
+    """(the child's last JSON line, seconds) as soon as it is printed: a
+    child that met a device-side assert prints its line, then spends tens
+    of seconds tearing its CUDA context down; `_finish_child` reaps it."""
+    proc, logs, t0 = child
+    while True:
+        with open(logs[0].name) as f:
+            last = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+        if last:
+            return json.loads(last[-1]), time.perf_counter() - t0
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            return {}, time.perf_counter() - t0
+        time.sleep(0.2)
+
+
+def _finish_child(child) -> tuple:
+    """(exit code, its last JSON line, seconds, the end of its stderr)."""
+    proc, logs, t0 = child
+    try:
+        code = proc.wait(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        code = proc.wait()
+    seconds = time.perf_counter() - t0
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+    last = [ln for ln in texts[0].splitlines() if ln.startswith("{")]
+    return code, json.loads(last[-1]) if last else {}, seconds, texts[1][-2000:]
+
+
+def sparse_gg(device, seed: int, card: str, tmp: str, sub, ysub, model, held_out, ee: dict,
+              children: list, sticky_ckpt: str, sticky_out: str) -> dict:
+    """(gg): resilience on the card, 1-5; the first child of 4 already
+    runs."""
+    import torch
+
+    from spark_rapids_ml_torch import DeviceDataset, config
+    from spark_rapids_ml_torch import resilience as res
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.clustering import KMeans
+    from spark_rapids_ml_torch.utils import _ArrayBatch
+
+    rec = {"cell": "(gg) resilience on the card", "card": card}
+    fast = dict(retry_backoff_s=0.01, retry_jitter=0.0)
+
+    # 4. the sticky error's child has classified its error (it then tears its
+    # context down for tens of seconds, reaped later); the resuming child
+    # runs beside 1, 5 and 3; 2 runs last, with no child on the card (its
+    # ballast would starve one, and a context freed mid-test would feed it)
+    info, error_s = _child_json(children[0])
+    if info.get("action") != "device_loss" or not info.get("sticky") or not info.get("files"):
+        raise AssertionError(f"(gg) 4: the child did not classify a device loss: {info}")
+    children.append(_start_child(tmp, "resume", sticky_ckpt, sticky_out, seed,
+                                 ee["label_threshold"]))
+
+    # 1. a resume after a crash
+    est = LogisticRegression(**SPARSE_KW)
+    t0 = _synced(device)
+    ref = est.fit((sub, ysub))
+    rec["fit_1m_s"] = _synced(device) - t0
+    want = ref._get_model_attributes()
+    ckpt = os.path.join(tmp, "gg_ckpt")
+    res.reset_faults()
+    res.reset_metrics()
+    config.set_config(checkpoint_dir=ckpt, **fast,
+                      fault_inject_spec=f"lbfgs_iteration:preemption:1:{SPARSE_KILL_AT}")
+    healed = LogisticRegression(**SPARSE_KW).fit((sub, ysub))
+    resumed = [e.detail for e in res.get_events("lbfgs_resume")]
+    if resumed != [f"it={SPARSE_KILL_AT}"] or not _same_model(healed._get_model_attributes(),
+                                                              want):
+        raise AssertionError(f"(gg) 1: the retried fit did not resume bit-equal ({resumed})")
+    rec["retry_resume_report"] = healed.fit_report().get("resilience")
+    res.reset_faults()
+    res.reset_metrics()
+    config.set_config(checkpoint_dir=ckpt, retry_max_attempts=1,
+                      fault_inject_spec=f"lbfgs_iteration:preemption:1:{SPARSE_KILL_AT}")
+    try:
+        LogisticRegression(**SPARSE_KW).fit((sub, ysub))
+        raise AssertionError("(gg) 1: the fit was not killed")
+    except res.SimulatedPreemption:
+        pass
+    config.set_config(checkpoint_dir=ckpt)
+    again = LogisticRegression(**SPARSE_KW).fit((sub, ysub))
+    resumed = [e.detail for e in res.get_events("lbfgs_resume")]
+    if resumed != [f"it={SPARSE_KILL_AT}"] or not _same_model(again._get_model_attributes(),
+                                                              want):
+        raise AssertionError(f"(gg) 1: the new estimator did not resume bit-equal ({resumed})")
+    config.reset_config()
+    res.reset_faults()
+    log(f"  (gg) 1: a preemption at iteration {SPARSE_KILL_AT} retried within the fit and a "
+        f"fit killed there resumed by a new estimator: both bit-equal to the uninterrupted "
+        f"fit ({rec['fit_1m_s']:.2f} s): held; at (ee)'s {SPARSE_ROWS} rows a save "
+        f"{ee['save_ms']:.1f} ms, the fit's checkpoint overhead {ee['checkpoint_overhead_s']:.2f}"
+        f" s of {ee['fit_staged_s']:.2f} s")
+
+    # 5. KMeans on (h)'s generator (beside the resuming child)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = torch.randn((SPARSE_KMEANS_ROWS, 64), generator=gen, device=device, dtype=torch.float32)
+    ds = DeviceDataset(device, X, SPARSE_KMEANS_ROWS, weight=torch.ones(SPARSE_KMEANS_ROWS,
+                                                                         device=device))
+    kw = dict(k=20, seed=0, maxIter=20)
+    ckpt = os.path.join(tmp, "gg_kmeans")
+    config.set_config(checkpoint_dir=ckpt, **fast)
+    t0 = _synced(device)
+    k0 = KMeans(**kw).fit(ds)
+    rec["kmeans_fit_s"] = _synced(device) - t0
+    k0b = KMeans(**kw).fit(ds)
+    res.reset_faults()
+    res.reset_metrics()
+    config.set_config(fault_inject_spec="kmeans_lloyd:preemption:1:5")
+    k1 = KMeans(**kw).fit(ds)
+    config.reset_config()
+    res.reset_faults()
+    resumed = [e.detail for e in res.get_events("kmeans_resume")]
+    twice = _rel(k0b.cluster_centers_, k0.cluster_centers_)
+    diff = _rel(k1.cluster_centers_, k0.cluster_centers_)
+    rec.update(kmeans_resumed=resumed, kmeans_two_fits_rel=twice, kmeans_resumed_rel=diff,
+               kmeans_bit_equal=bool(np.array_equal(k1.cluster_centers_, k0.cluster_centers_)),
+               kmeans_iterations=(k0.n_iter_, k0b.n_iter_, k1.n_iter_),
+               kmeans_cost_rel=abs(k1.inertia_ - k0.inertia_) / k0.inertia_)
+    log(f"  (gg) 5: KMeans k=20 on {SPARSE_KMEANS_ROWS} x 64 ({rec['kmeans_fit_s']:.2f} s a fit,"
+        f" stepwise): resumed {resumed}; iterations {rec['kmeans_iterations']}; centres "
+        f"{diff:.3e} from the uninterrupted fit's (bit-equal {rec['kmeans_bit_equal']}), two "
+        f"uninterrupted fits {twice:.3e} apart (index_add_'s atomics), cost "
+        f"{rec['kmeans_cost_rel']:.3e} apart")
+    del X, ds, k0, k0b, k1
+    torch.cuda.empty_cache()
+    if resumed != ["it=5"] or rec["kmeans_iterations"][2] != rec["kmeans_iterations"][0]:
+        raise AssertionError(f"(gg) 5: no resume at iteration 5, or another iteration count")
+    # Lloyd on rows with no clusters carries a rounding of the atomics'
+    # order from pass to pass: the resumed fit is held to the spread of two
+    # uninterrupted fits, its cost to float32's 1e-5
+    rec.update(_hold("(gg) 5", "resumed centres' distance over two uninterrupted fits'",
+                     diff / max(twice, 1e-6), 10.0))
+    rec.update(_hold("(gg) 5", "resumed cost against the uninterrupted fit's",
+                     rec["kmeans_cost_rel"], 1e-5))
+
+    # 3. the watchdog around real card work (beside the resuming child): a
+    # deadline a quarter of the 1M-row fit's time on the staged rows; the
+    # next fit, a small one without a deadline, runs beside the abandoned
+    # fit, whose end is awaited before 2
+    t0 = time.perf_counter()
+    fi = est._stage_fit_input(_ArrayBatch(X=sub, y=ysub))
+    stage_s = _synced(device) - t0
+    deadline = max(0.05, (rec["fit_1m_s"] - stage_s) / 4)
+    rng = np.random.default_rng(seed)
+    Xs = rng.normal(size=(2000, 8))
+    ys = (Xs[:, 0] > 0).astype(np.float64)
+    small = LogisticRegression(regParam=0.01).fit((Xs, ys))
+    config.set_config(dispatch_deadline_s=deadline, retry_max_attempts=1)
+    t0 = time.perf_counter()
+    try:
+        est._run_fit_kernel(fi)
+        raise AssertionError("(gg) 3: no DispatchTimeout")
+    except res.DispatchTimeout:
+        rec["watchdog_s"] = time.perf_counter() - t0
+    config.reset_config()
+    rec.update(watchdog_deadline_s=deadline)
+    if rec["watchdog_s"] > deadline + 2.0:
+        raise AssertionError("(gg) 3: the timeout came late")
+    t0 = _synced(device)
+    after = LogisticRegression(regParam=0.01).fit((Xs, ys))
+    rec["after_watchdog_fit_s"] = _synced(device) - t0
+    if not np.array_equal(after.coef_, small.coef_):
+        raise AssertionError("(gg) 3: the fit after the timeout differs")
+    t_abandoned = time.perf_counter()
+    del fi
+    log(f"  (gg) 3: deadline {deadline:.3f} s on the {SPARSE_SUB_ROWS}-row fit: DispatchTimeout "
+        f"after {rec['watchdog_s']:.3f} s; the next fit (no deadline: beside the abandoned one) "
+        f"{rec['after_watchdog_fit_s']:.2f} s, equal to the same fit before: held")
+
+    code, info2, resume_s, err = _finish_child(children[1])
+    if code != 0:
+        raise AssertionError(f"(gg) 4: the resuming child failed: {err}")
+    code, _, kill_s, err = _finish_child(children[0])
+    if code != 3:
+        raise AssertionError(f"(gg) 4: the child did not end as a device loss: {code} {err}")
+    with np.load(sticky_out) as z:
+        got = {"coef_": z["coef"], "intercept_": z["intercept"],
+               "objective_history": [float(v) for v in z["hist"]]}
+    if info2.get("resumed") != [f"it={SPARSE_KILL_AT}"] or not _same_model(got, want):
+        raise AssertionError(f"(gg) 4: the second child did not resume bit-equal: {info2}")
+    rec.update(sticky_error=info["error"], sticky_child_s=kill_s,
+               sticky_child_to_its_line_s=error_s, resume_child_s=resume_s,
+               sticky_child_stamps=info.get("stamps"), resume_child_stamps=info2.get("stamps"))
+    log(f"  (gg) 4: child 1 (its line after {error_s:.1f} s, its exit after {kill_s:.1f} s; "
+        f"beside OWL-QN, (ff), 1, 5 and 3) ended on '{info['error']}', "
+        f"classified {info['action']}, leaving {info['files']}; child 2 ({resume_s:.1f} s, "
+        f"beside 1, 5 and 3) "
+        f"resumed at iteration {SPARSE_KILL_AT}, bit-equal to the uninterrupted fit: held; "
+        f"their stages {info.get('stamps')}, {info2.get('stamps')}")
+
+    # 3's abandoned fit ends on its own, beside 4's end; 2 waits for it
+    if res.wait_abandoned(120.0):
+        raise AssertionError("(gg) 3: the abandoned fit did not end")
+    rec["abandoned_end_s"] = time.perf_counter() - t_abandoned
+    log(f"  (gg) 3: the abandoned fit had ended {rec['abandoned_end_s']:.2f} s after the next "
+        "fit, at the latest")
+
+    # 2. a real OOM in the transform, against (ee)'s transform of the rows
+    Xh, plain = held_out
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(device)
+    ballast = torch.empty(int(free) - SPARSE_OOM_FREE, dtype=torch.uint8, device=device)
+    res.reset_metrics()
+    try:
+        t0 = time.perf_counter()
+        tight = model.transform(Xh)
+        rec["oom_transform_s"] = time.perf_counter() - t0
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    halvings = [e.detail for e in res.get_events("retry[transform_dispatch]")]
+    rec["oom_retries"] = halvings
+    if not halvings or not all("action=oom" in h for h in halvings):
+        raise AssertionError(f"(gg) 2: no OOM was met or recovered ({halvings})")
+    # every row once, in order; the margins of smaller chunks may take
+    # another cuBLAS reduction, so the floats are held to float32's 1e-5
+    if not np.array_equal(tight["prediction"], plain["prediction"]):
+        raise AssertionError("(gg) 2: predictions after the OOM differ")
+    for col in ("probability", "rawPrediction"):
+        rec.update(_hold("(gg) 2", f"{col} against the unconstrained transform",
+                         _rel(tight[col], plain[col]), 1e-5))
+    from spark_rapids_ml_torch.streaming import chunk_rows_for
+
+    first = chunk_rows_for(SPARSE_COLS, 4) // 2
+    log(f"  (gg) 2: ballast left {SPARSE_OOM_FREE >> 20} MiB free, under one transform chunk "
+        f"({first} rows, {first * SPARSE_COLS * 4 >> 20} MiB): {len(halvings)} OOM(s) recovered by "
+        f"halving, {rec['oom_transform_s']:.2f} s, predictions equal to the unconstrained "
+        "transform's: held")
+
+    return rec
+
+
+def phase_sparse_resilience(device, args, card: str) -> dict:
+    """Phase 15: (ee), (ff), (gg)."""
+    import shutil
+
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.parallel import device_cache
+
+    config.reset_config()
+    device_cache.clear_device_cache()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sparse_")
+    children: list = []
+    try:
+        ee, sub, ysub, model, held_out = sparse_ee(device, args.seed, card, tmp)
+        log(f"  (ee) done at {time.perf_counter() - t_phase:.1f} s")
+        # (gg) 4's first child (a sticky CUDA error) runs beside (ee)'s OWL-QN
+        # fit, (ff) and (gg) 1: its start-up and its fit overlap the parent's
+        # work on the card
+        sticky_ckpt = os.path.join(tmp, "gg_sticky")
+        os.makedirs(sticky_ckpt, exist_ok=True)
+        sticky_out = os.path.join(tmp, "gg_sticky_model.npz")
+        children.append(_start_child(tmp, "kill", sticky_ckpt, sticky_out, args.seed,
+                                     ee["label_threshold"]))
+        sparse_ee_owlqn(device, ee, sub, ysub)
+        ff = sparse_ff(device, args.seed, card)
+        log(f"  (ff) done at {time.perf_counter() - t_phase:.1f} s")
+        gg = sparse_gg(device, args.seed, card, tmp, sub, ysub, model, held_out, ee, children,
+                       sticky_ckpt, sticky_out)
+    finally:
+        for proc, logs, _ in children:  # stop a child a failed check left running
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        config.reset_config()
+    log(f"  phase 15 {time.perf_counter() - t_phase:.1f} s")
+    return {"cells": [ee, ff, gg]}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -4934,6 +5810,9 @@ def main() -> int:
         log(f"  import pyarrow {pyarrow.__version__}: {time.perf_counter() - t0:.3f} s")
     except ImportError:
         log("  pyarrow is not installed: the parquet fits cannot run on this machine")
+    # phase 5's rows, made on a host thread beside phases 1-4 (the build
+    # runs nvcc in other processes)
+    logistic_rows = start_logistic_rows(args)
     phase_build(args)
 
     stage("phase 2: kernels vs their plain versions on the card")
@@ -4948,7 +5827,8 @@ def main() -> int:
 
     stage(f"phase 5: LogisticRegression: (a) bench.py's headline, (b) the reference benchmark's "
         "width, (c) softmax + OWL-QN + weights in float64")
-    logistic = phase_logistic(device, args)
+    logistic = phase_logistic(device, args, logistic_rows)
+    del logistic_rows
 
     stage(f"phase 6: PCA and LinearRegression: (d) PCA k=3 at bench.py's 1M x 128, (e) PCA k=3 "
         "and (f) LinearRegression at the reference benchmark's 1M x 3000, (g) float64 with "
@@ -4958,31 +5838,36 @@ def main() -> int:
     stage("phase 7: persistence")
     phase_persistence(main_out, logistic, pca_linear)
 
-    stage(f"phase 8: KMeans and DBSCAN: (h) KMeans k=20 at BASELINE.json's 100M x 64, (i) the "
-        "reference benchmark's kmeans_k1000_iter30 at 1M x 3000, (j) DBSCAN on bench.py's "
-        "300k x 16 blobs, (k) float64, card against CPU")
-    wide_X = pca_linear.pop("X_f")
-    clustering = phase_clustering(device, args, wide_X)
-
-    stage("phase 9: RandomForest: (l) the reference benchmark's random_forest_classifier_50t_d13"
-          " and (m) random_forest_regressor_30t_d6 at 1M x 3000, (n) BASELINE.json's classifier "
-          f"at {RF_N_ROWS} x 64 ({RF_N_TREES} trees), (o) float64, card against CPU")
-    wide_y = logistic.pop("y_wide")
-    forest = phase_forest(device, args, wide_X, wide_y)
-
-    stage("phase 10: parquet: (p) the reference benchmark's 1M x 3000 input as parquet through "
-          "the fused and staged routes, (q) the streamed route on it, (r) bench.py's 2M x 64 "
-          "epoch-streaming cell")
     import shutil
 
+    wide_X, wide_y = pca_linear.pop("X_f"), logistic.pop("y_wide")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    # phase 10's 12 GB file, written on a host thread beside phases 8 and 9
+    # (which only read the rows)
+    parquet_path = os.path.join(tmp, "ref_1m_3k.parquet")
+    parquet_written = start_reference_parquet(parquet_path, wide_X, wide_y)
     try:
-        parquet = phase_parquet(device, args, wide_X, wide_y, tmp)
+        stage(f"phase 8: KMeans and DBSCAN: (h) KMeans k=20 at BASELINE.json's 100M x 64, (i) "
+              "the reference benchmark's kmeans_k1000_iter30 at 1M x 3000, (j) DBSCAN on "
+              "bench.py's 300k x 16 blobs, (k) float64, card against CPU")
+        clustering = phase_clustering(device, args, wide_X)
+
+        stage("phase 9: RandomForest: (l) the reference benchmark's "
+              "random_forest_classifier_50t_d13 and (m) random_forest_regressor_30t_d6 at 1M x "
+              f"3000, (n) BASELINE.json's classifier at {RF_N_ROWS} x 64 ({RF_N_TREES} trees), "
+              "(o) float64, card against CPU")
+        forest = phase_forest(device, args, wide_X, wide_y)
+
+        stage("phase 10: parquet: (p) the reference benchmark's 1M x 3000 input as parquet "
+              "through the fused and staged routes, (q) the streamed route on it, (r) "
+              "bench.py's 2M x 64 epoch-streaming cell")
+        parquet = phase_parquet(device, args, wide_X, wide_y, tmp, parquet_written)
         stage("phase 11: chunk cache and stats: (s) bench.py's epoch-cache cell, (t) DuHL on "
               "(r)'s file, (u) summarize: bench.py's cell and (p)'s file")
         cache_stats = phase_cache_stats(device, tmp, parquet["paths"], wide_X.shape[0],
                                         args.r_rows, wide_X)
     finally:
+        parquet_written.exception()  # the writer has stopped before its directory goes
         shutil.rmtree(tmp, ignore_errors=True)
     stage("phase 12: the meta layer: (v) bench.py's cv_cached cell, (w) CrossValidator, "
           "fitMultiple and evaluate at the reference benchmark's width")
@@ -4997,6 +5882,12 @@ def main() -> int:
           "(bb) bench.py's bench_umap cells, (cc) the fused kernel on UMAP's path, (dd) checks")
     umap = phase_umap(device, args, ann.pop("X"))
 
+    stage(f"phase 15: sparse LogisticRegression and resilience: (ee) {SPARSE_ROWS} x "
+          f"{SPARSE_COLS} Criteo-layout rows through the ELL route, (ff) 5 classes on "
+          f"{SPARSE_SUB_ROWS} rows, (gg) resume, a real OOM, the watchdog, a sticky error, "
+          "KMeans resume")
+    sparse = phase_sparse_resilience(device, args, card)
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
@@ -5007,6 +5898,7 @@ def main() -> int:
     print(json.dumps({"meta": meta["cells"]}, default=float))
     print(json.dumps({"ann": ann["cells"]}, default=float))
     print(json.dumps({"umap": umap["cells"]}, default=float))
+    print(json.dumps({"sparse": sparse["cells"]}, default=float))
     print(json.dumps({"kernels": main_out["kernels"] + f64 + [ann["kernel"]] + umap["kernels"]},
                      default=float))
     print(card)

@@ -2,7 +2,7 @@
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
 # core keys and the keys the exact-kNN, LogisticRegression, PCA,
 # LinearRegression, clustering, parquet/streaming, chunk-cache, statistics,
-# meta-layer and UMAP slices read.
+# meta-layer, UMAP and resilience slices read.
 # The confs live in a process-global dict, overridable from the
 # environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or `set_config()`.  Key
 # names and defaults match the JAX package, except where a comment says
@@ -156,9 +156,27 @@ _DEFAULTS: Dict[str, Any] = {
     # 10 epochs, the prior: structured on a card (the form whose fits
     # repeat bit for bit), generic on the CPU.
     "umap_kernel": "auto",
-    # Per-iteration checkpoints of the streamed fits: not ported; a
-    # non-empty value raises NotImplementedError (ROADMAP.md section 1).
+    # The resilience layer (resilience/), with the JAX package's keys and
+    # defaults.  streaming_checkpoint_dir: the streamed fits' checkpoint
+    # directory, an older alias of checkpoint_dir for them alone.
+    # checkpoint_dir: every iterative fit (the host L-BFGS/OWL-QN, FISTA,
+    # the stepwise KMeans, the streamed fits) saves its solver state there
+    # after each iteration and resumes from it after a crash; empty is off.
     "streaming_checkpoint_dir": "",
+    "checkpoint_dir": "",
+    # Watchdog deadline in seconds of a guarded fit or dispatch
+    # (resilience/guard.py); 0 runs it inline with no watchdog thread.
+    "dispatch_deadline_s": 0.0,
+    # The retry policy (resilience/retry.py `RetryPolicy.from_config`):
+    # attempts in all, and the backoff's base, multiplier and jitter.
+    "retry_max_attempts": 3,
+    "retry_backoff_s": 0.5,
+    "retry_backoff_mult": 2.0,
+    "retry_jitter": 0.25,
+    # Deterministic fault injection (resilience/faults.py):
+    # "site:kind[:times[:skip]]" comma list, e.g.
+    # "fit_kernel:oom:1,transform_dispatch:timeout:1:2"; empty disables.
+    "fault_inject_spec": "",
 }
 
 # Keys whose default is None, and the type an environment value takes.

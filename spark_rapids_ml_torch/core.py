@@ -45,9 +45,20 @@
 # `_transformEvaluate` score several models on one extraction of the eval
 # rows; `_evaluate_frame` is the front half of the models' `evaluate`.
 #
+# Sparse rows: an estimator with a sparse kernel (`_use_sparse_kernel`:
+# LogisticRegression) stages a CSR batch as ELL (ops/sparse.py), the values
+# as X and the int32 column ids as `extra["ell_cols"]`.
+#
+# Resilience (resilience/): `_run_fit_kernel` runs the fit under the
+# `fit_kernel` fault site, the `guarded` watchdog (`dispatch_deadline_s`)
+# and the retry policy; the streamed fits and the transform's chunks run
+# under the same policy, the transform halving its chunk after an OOM and
+# re-dispatching from its first unpublished row.  `_fit_fingerprint` binds
+# a checkpoint tag to the staged data, exactly as the JAX package does, so
+# the tags and file names of the two packages agree.
+#
 # Left for later slices: Spark DataFrames, the baseline fold, the CPU
-# fallback (`cpu_fallback_enabled=True` raises where it would run), the
-# sparse (ELL) staging, and the resilience (retry, OOM halving) and
+# fallback (`cpu_fallback_enabled=True` raises where it would run), and the
 # telemetry seams.
 #
 from __future__ import annotations
@@ -84,6 +95,43 @@ class FitInput:
     n_valid: int
     params: Dict[str, Any]  # resolved backend params (_tpu_params)
     extra: Dict[str, Any] = field(default_factory=dict)
+
+
+def _isum(t) -> int:
+    """The sum of a tensor's elements bit-cast to integers of its own
+    width, wrapping around in that width, as the JAX package's
+    `_fit_fingerprint` sums them: exact, so independent of order.  The
+    sums run in int64 on the tensor's device with no full-size copy; an
+    8-byte element is summed as its two 32-bit words."""
+    import torch
+
+    width = t.element_size()
+    itype = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[width]
+    t = t.reshape(-1)
+    t = t.view(itype) if t.is_floating_point() else t.to(itype)
+    if width == 8:
+        words = t.view(torch.int32).reshape(-1, 2)  # little-endian: (low, high)
+        low = words[:, 0]
+        # the low word is unsigned: a negative int32 stands for itself + 2^32
+        total = (int(low.sum(dtype=torch.int64)) + int((low < 0).sum()) * (1 << 32)
+                 + int(words[:, 1].sum(dtype=torch.int64)) * (1 << 32))
+    else:
+        total = int(t.sum(dtype=torch.int64))
+    bits = 8 * width
+    return (total + (1 << (bits - 1))) % (1 << bits) - (1 << (bits - 1))
+
+
+def _fit_fingerprint(fit_input: "FitInput") -> str:
+    """A content fingerprint that binds an in-memory checkpoint tag to the
+    data, not just its shape: the wrapped integer sums (`_isum`) of the
+    staged features, weights and labels.  The JAX package's string, so a
+    checkpoint written by either package resumes in the other (the port
+    stages no padding rows; the JAX package's are +0.0, whose bits are
+    0)."""
+    parts = [f"sx={_isum(fit_input.X)}", f"swt={_isum(fit_input.w)}"]
+    if fit_input.y is not None:
+        parts.append(f"sy={_isum(fit_input.y)}")
+    return "|".join(parts)
 
 
 def _resolve_feature_params(inst: Params) -> Tuple[Optional[str], Sequence[str]]:
@@ -296,20 +344,38 @@ class _TpuCaller(_TpuParams, _ReadWriteMixin):
         # them, depend on it.  Kept as it is on purpose.
         return np.dtype(np.float32)
 
+    def _use_sparse_kernel(self, batch: _ArrayBatch) -> bool:
+        """Whether a batch stages as ELL for a sparse kernel instead of
+        densifying; estimators with sparse kernels override."""
+        return False
+
     def _stage_fit_input(self, batch: _ArrayBatch) -> FitInput:
         """Stage a host batch on the device: features in the fit's dtype
-        (CSR densified chunk by chunk: the JAX package's ELL staging for
-        sparse kernels is a later item), validity * sample weights, labels
-        in `_fit_label_dtype`."""
+        (as ELL values with `extra["ell_cols"]` when `_use_sparse_kernel`,
+        else dense, CSR densified chunk by chunk), validity * sample
+        weights, labels in `_fit_label_dtype`."""
         from .parallel import DeviceContext
         from .parallel.mesh import RowStager
 
         with DeviceContext(self.num_workers) as ctx:
             device = ctx.device
         X = batch.X
-        dtype = self._out_dtype(X)
         st = RowStager(X.shape[0], device)
-        Xs = st.stage_sparse(X, dtype) if _is_sparse(X) else st.stage(X, dtype)
+        extra: Dict[str, Any] = {}
+        if self._use_sparse_kernel(batch):
+            import scipy.sparse as sp
+
+            from .ops.sparse import ell_from_csr
+
+            # enable_sparse_data_optim=True stages dense rows as ELL too
+            vals, cols = ell_from_csr(X if _is_sparse(X) else sp.csr_matrix(X))
+            dtype = self._out_dtype(vals)
+            Xs = st.stage(vals, dtype)
+            extra["ell_cols"] = st.copy(cols)
+            del vals, cols
+        else:
+            dtype = self._out_dtype(X)
+            Xs = st.stage_sparse(X, dtype) if _is_sparse(X) else st.stage(X, dtype)
         w = st.mask(dtype, weights=batch.weight)
         y = None
         if batch.y is not None:
@@ -324,6 +390,7 @@ class _TpuCaller(_TpuParams, _ReadWriteMixin):
             dtype=dtype,
             n_valid=st.n_valid,
             params=dict(self._tpu_params),
+            extra=extra,
         )
 
     def _stage_from_device(self, ds: DeviceDataset) -> FitInput:
@@ -415,13 +482,13 @@ class _TpuEstimator(Estimator, _TpuCaller):
         two-phase path): an estimator without the capability, CSR input, or
         the conf "off" or, under "auto", below `fused._AUTO_MIN_BYTES`.
         `source` is a host batch or a parquet path (then `est_bytes` is the
-        caller's estimate).  A pass that fails raises; nothing falls back
-        to the two-phase path."""
+        caller's estimate).  The pass runs under the retry policy; one that
+        still fails raises, and nothing falls back to the two-phase path."""
         if not self._supports_fused_stats():
             return None
         is_path = isinstance(source, str)
         if not is_path:
-            if _is_sparse(source.X):
+            if _is_sparse(source.X) or self._use_sparse_kernel(source):
                 return None
             est_bytes = (int(source.X.shape[0]) * int(source.X.shape[1])
                          * np.dtype(self._out_dtype(source.X)).itemsize)
@@ -433,8 +500,13 @@ class _TpuEstimator(Estimator, _TpuCaller):
             "Fused stage-and-solve: accumulating sufficient statistics on the "
             f"device while the rows stage (fused_stage_solve={fused_mode()}, "
             f"~{est_bytes / 2**20:.0f} MiB).")
+        from .resilience import retry_call
+
         self._fit_record["route"] = "fused_parquet" if is_path else "fused"
-        return self._fit_fused_parquet(source) if is_path else self._fit_fused(source)
+        # a retried pass starts with fresh accumulators
+        return retry_call((lambda: self._fit_fused_parquet(source)) if is_path
+                          else (lambda: self._fit_fused(source)),
+                          label="fused_fit", log=self.logger)
 
     # -- parquet and beyond the card's memory (streaming.py) -----------------
 
@@ -546,16 +618,23 @@ class _TpuEstimator(Estimator, _TpuCaller):
         def staged() -> Dict[str, Any]:
             # the staged tensors live in this frame only, so they are freed
             # with it when the fit fails
+            from .resilience import maybe_inject
+
             self._fit_record["route"] = "staged_parquet"
+            maybe_inject("stage_parquet")
             ds = stage_parquet(
                 path, features_col=fcol, features_cols=fcols, label_col=label_col,
                 weight_col=weight_col, num_workers=self.num_workers, dtype=dtype,
                 label_dtype=self._fit_label_dtype() if label_col else None)
             return self._run_fit_kernel(self._stage_from_device(ds))
 
+        from .resilience import is_oom
+
         try:
             return staged()
-        except torch.cuda.OutOfMemoryError as e:
+        except Exception as e:
+            if not is_oom(e):
+                raise
             if not self._supports_streaming_stats():
                 raise RuntimeError(
                     "Dataset exceeds device memory while stream-staging and "
@@ -572,18 +651,36 @@ class _TpuEstimator(Estimator, _TpuCaller):
         return self._run_streaming_fit(path)
 
     def _run_streaming_fit(self, path: str) -> Dict[str, Any]:
-        """The streamed fit: a plain call (the JAX package's retry policy
-        is the resilience item of ROADMAP.md)."""
+        """The streamed fit under the retry policy: every pass streams the
+        file again, so a re-dispatch needs no restaging, and with
+        `checkpoint_dir` (or `streaming_checkpoint_dir`) set it resumes
+        from its last completed iteration."""
+        from .resilience import retry_call
+
         self._fit_record["route"] = "streamed"
-        return self._fit_streaming(path)
+        return retry_call(lambda: self._fit_streaming(path), label="fit_streaming",
+                          log=self.logger)
 
     # -- fit orchestration ---------------------------------------------------
 
     def _run_fit_kernel(self, fit_input: FitInput) -> Dict[str, Any]:
-        """The seam where the JAX package's resilience layer (watchdog,
-        retry, elastic restage) wraps the fit; a plain call until that
-        layer is ported, so every error reaches the caller."""
-        return self._fit_array(fit_input)
+        """The fit through the resilience layer: the `fit_kernel` fault
+        site, the `guarded` watchdog (`dispatch_deadline_s`; the call ends
+        in a device synchronization) and the retry policy.  A transient
+        error backs off and re-dispatches, an OOM frees memory and
+        re-dispatches once, a preemption or a simulated device loss
+        re-dispatches, and an iterative solver with `checkpoint_dir` set
+        then resumes from its checkpoint; a sticky CUDA error propagates.
+        Every attempt runs on the same staged tensors and on the same
+        device: no recovery moves the fit to the CPU."""
+        from .resilience import guarded, maybe_inject, retry_call
+
+        def kernel() -> Dict[str, Any]:
+            maybe_inject("fit_kernel")
+            return self._fit_array(fit_input)
+
+        return retry_call(lambda: guarded(kernel, label="fit_kernel", log=self.logger),
+                          label="fit_kernel", log=self.logger)
 
     def _extract(self, dataset: DatasetLike) -> _ArrayBatch:
         features_col, features_cols = _resolve_feature_params(self)
@@ -617,9 +714,12 @@ class _TpuEstimator(Estimator, _TpuCaller):
                 f"{type(self).__name__}: cpu_fallback_enabled with an unsupported param "
                 f"({sorted(self._fallback_params)}) needs the scikit-learn fallback, "
                 "which is not ported (the Meta layer item (2) of ROADMAP.md)")
+        from .resilience import counts_snapshot
+
         t0 = time.time()
         self._fit_record = {}
         self._chunk_metrics_at_start = chunk_metrics_snapshot()
+        self._resilience_at_start = counts_snapshot()
         attrs = None
         if isinstance(dataset, DeviceDataset):
             self._fit_record["route"] = "device_dataset"
@@ -738,6 +838,16 @@ class _TpuEstimator(Estimator, _TpuCaller):
         cache = _chunk_cache_report(getattr(self, "_chunk_metrics_at_start", None))
         if cache:
             rec["chunk_cache"] = cache
+        start = getattr(self, "_resilience_at_start", None)
+        if start is not None:
+            from .resilience.metrics import counts_since
+
+            moved = counts_since(start)
+            if moved:
+                # checkpoint saves and resumes, retries, injected faults and
+                # watchdog expiries during the fit, by the JAX package's
+                # counter names
+                rec["resilience"] = moved
         return rec
 
 
@@ -839,14 +949,26 @@ class _TpuModel(Model, _TpuCaller):
         `host_batch_bytes` (halved, since two chunks are in flight), each
         staged and run through `_transform_device`.  A one-deep pipeline:
         chunk i+1 is converted on the host and copied on a side stream while
-        chunk i computes; then chunk i is fetched.  None when the model has
-        no `_transform_device`."""
+        chunk i computes; then chunk i is fetched and published whole.
+
+        Failures follow the retry policy (resilience/retry.py), as in the
+        JAX package: the chunks in flight are dropped and the loop resumes
+        at the first row not yet published, so no row is lost or written
+        twice.  An OOM halves the chunk (down to one row) after the card has
+        drained and the caches are freed; a transient error backs off, at
+        most `retry_max_attempts` times since the last published chunk; a
+        preemption or a simulated device loss re-dispatches; a sticky CUDA
+        error propagates.  The `transform_dispatch` fault site fires before
+        each chunk.  None when the model has no `_transform_device`."""
         if type(self)._transform_device is _TpuModel._transform_device:
             return None
+        import gc
+
         import torch
 
         from .parallel import DeviceContext
         from .parallel.mesh import RowStager
+        from .resilience import RetryPolicy, maybe_inject
         from .streaming import chunk_rows_for
 
         sparse_in = _is_sparse(X)
@@ -874,6 +996,7 @@ class _TpuModel(Model, _TpuCaller):
             """(hi, stager, tensor, event) for chunk lo:hi, staged on the side
             stream on a card; the event marks its copy done (None on the
             CPU)."""
+            maybe_inject("transform_dispatch")
             hi = min(lo + chunk, n)
             st = RowStager(hi - lo, device)
 
@@ -889,18 +1012,57 @@ class _TpuModel(Model, _TpuCaller):
             return hi, st, xt, ready
 
         outs: Dict[str, List[np.ndarray]] = {}
-        pending = _stage(0)
-        while pending is not None:
-            hi, st, xt, ready = pending
-            if ready is not None:
-                compute = torch.cuda.current_stream(device)
-                compute.wait_event(ready)
-                xt.record_stream(compute)  # made on the side stream, used here
-            dev = self._transform_device(xt)
-            pending = _stage(hi) if hi < n else None
-            for col, v in self._fetch_transform_outputs(st, dev).items():
-                outs.setdefault(col, []).append(v)
-            del xt, dev
+        policy = RetryPolicy.from_config()
+
+        def halve() -> None:
+            # drain the dropped chunks' work before their memory is reused,
+            # and drop the re-creatable cache residency, which may be the
+            # pressure
+            nonlocal chunk
+            from .parallel.device_cache import clear_device_cache
+
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            clear_device_cache()
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            chunk = max(1, chunk // 2)
+
+        retries = 0  # failures other than OOM since the last published chunk
+        done = 0  # rows published
+        while done < n:
+            try:
+                pending = _stage(done)
+                while pending is not None:
+                    hi, st, xt, ready = pending
+                    if ready is not None:
+                        compute = torch.cuda.current_stream(device)
+                        compute.wait_event(ready)
+                        xt.record_stream(compute)  # made on the side stream, used here
+                    dev = self._transform_device(xt)
+                    pending = _stage(hi) if hi < n else None
+                    fetched = self._fetch_transform_outputs(st, dev)
+                    for col, v in fetched.items():
+                        outs.setdefault(col, []).append(v)
+                    done = hi
+                    retries = 0  # progress resets the budget
+                    del xt, dev, fetched
+                break
+            except Exception as e:
+                # an OOM halves the chunk down to one row whatever the
+                # attempts; any other failure spends one of them
+                action = policy.classify(e)
+                if action != "oom":
+                    retries += 1
+                if not policy.admits(e, action, retries, chunk > 1, "transform_dispatch",
+                                     self.logger):
+                    raise
+            # the recovery runs outside the except block, whose traceback
+            # pins the failed chunk's tensors
+            pending = xt = dev = fetched = None  # noqa: F841
+            policy.recover(action, retries, "transform_dispatch",
+                           f"action={action} resume_row={done}", self.logger, on_oom=halve)
         if all(len(v) == 1 for v in outs.values()):
             return {c: v[0] for c, v in outs.items()}
         return {c: np.concatenate(v, axis=0) for c, v in outs.items()}

@@ -20,8 +20,11 @@
 # readers (`fused_parquet_readers`), each decoding only its share.
 # Per-pass numbers land in `FUSED_METRICS`, the reader decision in
 # `LAST_READER_DECISION`.  Routing is in core.py (`_maybe_fit_fused`, conf
-# `fused_stage_solve`); the step math is in ops/stats.py.  A pass that
-# fails raises: there is no retry.
+# `fused_stage_solve`), where a fused fit runs under the retry policy; the
+# step math is in ops/stats.py.  The accumulators are re-creatable: a
+# failure mid-pass (the `fused_accumulate` fault site fires before each
+# chunk's step) fails the whole pass, and a retry starts it with fresh
+# accumulators, so no chunk counts twice.
 #
 # A parquet pass runs through the chunk cache (parallel/device_cache.py): the
 # first pass over a file decodes and records its chunks, every later pass
@@ -321,7 +324,10 @@ def accumulate_chunks(
     extra = tuple(torch.as_tensor(a, device=device) for a in extra_args)
     t0 = time.perf_counter()
     timing: Dict[str, Any] = {}
+    from .resilience import maybe_inject
+
     for cX, cy, cw in device_chunks(chunks, device, timing, prep):
+        maybe_inject("fused_accumulate")
         args = [cX]
         if cw is not None:
             args.append(cw)

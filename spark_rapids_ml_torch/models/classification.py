@@ -1,11 +1,22 @@
 #
-# LogisticRegression: the port of the dense route of
-# spark_rapids_ml_tpu/models/classification.py.  The fit stages rows on the
-# device through the generic staged fit (core.py), computes the label range
-# and the standardization moments there, and runs the host-driven
-# L-BFGS/OWL-QN of ops/logistic.py (one device evaluation per oracle call);
-# transform is the chunked `_transform_mesh` over `binary_predict` /
-# `logreg_predict`.
+# LogisticRegression: the port of spark_rapids_ml_tpu/models/
+# classification.py.  The fit stages rows on the device through the
+# generic staged fit (core.py), computes the label range and the
+# standardization moments there, and runs the host-driven L-BFGS/OWL-QN of
+# ops/logistic.py (one device evaluation per oracle call); transform is the
+# chunked `_transform_mesh` over `binary_predict` / `logreg_predict`.
+#
+# Sparse rows (`enable_sparse_data_optim`, the JAX package's rule): None
+# keeps CSR input sparse, True stages dense input sparse too, False
+# densifies.  Sparse rows stage as ELL (ops/sparse.py) and fit through
+# `EllOracle`; standardization there scales by the std only, never centres
+# (the rows stay sparse, and with an intercept the optimum is the same),
+# and scales the coefficients in the oracle, not the stored rows.
+# transform(csr) densifies chunk by chunk, as the JAX package does.
+#
+# With `checkpoint_dir` set the solver saves its state after every
+# iteration under the JAX package's tag (`logreg-mem|...`, the data's
+# fingerprint included) and a killed fit resumes where it stopped.
 #
 # A parquet file beyond the device budget (or with
 # `force_streaming_stats`) fits epoch by epoch: the host L-BFGS/OWL-QN
@@ -14,8 +25,9 @@
 #
 # Differences from the JAX package, each deliberate: one solver shape (the
 # host-driven one) at every size; an unsupported Param or value raises
-# (there is no CPU engine to fall back to); CSR input is densified (the ELL
-# kernel is a later item); the streamed fit evaluates in the fit's dtype
+# (there is no CPU engine to fall back to); the ELL gradient sums per column
+# without atomics (ops/sparse.py) and the ELL oracle evaluates in float64
+# over float32 rows (ops/logistic.py); the streamed fit evaluates in the fit's dtype
 # (the JAX package's in float32).  `cpu()` (scikit-learn) is not ported.
 # `evaluate` runs the model's transform and the metrics of metrics/ on the
 # host (`LogisticRegressionSummary`).
@@ -265,12 +277,19 @@ class LogisticRegression(
     def _fit_label_dtype(self):
         return np.dtype(np.int32)
 
+    def _use_sparse_kernel(self, batch: _ArrayBatch) -> bool:
+        # None: sparse input stays sparse; True: dense input stages sparse
+        # too; False: densify
+        opt = self.getOrDefault("enable_sparse_data_optim")
+        if opt is True:
+            return True
+        if opt is False:
+            return False
+        from ..data import _is_sparse
+
+        return _is_sparse(batch.X)
+
     def _validate_input(self, batch: _ArrayBatch) -> None:
-        if self.getOrDefault("enable_sparse_data_optim") is True:
-            raise NotImplementedError(
-                "enable_sparse_data_optim=True needs the sparse (ELL) kernel, the "
-                "'sparse ELL' entry of item 9 of ROADMAP.md; the port densifies CSR input"
-            )
         classes = np.unique(batch.y)
         if not np.all(classes == classes.astype(np.int64)):
             raise RuntimeError(f"Labels MUST be Integers, but got {classes}")
@@ -315,6 +334,9 @@ class LogisticRegression(
         en = float(l1_ratio) if l1_ratio is not None else float(
             self.getOrDefault("elasticNetParam"))
         fit_intercept = bool(p["fit_intercept"])
+        from ..resilience.checkpoint import resolve_checkpoint_dir
+
+        ckpt_dir = resolve_checkpoint_dir(streaming=True)
         res = logreg_streaming_fit(
             path, fcol, fcols, label_col, weight_col,
             family=str(self.getOrDefault("family")),
@@ -327,6 +349,9 @@ class LogisticRegression(
             history=int(p.get("lbfgs_memory", 10)),
             ls_max=int(p.get("linesearch_max_iter", 20)),
             dtype=dtype,
+            # the file name comes from the fit's content tag, the same
+            # across restarts of the process
+            checkpoint_dir=ckpt_dir or None,
             device=self._device(),
         )
         dtype = np.dtype(dtype)
@@ -416,27 +441,54 @@ class LogisticRegression(
         )
         fit_intercept = bool(p["fit_intercept"])
         standardization = bool(p.get("standardization", True))
+        l2 = reg_param * (1.0 - en)
+        l1 = reg_param * en
+        max_iter = int(p["max_iter"])
+        ckpt_path, ckpt_tag = self._lbfgs_checkpoint(
+            fit_input, n_classes, l2, l1, fit_intercept, standardization, max_iter)
+        kwargs = dict(
+            l2=l2,
+            l1=l1,
+            fit_intercept=fit_intercept,
+            tol=float(p["tol"]),
+            max_iter=max_iter,
+            history=int(p.get("lbfgs_memory", 10)),
+            ls_max=int(p.get("linesearch_max_iter", 20)),
+            checkpoint_path=ckpt_path,
+            checkpoint_tag=ckpt_tag,
+        )
 
         X, w = fit_input.X, fit_input.w
         mean = std = None
-        if standardization:
-            mean, std, _ = weighted_moments(X, w)
-            if not fit_intercept:
-                # no intercept to absorb a centring shift: scale only
-                mean = None
-            X = standardize(X, w, torch.zeros_like(std) if mean is None else mean, std)
-        coef, b, loss, n_iter, hist = logreg_fit_host_dispatch(
-            X, w, fit_input.y,
-            n_classes=n_classes,
-            l2=reg_param * (1.0 - en),
-            l1=reg_param * en,
-            fit_intercept=fit_intercept,
-            tol=float(p["tol"]),
-            max_iter=int(p["max_iter"]),
-            history=int(p.get("lbfgs_memory", 10)),
-            ls_max=int(p.get("linesearch_max_iter", 20)),
-            binomial=binomial,
-        )
+        if "ell_cols" in fit_input.extra:
+            # ELL rows: std-only scaling, no centring (the rows stay sparse),
+            # applied in the oracle to the coefficients, so the stored values
+            # stay the input's
+            from ..ops.logistic import logreg_fit_binary_ell, logreg_fit_ell
+            from ..ops.sparse import ell_column_layout, ell_weighted_moments
+
+            cols = fit_input.extra["ell_cols"]
+            layout = ell_column_layout(X, cols, n_cols)
+            if standardization:
+                _, std = ell_weighted_moments(X, cols, w, n_cols, layout=layout)
+                kwargs["inv_std"] = 1.0 / std
+            if binomial:
+                coef, b, loss, n_iter, hist = logreg_fit_binary_ell(
+                    X, cols, w, fit_input.y, d=n_cols, layout=layout, **kwargs)
+            else:
+                coef, b, loss, n_iter, hist = logreg_fit_ell(
+                    X, cols, w, fit_input.y, n_classes=n_classes, d=n_cols, layout=layout,
+                    **kwargs)
+            del layout, cols
+        else:
+            if standardization:
+                mean, std, _ = weighted_moments(X, w)
+                if not fit_intercept:
+                    # no intercept to absorb a centring shift: scale only
+                    mean = None
+                X = standardize(X, w, torch.zeros_like(std) if mean is None else mean, std)
+            coef, b, loss, n_iter, hist = logreg_fit_host_dispatch(
+                X, w, fit_input.y, n_classes=n_classes, binomial=binomial, **kwargs)
         del X
         if binomial:
             coef = np.asarray(coef, np.float64).reshape(1, -1)
@@ -472,6 +524,29 @@ class LogisticRegression(
             "objective": float(loss),
             "objective_history": [float(v) for v in hist],
         }
+
+    def _lbfgs_checkpoint(self, fit_input: FitInput, n_classes: int, l2: float, l1: float,
+                          fit_intercept: bool, standardization: bool, max_iter: int):
+        """(checkpoint file, tag) of this fit when `checkpoint_dir` is set,
+        else (None, ""): the JAX package's tag, dense and ELL alike.  The
+        memory m is in it (the saved S / Y are (m, n)), and n is the rows
+        staged, never a padded count."""
+        from ..core import _fit_fingerprint
+        from ..resilience.checkpoint import checkpoint_file_for, resolve_checkpoint_dir
+
+        ckpt_dir = resolve_checkpoint_dir()
+        if not ckpt_dir:
+            return None, ""
+        p = fit_input.params
+        tag = (
+            f"logreg-mem|n={int(fit_input.n_valid)}"
+            f"|d={fit_input.pdesc.n}|C={n_classes}|l2={l2}|l1={l1}"
+            f"|int={fit_intercept}|std={standardization}|mi={max_iter}"
+            f"|m={int(p.get('lbfgs_memory', 10))}"
+            f"|ls={int(p.get('linesearch_max_iter', 20))}"
+            f"|{_fit_fingerprint(fit_input)}"
+        )
+        return checkpoint_file_for(ckpt_dir, tag), tag
 
     def _create_model(self, attrs: Dict[str, Any]) -> "LogisticRegressionModel":
         return LogisticRegressionModel(**attrs)

@@ -12,9 +12,13 @@
 # subsample of the file, then one streamed pass per Lloyd iteration
 # (streaming.py `kmeans_streaming_fit`).
 #
+# With `checkpoint_dir` set a KMeans fit takes the stepwise branch and saves
+# its centres after every Lloyd iteration under the JAX package's tag
+# (`kmeans-mem|...`, the data's fingerprint included); the streamed fit
+# checkpoints under its own (streaming.py).
+#
 # Not ported: the CPU fits and `cpu()` (scikit-learn, which the card's
-# machine lacks; ROADMAP.md section 3) and the per-iteration KMeans
-# checkpoint ("Resilience").  CSR input is densified.
+# machine lacks; ROADMAP.md section 3).  CSR input is densified.
 #
 from __future__ import annotations
 
@@ -188,6 +192,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansTpuParams):
         """Beyond the device budget: centres seeded from a strided
         subsample of the file, then one streamed assign-and-sum pass per
         Lloyd iteration (streaming.py `kmeans_streaming_fit`)."""
+        from ..resilience.checkpoint import resolve_checkpoint_dir
         from ..streaming import kmeans_streaming_fit
 
         fcol, fcols, _, weight_col, dtype = self._streaming_io_params()
@@ -203,6 +208,7 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansTpuParams):
             init_steps=int(p.get("init_steps") or 2),
             oversample=float(p.get("oversampling_factor") or 2.0),
             dtype=dtype,
+            checkpoint_dir=resolve_checkpoint_dir(streaming=True) or None,
             device=self._device(),
         )
         dtype = np.dtype(dtype)
@@ -215,20 +221,34 @@ class KMeans(KMeansClass, _TpuEstimator, _KMeansTpuParams):
         }
 
     def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
+        from ..core import _fit_fingerprint
         from ..ops.kmeans import kmeans_fit_auto
+        from ..resilience.checkpoint import checkpoint_file_for, resolve_checkpoint_dir
 
         p = fit_input.params
+        k = int(p["n_clusters"])
         seed = p.get("random_state")
+        seed = int(seed) if seed is not None else int(self.getOrDefault("seed"))
+        max_iter = int(p["max_iter"])
+        ckpt_dir = resolve_checkpoint_dir()
+        ckpt_path, ckpt_tag = None, ""
+        if ckpt_dir:
+            # the JAX package's tag; n is the rows staged, never a padded count
+            ckpt_tag = (f"kmeans-mem|n={int(fit_input.n_valid)}|d={fit_input.pdesc.n}|k={k}"
+                        f"|seed={seed}|mi={max_iter}|tol={p['tol']}|{_fit_fingerprint(fit_input)}")
+            ckpt_path = checkpoint_file_for(ckpt_dir, ckpt_tag)
         centers, cost, n_iter, stepwise = kmeans_fit_auto(
             fit_input.X,
             fit_input.w,
-            k=int(p["n_clusters"]),
-            seed=int(seed) if seed is not None else int(self.getOrDefault("seed")),
-            max_iter=int(p["max_iter"]),
+            k=k,
+            seed=seed,
+            max_iter=max_iter,
             tol=float(p["tol"]),
             init=str(p["init"]),
             init_steps=int(p.get("init_steps") or 2),
             oversample=float(p.get("oversampling_factor") or 2.0),
+            checkpoint_path=ckpt_path,
+            checkpoint_tag=ckpt_tag,
         )
         if stepwise:
             self.logger.info("KMeans: stepwise branch (seeding on a strided subsample)")

@@ -13,8 +13,8 @@
 # Differences from the JAX package, each deliberate: a value the JAX
 # package sends to its scikit-learn fallback (loss="huber",
 # solver="l-bfgs") raises ValueError; `cpu()` (scikit-learn) raises
-# NotImplementedError; the FISTA solve keeps no checkpoint (the resilience
-# item).  `evaluate` runs the model's transform and the regression metrics
+# NotImplementedError.  With `checkpoint_dir` set the two-phase fit's FISTA
+# loop checkpoints under the JAX package's tag (`_fista_checkpoint`).  `evaluate` runs the model's transform and the regression metrics
 # of metrics/ on the host (`LinearRegressionSummary`).
 #
 # RandomForestRegressor: the port of the JAX package's RandomForestRegressor
@@ -223,10 +223,35 @@ class LinearRegression(
         super().__init__()
         self._set_params(**kwargs)
 
-    def _solve(self, gram, sxy, s1, sw: float, sy: float, syy: float):
+    def _fista_checkpoint(self, gram: np.ndarray, sxy: np.ndarray, sw: float):
+        """(checkpoint file, tag) of the FISTA loop when `checkpoint_dir` is
+        set, else (None, ""): the JAX package's tag, which binds the
+        problem's content (sums of the Gram and the cross moments), so a
+        same-shaped fit on other data never resumes this one."""
+        from ..resilience.checkpoint import checkpoint_file_for, resolve_checkpoint_dir
+
+        ckpt_dir = resolve_checkpoint_dir()
+        if not ckpt_dir:
+            return None, ""
+        p = self._tpu_params
+        tag = (
+            f"linreg-fista|d={int(gram.shape[0])}|sw={sw}"
+            f"|gs={float(np.float64(gram).sum()):.12g}"
+            f"|xs={float(np.float64(sxy).sum()):.12g}"
+            f"|a={p['alpha']}|l1r={p['l1_ratio']}|int={p['fit_intercept']}"
+            f"|std={p.get('standardization', True)}|mi={p['max_iter']}"
+        )
+        return checkpoint_file_for(ckpt_dir, tag), tag
+
+    def _solve(self, gram, sxy, s1, sw: float, sy: float, syy: float,
+               checkpoint: bool = False):
+        """The host solve; `checkpoint` gives the FISTA loop its file (the
+        two-phase fit, as in the JAX package)."""
         from ..ops.linear import solve_linear_host
 
         p = self._tpu_params
+        ckpt_path, ckpt_tag = (self._fista_checkpoint(gram, sxy, float(sw)) if checkpoint
+                               else (None, ""))
         return solve_linear_host(
             gram, sxy, s1, sw, sy, syy,
             reg_param=float(p["alpha"]),
@@ -235,6 +260,8 @@ class LinearRegression(
             standardization=bool(p.get("standardization", True)),
             tol=float(p["tol"]),
             max_iter=int(p["max_iter"]),
+            checkpoint_path=ckpt_path,
+            checkpoint_tag=ckpt_tag,
         )
 
     def _fit_array(self, fit_input: FitInput) -> Dict[str, Any]:
@@ -247,7 +274,8 @@ class LinearRegression(
         gram, sxy, s1, sw, sy, syy = linreg_sufficient_stats(X, fit_input.w, fit_input.y)
         sw, sy, syy = sw.item(), sy.item(), syy.item()
         coef, intercept, diag = self._solve(
-            gram.cpu().numpy(), sxy.cpu().numpy(), s1.cpu().numpy(), sw, sy, syy)
+            gram.cpu().numpy(), sxy.cpu().numpy(), s1.cpu().numpy(), sw, sy, syy,
+            checkpoint=True)
         # the summary from a cancellation-free residual pass over the staged
         # rows (the one-pass SSE expansion loses about eps sum w y^2)
         sse = linreg_residual_sse(

@@ -314,15 +314,26 @@ def row_norms(X: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _lloyd(X, w, C, max_iter: int, tol: float, block: int):
-    """Host-driven Lloyd from centres C: stop after `max_iter` updates or
-    once every centre moves less than `tol` (euclidean, Spark's rule); the
-    cost is taken under the final centres.  (centres, cost, n_iter).
+def _lloyd(X, w, C, max_iter: int, tol: float, block: int, start_it: int = 0,
+           checkpoint_path: Optional[str] = None, checkpoint_tag: str = "",
+           fault_site: bool = False):
+    """Host-driven Lloyd from centres C (after `start_it` iterations): stop
+    after `max_iter` updates or once every centre moves less than `tol`
+    (euclidean, Spark's rule); the cost is taken under the final centres.
+    (centres, cost, n_iter).  With `checkpoint_path` the centres (float64)
+    and the iteration are saved after every iteration, and the file removed
+    at the end; `fault_site` fires `kmeans_lloyd` before each iteration
+    (the stepwise branch, as in the JAX package).
 
     A pass that assigns every row as the pass before ends the fit with the
     centres it had: the JAX package's update then gives the same centres
     bit for bit (a shift of 0), while atomics summing in another order
-    would move them by a rounding and never let a tight `tol` stop."""
+    would move them by a rounding and never let a tight `tol` stop.  A
+    resumed fit has no labels of the pass before, so its first pass always
+    updates."""
+    from ..resilience import faults
+    from ..resilience.checkpoint import clear_checkpoint, save_checkpoint
+
     n, d = X.shape
     k = C.shape[0]
     rows = block_rows(n, d, k, X.element_size(), block)
@@ -330,22 +341,30 @@ def _lloyd(X, w, C, max_iter: int, tol: float, block: int):
     unweighted = bool((w == 1).all())
     labels = torch.full((n,), -1, dtype=torch.int32, device=X.device)
     costs, moves = [], []
-    n_iter = 0
-    for n_iter in range(1, max_iter + 1):
+    n_iter = start_it
+    for n_iter in range(start_it + 1, max_iter + 1):
+        if fault_site:
+            faults.maybe_inject("kmeans_lloyd")
         sums, counts, cost, moved = lloyd_pass(X, w, C, x2, rows, unweighted, labels)
         costs.append(cost)
         new_C, shift2 = _lloyd_center_update(C, sums, counts)
         # one fetch, the iteration's sync
         shift2, moved = torch.stack([shift2.to(torch.float64), moved.to(torch.float64)]).tolist()
         moves.append(int(moved))
-        if moved == 0:
-            break
-        C = new_C
-        if shift2 <= tol * tol:
+        stop = moved == 0
+        if not stop:
+            C = new_C
+            stop = shift2 <= tol * tol
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, checkpoint_tag,
+                            {"centers": C.cpu().numpy().astype(np.float64), "it": n_iter})
+        if stop:
             break
     del labels
     cost = lloyd_pass(X, w, C, x2, rows, unweighted)[2]
     costs.append(cost)
+    if checkpoint_path:
+        clear_checkpoint(checkpoint_path)
     LAST_FIT.update(rows=rows, n_iter=n_iter, costs=[float(c) for c in costs], moved=moves,
                     unweighted=unweighted)
     return C, cost.to(X.dtype), n_iter
@@ -373,11 +392,17 @@ def kmeans_fit_stepwise(X: torch.Tensor, w: torch.Tensor, k: int, seed, max_iter
                         tol: float = 1e-4, init: str = "scalable-k-means++",
                         init_steps: int = 2, oversample: float = 2.0,
                         flops_budget: float = 2e12, init_rows: int = 262_144,
-                        init_centers=None):
+                        init_centers=None, checkpoint_path: Optional[str] = None,
+                        checkpoint_tag: str = ""):
     """The stepwise branch of the gate: when the init's D^2 passes would
     exceed `flops_budget`, seeding runs on every `stride`-th row, at most
     `init_rows` rows ("random" never subsamples); Lloyd blocks are
-    `flops_budget // 2 d k` rows.  Same outputs as `kmeans_fit`."""
+    `flops_budget // 2 d k` rows.  Same outputs as `kmeans_fit`.  With
+    `checkpoint_path` the centres are saved after every iteration, and a
+    saved state of `checkpoint_tag` is resumed instead of seeding."""
+    from ..resilience import metrics
+    from ..resilience.checkpoint import load_checkpoint
+
     n, d = X.shape
     rounds, m, per_row = init_flops_accounting(init, k, d, init_steps, oversample)
     n_init_max = max(int(flops_budget // per_row), k)
@@ -385,22 +410,33 @@ def kmeans_fit_stepwise(X: torch.Tensor, w: torch.Tensor, k: int, seed, max_iter
     stride = max(1, -(-n // n_init)) if n_init < n else 1
     LAST_FIT.clear()
     LAST_FIT.update(stepwise=True, stride=stride, init_rows=-(-n // stride))
-    if init_centers is not None:
+    start_it = 0
+    resumed = load_checkpoint(checkpoint_path, checkpoint_tag) if checkpoint_path else None
+    if resumed is not None:
+        # the centres persist in float64; the passes run in X's dtype
+        C = _as_centres(resumed["centers"], X)
+        start_it = int(resumed["it"])
+        metrics.event("kmeans_resume", detail=f"it={start_it}")
+    elif init_centers is not None:
         C = _as_centres(init_centers, X)
     else:
         Xs, ws = (X[::stride].contiguous(), w[::stride].contiguous()) if stride > 1 else (X, w)
         C = _seed(Xs, ws, k, seed, init, init_steps, oversample)
     block = max(1, min(n, int(flops_budget // max(2.0 * d * k, 1.0))))
-    return _lloyd(X, w, C, max_iter, tol, block=block)
+    return _lloyd(X, w, C, max_iter, tol, block=block, start_it=start_it,
+                  checkpoint_path=checkpoint_path, checkpoint_tag=checkpoint_tag,
+                  fault_site=True)
 
 
 def kmeans_fit_auto(X: torch.Tensor, w: torch.Tensor, k: int, seed, max_iter: int = 300,
                     tol: float = 1e-4, init: str = "scalable-k-means++", init_steps: int = 2,
                     oversample: float = 2.0, budget: Optional[float] = None,
-                    init_centers=None):
+                    init_centers=None, checkpoint_path: Optional[str] = None,
+                    checkpoint_tag: str = ""):
     """The JAX package's gate: the fused branch while
     `2 n d k max_iter + n init_per_row` operations fit the budget
-    (`dispatch_flops_limit` when `budget` is None), else the stepwise one.
+    (`dispatch_flops_limit` when `budget` is None) and no `checkpoint_path`
+    is given, else the stepwise one (the branch that checkpoints).
     Returns (centers, cost, n_iter, used_stepwise)."""
     if budget is None:
         from ..config import get_config
@@ -411,9 +447,10 @@ def kmeans_fit_auto(X: torch.Tensor, w: torch.Tensor, k: int, seed, max_iter: in
     fused_flops = 2.0 * n * d * k * max(max_iter, 1) + n * init_per_row
     kwargs = dict(k=k, seed=seed, max_iter=max_iter, tol=tol, init=init,
                   init_steps=init_steps, oversample=oversample, init_centers=init_centers)
-    if fused_flops <= budget:
+    if fused_flops <= budget and not checkpoint_path:
         return (*kmeans_fit(X, w, **kwargs), False)
-    return (*kmeans_fit_stepwise(X, w, flops_budget=budget, **kwargs), True)
+    return (*kmeans_fit_stepwise(X, w, flops_budget=budget, checkpoint_path=checkpoint_path,
+                                 checkpoint_tag=checkpoint_tag, **kwargs), True)
 
 
 def kmeans_predict(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:

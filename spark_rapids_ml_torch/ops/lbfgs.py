@@ -6,9 +6,13 @@
 # host.  The two-loop recursion, the Armijo displacement line search, the
 # orthant projection, the convergence tests and the objective history are
 # the JAX package's, operation for operation: given the same oracle, the
-# iterates are equal bit for bit.  The JAX function's resilience and
-# telemetry seams (fault injection, heartbeat, checkpoint/resume) are later
-# items of the port.
+# iterates are equal bit for bit.  Its resilience seams are the JAX
+# function's too: the `lbfgs_iteration` fault site at the top of every
+# iteration, and with `checkpoint_path` the whole optimizer state (w, f, g,
+# the S / Y history, rho, k, it, the objective history, converged) saved
+# after every iteration in the JAX package's layout, so that a fit killed at
+# iteration k resumes at k on the same trajectory, in either package.  The
+# heartbeat waits for the telemetry item.
 #
 from __future__ import annotations
 
@@ -26,13 +30,20 @@ def lbfgs_minimize_host(
     l1: float = 0.0,
     l1_mask: Optional[np.ndarray] = None,
     ls_max: int = 20,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_tag: str = "",
 ) -> Tuple[np.ndarray, int, bool, List[float]]:
     """Minimize f(w) + l1 * ||w * l1_mask||_1 with L-BFGS (OWL-QN when
     l1 > 0).  `value_and_grad(w)` returns (f_smooth, grad) for a float64
-    (n,) w; the L2 term belongs inside f.
+    (n,) w; the L2 term belongs inside f.  With `checkpoint_path` the state
+    is saved under `checkpoint_tag` after every iteration, a saved state of
+    the same tag is resumed, and the file is removed at the end.
 
     Returns (w, n_iter, converged, history), history the full
     (penalty-inclusive) objective per accepted iterate, entry 0 = initial."""
+    from ..resilience import faults, metrics
+    from ..resilience.checkpoint import clear_checkpoint, load_checkpoint, save_checkpoint
+
     n = w0.shape[0]
     m = history
     l1 = float(l1)
@@ -55,6 +66,7 @@ def lbfgs_minimize_host(
     Y = np.zeros((m, n))
     rho = np.zeros((m,))
     k = 0
+    resumed = load_checkpoint(checkpoint_path, checkpoint_tag) if checkpoint_path else None
 
     def direction(pg):
         q = pg.astype(np.float64).copy()
@@ -79,13 +91,29 @@ def lbfgs_minimize_host(
             r += (alpha[idx] - b) * S[idx]
         return -r
 
-    w = np.asarray(w0, np.float64).copy()
-    f, g = value_and_grad(w)
-    hist = [float(f + full_term(w))]
-    converged = False
-    it = 0
+    if resumed is not None:
+        w = np.asarray(resumed["w"])
+        f = float(resumed["f"])
+        g = np.asarray(resumed["g"])
+        S[:] = resumed["S"]
+        Y[:] = resumed["Y"]
+        rho[:] = resumed["rho"]
+        k = int(resumed["k"])
+        it = int(resumed["it"])
+        hist = [float(v) for v in resumed["hist"]]
+        converged = bool(resumed["converged"])
+        metrics.event("lbfgs_resume", detail=f"it={it}")
+    else:
+        w = np.asarray(w0, np.float64).copy()
+        f, g = value_and_grad(w)
+        hist = [float(f + full_term(w))]
+        converged = False
+        it = 0
+    pg = None  # the pseudo-gradient at w, carried from the iteration before
     while it < max_iter and not converged:
-        pg = pseudo_grad(w, g)
+        faults.maybe_inject("lbfgs_iteration")
+        if pg is None:
+            pg = pseudo_grad(w, g)
         p = direction(pg)
         if l1 > 0:
             p = np.where(p * (-pg) > 0, p, 0.0)
@@ -122,7 +150,15 @@ def lbfgs_minimize_host(
             gnorm <= tol * max(1.0, np.linalg.norm(w_new))
             or abs(rel_impr) <= tol
         )
-        w, f, g = w_new, f_new, g_new
+        w, f, g, pg = w_new, f_new, g_new, pg_new
         hist.append(new_full)
         it += 1
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, checkpoint_tag, {
+                "w": w, "f": f, "g": g, "S": S, "Y": Y,
+                "rho": rho, "k": k, "it": it,
+                "hist": np.asarray(hist), "converged": converged,
+            })
+    if checkpoint_path:
+        clear_checkpoint(checkpoint_path)
     return w, it, converged, hist

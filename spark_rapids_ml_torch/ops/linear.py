@@ -6,9 +6,10 @@
 # OLS (`lstsq`), ridge (closed form) and elastic-net (FISTA proximal
 # gradient).  `solve_linear_host` is the JAX package's host solve operation
 # for operation, so from the same statistics both give the same
-# coefficients and iteration count bit for bit; only its checkpoint,
-# fault-injection and heartbeat hooks are left out (the resilience and
-# telemetry items of ROADMAP.md).
+# coefficients and iteration count bit for bit.  Its FISTA loop has the JAX
+# package's `linreg_fista` fault site and, with `checkpoint_path`, saves
+# (beta, z, t_mom, it) after every iteration and resumes from them; only
+# the heartbeat waits for the telemetry item.
 #
 # Spark objective: 1/(2n) sum w_i (x_i . b - y_i)^2
 #                  + regParam [a |b|_1 + (1 - a)/2 |b|^2],  a = elasticNetParam,
@@ -16,7 +17,7 @@
 #
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,8 +68,11 @@ def solve_linear_host(
     standardization: bool,
     tol: float,
     max_iter: int,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_tag: str = "",
 ) -> Tuple[np.ndarray, float, Dict[str, float]]:
-    """Solve from sufficient statistics on the host in float64.
+    """Solve from sufficient statistics on the host in float64; the FISTA
+    loop checkpoints to `checkpoint_path` under `checkpoint_tag` when given.
 
     Returns (coefficients (d,), intercept, diagnostics: n_iter, mse, rmse,
     r2)."""
@@ -113,10 +117,25 @@ def solve_linear_host(
         b = sxy_s / sw
         L = float(np.linalg.eigvalsh(G)[-1]) + l2
         L = max(L, 1e-12)
+        from ..resilience import faults, metrics
+        from ..resilience.checkpoint import clear_checkpoint, load_checkpoint, save_checkpoint
+
         beta = np.zeros(d)
         z = beta.copy()
         t_mom = 1.0
-        for it in range(0, max_iter):
+        start_it = 0
+        resumed = load_checkpoint(checkpoint_path, checkpoint_tag) if checkpoint_path else None
+        if resumed is not None:
+            beta = np.asarray(resumed["beta"])
+            z = np.asarray(resumed["z"])
+            t_mom = float(resumed["t_mom"])
+            start_it = int(resumed["it"])
+            # a file saved at it == max_iter skips the loop: the count still
+            # reports the iterations run
+            n_iter = start_it
+            metrics.event("fista_resume", detail=f"it={start_it}")
+        for it in range(start_it, max_iter):
+            faults.maybe_inject("linreg_fista")
             grad = G @ z - b + l2 * z
             beta_new = _soft_threshold(z - grad / L, l1 / L)
             t_new = 0.5 * (1.0 + np.sqrt(1.0 + 4.0 * t_mom * t_mom))
@@ -125,8 +144,13 @@ def solve_linear_host(
             beta = beta_new
             t_mom = t_new
             n_iter = it + 1
+            if checkpoint_path:
+                save_checkpoint(checkpoint_path, checkpoint_tag,
+                                {"beta": beta, "z": z, "t_mom": t_mom, "it": n_iter})
             if delta <= tol * max(1.0, float(np.max(np.abs(beta)))):
                 break
+        if checkpoint_path:
+            clear_checkpoint(checkpoint_path)
         coef_s = beta
 
     coef = coef_s / scale

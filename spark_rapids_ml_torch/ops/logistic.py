@@ -1,6 +1,6 @@
 #
-# Logistic regression on the device: the port of the dense route of
-# spark_rapids_ml_tpu/ops/logistic.py.
+# Logistic regression on the device: the port of spark_rapids_ml_tpu/
+# ops/logistic.py, dense rows and sparse rows in ELL form (ops/sparse.py).
 #
 # Spark objective (as in the JAX package): 1/sum(w) * sum_i w_i *
 # logloss(x_i, y_i) + regParam * [alpha ||beta||_1 + (1 - alpha)/2 ||beta||^2],
@@ -17,6 +17,20 @@
 # then gradient) and elementwise work on N-vectors (N x C for
 # multinomial).  The matmuls run in IEEE float32 (ops/precision.py
 # `ieee_matmul`), never TF32.
+#
+# ELL rows (`EllOracle`): the margins gather the coefficients of each
+# row's columns (ops/sparse.py `ell_matvec` / `ell_matmat`) and the
+# gradient sums value * residual per column over the column-sorted entries
+# (`ell_rmatvec` / `ell_rmatmat`): no atomics, so two evaluations of the
+# same theta are bit-equal on a card too.  Its arithmetic is float64
+# whatever the rows' type (float32 rows stay float32 in memory and are
+# widened as they are read), and the standardization scales the
+# coefficients, not the rows: any float32 rounding moves the L-BFGS
+# trajectory, and on slowly converging fits the relative-improvement test
+# then stops at another iteration.  On 1,000,000 Criteo-layout rows x 2^18
+# with 5 classes a float32 oracle stopped at 43 iterations, 2.4e-5 above
+# the float64 fit's 54 (an H100; PERF.md).  So a fit of float32 rows is
+# the float64 fit of the same values, iterate for iterate.
 #
 # The solver always runs host-driven (`logreg_fit_host_dispatch`: one device
 # evaluation and one device-to-host fetch of (f, g) per oracle call, the
@@ -80,19 +94,22 @@ class LogisticOracle:
     float64, in one device-to-host copy.  Its parts (`margins`,
     `loss_and_residual`, `gradient`) are public so they can be timed one by
     one.  `wsum` is the weight the loss is normalised by, sum(w) unless
-    given (a chunk of a streamed fit gives the whole file's)."""
+    given (a chunk of a streamed fit gives the whole file's); `dtype` the
+    arithmetic's type, X's unless given."""
 
     def __init__(self, X: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
                  n_classes: int, l2: float, fit_intercept: bool,
-                 binomial: bool, wsum: Optional[float] = None) -> None:
+                 binomial: bool, wsum: Optional[float] = None,
+                 d: Optional[int] = None, dtype: Optional[torch.dtype] = None) -> None:
         self.X = X
-        self.dtype = X.dtype
+        self.dtype = X.dtype if dtype is None else dtype
         self.l2 = float(l2)
         self.fit_intercept = fit_intercept
         self.binomial = binomial
         self.C = 1 if binomial else int(n_classes)
         self.n_coef, self.n_param, self.l1_mask, self.unpack = _theta_layout(
-            self.C, X.shape[1], fit_intercept)
+            self.C, X.shape[1] if d is None else int(d), fit_intercept)
+        w = w.to(self.dtype)
         self.w_scaled = w / (w.sum() if wsum is None else wsum)
         if binomial:
             self.sgn = 2.0 * y.to(self.dtype) - 1.0  # {-1, +1}
@@ -151,6 +168,49 @@ class LogisticOracle:
         return float(host[0]), host[1:].astype(np.float64)
 
 
+class EllOracle(LogisticOracle):
+    """`LogisticOracle` over ELL rows: `vals`, `cols` (N, K) and d
+    columns, evaluated in float64 (see the head of this file).  The
+    column-sorted layout of the entries (ops/sparse.py
+    `ell_column_layout`) is built here unless given, and the sorted values
+    gathered once.  `inv_std` (d,) standardizes in the coefficients' space:
+    the margins take coef * inv_std and the gradient is scaled back, so the
+    stored values stay the input's, whatever their type."""
+
+    def __init__(self, vals: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
+                 y: torch.Tensor, n_classes: int, l2: float, fit_intercept: bool,
+                 binomial: bool, d: int, layout=None, wsum: Optional[float] = None,
+                 inv_std: Optional[torch.Tensor] = None) -> None:
+        from .sparse import ell_column_layout
+
+        super().__init__(vals, w, y, n_classes, l2, fit_intercept, binomial, wsum=wsum, d=d,
+                         dtype=torch.float64)
+        self.cols = cols
+        self.inv_std = None if inv_std is None else inv_std.to(torch.float64)
+        self.layout = layout if layout is not None else ell_column_layout(vals, cols, d)
+        self.sorted_vals = self.layout.gather(vals)
+
+    def margins(self, theta: torch.Tensor) -> torch.Tensor:
+        from .sparse import ell_matmat, ell_matvec
+
+        coef, b = self.unpack(theta)
+        if self.inv_std is not None:
+            coef = coef * self.inv_std
+        m = (ell_matvec(self.X, self.cols, coef) if self.binomial
+             else ell_matmat(self.X, self.cols, coef))
+        m += b
+        return m
+
+    def gradient(self, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        from .sparse import ell_rmatmat, ell_rmatvec
+
+        g_coef = (ell_rmatvec(self.layout, self.sorted_vals, r) if self.binomial
+                  else ell_rmatmat(self.layout, self.sorted_vals, r))
+        if self.inv_std is not None:
+            g_coef = g_coef * self.inv_std
+        return g_coef, r.sum(dim=0)
+
+
 def logreg_fit_host_dispatch(
     X: torch.Tensor,
     w: torch.Tensor,
@@ -164,17 +224,31 @@ def logreg_fit_host_dispatch(
     history: int = 10,
     ls_max: int = 20,
     binomial: bool = False,
+    cols: Optional[torch.Tensor] = None,
+    d: Optional[int] = None,
+    layout=None,
+    inv_std: Optional[torch.Tensor] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_tag: str = "",
 ):
     """Host-driven L-BFGS/OWL-QN over device-resident rows: the optimizer
     state lives on the host in float64 and each oracle call is one device
-    evaluation and one fetch of (f, g).
+    evaluation and one fetch of (f, g).  With `cols`, X holds ELL values
+    (`EllOracle`, d columns, `layout` its column-sorted entries if already
+    built, `inv_std` its standardization).  `checkpoint_path` / `checkpoint_tag` go to
+    `lbfgs_minimize_host`: the state is saved after every iteration and a
+    later call with the same tag resumes it.
 
     Returns (W (C, d) | coef (d,), b, loss, n_iter, history) as numpy in
-    X's type (history: the full objective per iteration, entry 0 the
+    the oracle's type (X's; float64 for ELL rows) (history: the full objective per iteration, entry 0 the
     initial one), the shapes of the JAX function for the same `binomial`."""
     from .lbfgs import lbfgs_minimize_host
 
-    oracle = LogisticOracle(X, w, y, n_classes, l2, fit_intercept, binomial)
+    if cols is None:
+        oracle = LogisticOracle(X, w, y, n_classes, l2, fit_intercept, binomial)
+    else:
+        oracle = EllOracle(X, cols, w, y, n_classes, l2, fit_intercept, binomial,
+                           d=int(d), layout=layout, inv_std=inv_std)
     theta, n_iter, _, hist = lbfgs_minimize_host(
         oracle,
         np.zeros((oracle.n_param,), np.float64),
@@ -184,12 +258,29 @@ def logreg_fit_host_dispatch(
         l1=l1,
         l1_mask=oracle.l1_mask,
         ls_max=ls_max,
+        checkpoint_path=checkpoint_path,
+        checkpoint_tag=checkpoint_tag,
     )
     from ..parallel.mesh import _numpy_dtype
 
-    dtype = _numpy_dtype(X.dtype)
+    dtype = _numpy_dtype(oracle.dtype)
     coef, b = oracle.unpack(theta.astype(dtype))
     return coef, b, hist[-1], n_iter, np.asarray(hist, dtype)
+
+
+def logreg_fit_binary_ell(vals: torch.Tensor, cols: torch.Tensor, w: torch.Tensor,
+                          y: torch.Tensor, l2: float, l1: float, d: int, **kwargs):
+    """Binary logistic regression over ELL rows (the JAX function of the
+    same name; here host-driven, as every port fit)."""
+    return logreg_fit_host_dispatch(vals, w, y, n_classes=2, l2=l2, l1=l1, binomial=True,
+                                    cols=cols, d=d, **kwargs)
+
+
+def logreg_fit_ell(vals: torch.Tensor, cols: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                   n_classes: int, l2: float, l1: float, d: int, **kwargs):
+    """Multinomial logistic regression over ELL rows."""
+    return logreg_fit_host_dispatch(vals, w, y, n_classes=n_classes, l2=l2, l1=l1,
+                                    binomial=False, cols=cols, d=d, **kwargs)
 
 
 def logreg_predict(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor):

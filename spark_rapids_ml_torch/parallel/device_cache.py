@@ -880,10 +880,14 @@ class ChunkCache:
     def _spill_chunk_locked(self, chunk: CachedChunk) -> None:
         """Move every host array of `chunk` into the spill tier (compressed,
         checksummed).  A device-only array stays on the card: it costs no
-        host bytes."""
+        host bytes.  The `chunk_cache_spill` fault site fires here: the
+        error reaches the consuming pass, whose retry restarts it with
+        fresh accumulators."""
         from ..config import get_config
+        from ..resilience import maybe_inject
         from .chunk_codec import checksum, resolve_codec
 
+        maybe_inject("chunk_cache_spill")
         name, compress, _ = resolve_codec(get_config("chunk_cache_codec"))
         spill_dir = str(get_config("chunk_cache_spill_dir") or "")
         freed_dev = host_delta = pinned_delta = spill_delta = disk_delta = 0

@@ -15,10 +15,11 @@
 # The device programs fold one after another into their accumulators on the
 # device (`_combined_step`: eager torch ops, no compilation); the host
 # programs (the sketches) fold on the consumer thread from the same chunk
-# while the card runs, so one pass reads the data once.  The JAX package
-# restarts a failed pass through its retry policy (ROADMAP.md section 1,
-# item 5): here a failure reaches the caller, and the accumulators of a
-# pass are never reused.
+# while the card runs, so one pass reads the data once.  A pass runs under
+# the retry policy (resilience/retry.py) with its accumulators treated as
+# re-creatable: a failure mid-pass (the `stat_program_step` fault site fires
+# before each chunk) restarts the whole pass with fresh accumulators, so a
+# retried chunk never counts twice.
 #
 from __future__ import annotations
 
@@ -157,8 +158,12 @@ def run_programs(names: Sequence[str], source, *, features_col: Optional[str] = 
     device = _device(device)
     factory, d, n, dtype = _normalize_source(source, features_col, features_cols, label_col,
                                              weight_col, dtype, needs_y, device)
-    return _one_pass(progs, factory, d, dtype, needs_y, dict(opts or {}), quantiles, label,
-                     device)
+    from ..resilience import retry_call
+
+    return retry_call(
+        lambda: _one_pass(progs, factory, d, dtype, needs_y, dict(opts or {}), quantiles, label,
+                          device),
+        label="stat_programs", log=logger)
 
 
 def run_program(name: str, source, **kwargs) -> Dict[str, Any]:
@@ -249,7 +254,11 @@ def _one_pass(progs, factory, d: int, dtype, needs_y: bool, opts: Dict[str, Dict
     acc_s = 0.0
     acc_iv = []
     n_chunks = nbytes = offset = 0
+    from ..resilience import maybe_inject
+
     for cX, cy, cw, goff in prefetch_iter(prepared(), _staging_depth()):
+        # a failure here fails the whole pass; the retry starts it afresh
+        maybe_inject("stat_program_step")
         ta = time.perf_counter()
         rows = int(cX.shape[0])
         if combined is not None:

@@ -39,8 +39,12 @@
 # "duhl"` (`DuhlChunkSampler`) lets an epoch of the streamed fits revisit
 # only the cached chunks whose contribution still moves.
 #
-# Not ported (ROADMAP.md section 1): the per-iteration checkpoints (they
-# raise NotImplementedError) and the multi-process shares.
+# The epoch-streaming fits checkpoint after every iteration when given a
+# `checkpoint_path` or `checkpoint_dir` (the models pass `checkpoint_dir`,
+# or its older alias `streaming_checkpoint_dir`), under the JAX package's
+# tags (`logreg|<path>|...`, `kmeans|<path>|...`), and resume from them.
+#
+# Not ported (ROADMAP.md section 1): the multi-process shares.
 #
 from __future__ import annotations
 
@@ -782,12 +786,15 @@ def _duhl_selection(sampler: "DuhlChunkSampler", key) -> Optional[list]:
     return None
 
 
-def _check_not_ported(checkpoint_path=None, checkpoint_dir=None) -> None:
-    chunk_sampling_mode()
-    if checkpoint_path or checkpoint_dir or get_config("streaming_checkpoint_dir"):
-        raise NotImplementedError(
-            "checkpoints of the streamed fits are not ported: ROADMAP.md section 1, "
-            "item 5 (Resilience)")
+def _checkpoint_file(checkpoint_path: Optional[str], checkpoint_dir: Optional[str],
+                     tag: str) -> Optional[str]:
+    """The streamed fit's checkpoint file: `checkpoint_path` when given,
+    else the tag's file in `checkpoint_dir`, else None (off)."""
+    from .resilience.checkpoint import checkpoint_file_for
+
+    if checkpoint_path is None and checkpoint_dir:
+        return checkpoint_file_for(checkpoint_dir, tag)
+    return checkpoint_path
 
 
 def _label_moments_scan(path: str, features_col, features_cols, label_col, weight_col,
@@ -842,7 +849,9 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
     evaluation may be sampled (`DuhlChunkSampler`): the result then holds
     `sampled_epochs` and `chunk_visits_saved`.  Returns the solution and
     `epochs`, the passes over the file (every evaluation, line-search trials
-    included)."""
+    included).  With a checkpoint file (`checkpoint_path`, or the tag's
+    file in `checkpoint_dir`) the optimizer state is saved after every
+    iteration and a saved state resumes."""
     import torch
 
     from .fused import _record_metrics, device_chunks
@@ -850,7 +859,7 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
     from .ops.logistic import LogisticOracle, _theta_layout
     from .parallel.mesh import _torch_dtype
 
-    _check_not_ported(checkpoint_path, checkpoint_dir)
+    chunk_sampling_mode()
     device = _device(device)
     dtype = np.dtype(dtype)
     chunk_rows = _chunk_rows(path, chunk_rows,
@@ -970,10 +979,16 @@ def logreg_streaming_fit(path: str, features_col, features_cols, label_col: str,
         beta = theta_np * coef_mask
         return f + 0.5 * l2 * float(beta @ beta), g + l2 * beta
 
+    # m (history) is in the tag: the saved S / Y are (m, n)
+    ckpt_tag = (f"logreg|{path}|n={scan['n_total']}|d={d}|C={n_classes}|"
+                f"l2={l2}|l1={l1}|int={fit_intercept}|std={standardization}|"
+                f"m={int(history)}|ls={int(ls_max)}")
+    checkpoint_path = _checkpoint_file(checkpoint_path, checkpoint_dir, ckpt_tag)
     t0 = time.perf_counter()
     theta, n_iter, converged, hist = lbfgs_minimize_host(
         oracle, np.zeros((n_param,), np.float64), max_iter=max_iter, tol=tol, history=history,
-        l1=l1, l1_mask=coef_mask, ls_max=ls_max)
+        l1=l1, l1_mask=coef_mask, ls_max=ls_max, checkpoint_path=checkpoint_path,
+        checkpoint_tag=ckpt_tag)
     totals["wall_s"] = time.perf_counter() - t0
     _record_metrics("logreg_streaming", "logreg", epochs["n"], totals, into=STREAM_METRICS)
     STREAM_METRICS.update(epochs=epochs["n"], epoch_s=epoch_s, scan_s=scan_s,
@@ -1035,14 +1050,20 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
     `streaming_chunk_sampling="duhl"` the passes are sampled once the
     chunk cache holds the file (`DuhlChunkSampler`) and the fit stops on
     the shift alone.  `init_centers` (k, d) replaces the seeding.  The cost
-    is taken under the final centres, by a full pass."""
+    is taken under the final centres, by a full pass.  With a checkpoint
+    file (`checkpoint_path`, or the tag's file in `checkpoint_dir`) the
+    centres are saved after every iteration (the `kmeans_lloyd` fault site
+    fires before each) and a saved state resumes instead of the seeding."""
     import torch
 
     from .fused import _record_metrics, device_chunks
     from .ops import kmeans as km
     from .parallel.mesh import _torch_dtype
 
-    _check_not_ported(checkpoint_path, checkpoint_dir)
+    from .resilience import faults, metrics
+    from .resilience.checkpoint import clear_checkpoint, load_checkpoint, save_checkpoint
+
+    chunk_sampling_mode()
     device = _device(device)
     dtype = np.dtype(dtype)
     tdt = _torch_dtype(dtype)
@@ -1052,8 +1073,17 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
     if n_total < k:
         raise ValueError(f"k={k} exceeds the dataset row count {n_total}")
     stride = km.seed_sample_stride(n_total, init_rows)
+    ckpt_tag = f"kmeans|{path}|n={n_total}|d={d}|k={k}|seed={seed}"
+    checkpoint_path = _checkpoint_file(checkpoint_path, checkpoint_dir, ckpt_tag)
+    resumed = load_checkpoint(checkpoint_path, ckpt_tag) if checkpoint_path else None
+    start_it = 0
     t_scan = time.perf_counter()
-    if init_centers is not None:
+    if resumed is not None:
+        # the centres persist in float64; the passes run in the fit's dtype
+        C = torch.tensor(np.asarray(resumed["centers"]), dtype=tdt, device=device)
+        start_it = int(resumed["it"])
+        metrics.event("kmeans_resume", detail=f"it={start_it}", log=logger)
+    elif init_centers is not None:
         C = torch.tensor(np.asarray(init_centers), dtype=tdt, device=device)
     else:
         Xs, ws = seed_sample(path, features_col, features_cols, weight_col, n_total, init_rows,
@@ -1157,8 +1187,10 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
 
     t0 = time.perf_counter()
     costs, moves, epoch_s = [], [], []
-    n_iter = passes = 0
-    for n_iter in range(1, max_iter + 1):
+    n_iter = start_it
+    passes = 0
+    for n_iter in range(start_it + 1, max_iter + 1):
+        faults.maybe_inject("kmeans_lloyd")
         t_epoch = time.perf_counter()
         if sampler is None:
             sums, counts, cost, moved = one_pass(C, labels)
@@ -1174,10 +1206,14 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
             shift2, moved = torch.stack([shift2.to(torch.float64),
                                          moved.to(torch.float64)]).tolist()
             moves.append(int(moved))
-            if moved == 0:
-                break
-        C = new_C
-        if shift2 <= tol * tol:
+        stop = moved == 0
+        if not stop:
+            C = new_C
+            stop = shift2 <= tol * tol
+        if checkpoint_path:
+            save_checkpoint(checkpoint_path, ckpt_tag,
+                            {"centers": C.cpu().numpy().astype(np.float64), "it": n_iter})
+        if stop:
             break
     del labels
     cost = one_pass(C, None)[2]
@@ -1187,6 +1223,8 @@ def kmeans_streaming_fit(path: str, features_col, features_cols, weight_col, k: 
     _record_metrics("kmeans_streaming", "kmeans", passes, totals, into=STREAM_METRICS)
     STREAM_METRICS.update(epochs=passes, epoch_s=epoch_s, scan_s=scan_s,
                           **(sampler.summary() if sampler is not None else {}))
+    if checkpoint_path:
+        clear_checkpoint(checkpoint_path)
     km.LAST_FIT.clear()
     km.LAST_FIT.update(streamed=True, stride=stride, init_rows=-(-n_total // stride), rows=rows,
                        n_iter=n_iter, costs=[float(c) for c in costs], moved=moves,

@@ -261,3 +261,46 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path, where):
                          env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_sparse_and_resilience_run_with_jax_unimportable(tmp_path):
+    """The ELL route (ops/sparse.py) and the resilience layer (resilience/):
+    a CSR fit, a checkpointed fit killed by an injected preemption and
+    resumed, and a retried transform run with JAX and the JAX package
+    unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['spark_rapids_ml_tpu'] = None\n"
+        "import numpy as np, scipy.sparse as sp\n"
+        "import spark_rapids_ml_torch as p\n"
+        "from spark_rapids_ml_torch import config, resilience\n"
+        "from spark_rapids_ml_torch.classification import LogisticRegression\n"
+        "p.set_default_device('cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.normal(size=(200, 6)); X[rng.random(X.shape) > 0.5] = 0.0\n"
+        "y = (X[:, 0] > 0).astype(float)\n"
+        "a = LogisticRegression(regParam=0.01, maxIter=30).fit((sp.csr_matrix(X), y))\n"
+        f"config.set_config(checkpoint_dir={str(tmp_path)!r}, retry_max_attempts=1)\n"
+        "try:\n"
+        "    with resilience.fault_inject('lbfgs_iteration', 'preemption', skip=3):\n"
+        "        LogisticRegression(regParam=0.01, maxIter=30).fit((sp.csr_matrix(X), y))\n"
+        "    raise AssertionError('not killed')\n"
+        "except resilience.SimulatedPreemption:\n"
+        "    pass\n"
+        "b = LogisticRegression(regParam=0.01, maxIter=30).fit((sp.csr_matrix(X), y))\n"
+        "assert (a.coef_ == b.coef_).all()\n"
+        "assert [e.detail for e in resilience.get_events('lbfgs_resume')] == ['it=3']\n"
+        "config.reset_config()\n"
+        "with resilience.fault_inject('transform_dispatch', 'oom'):\n"
+        "    out = b.transform(X)\n"
+        "assert (out['prediction'] == a.transform(X)['prediction']).all()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -452,9 +452,11 @@ def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="bf16_features"):
         LogisticRegression().fit((X, y))
     port_config.reset_config()
-    with pytest.raises(NotImplementedError, match="ELL"):
-        LogisticRegression(enable_sparse_data_optim=True).fit((X, y))
+    # enable_sparse_data_optim=True, which raised before the ELL route was
+    # ported, stages the dense rows as ELL: the dense fit's model
+    ell = LogisticRegression(enable_sparse_data_optim=True).fit((X, y))
     model = LogisticRegression().fit((X, y))
+    np.testing.assert_allclose(ell.coef_, model.coef_, rtol=2e-3, atol=2e-3)
     # evaluate is ported (the meta layer); like the JAX package's it takes a
     # frame, a pyarrow Table or a parquet path, not an (X, y) tuple
     with pytest.raises(TypeError, match="Cannot interpret"):
@@ -468,14 +470,28 @@ def test_not_ported_paths_raise():
     np.testing.assert_array_equal(refit.coef_, model.coef_)
 
 
-def test_csr_fits_as_its_dense_form():
+def test_csr_fits_as_its_dense_form(monkeypatch):
+    """CSR input takes the ELL route by default, as the JAX package's does
+    (the optimum of the dense rows: standardization scales without centring,
+    which the intercept absorbs); with enable_sparse_data_optim=False it is
+    densified and fits as the dense rows, bit for bit."""
+    from spark_rapids_ml_torch.ops import sparse as port_sparse
+
     X, y, _ = _data(seed=2, n=300, d=8)
     X = np.where(np.abs(X) > 1.0, X, 0.0)
     kw = dict(regParam=0.01, float32_inputs=False, maxIter=100, tol=1e-10)
-    a = LogisticRegression(**kw).fit((sp.csr_matrix(X), y))
     b = LogisticRegression(**kw).fit((X, y))
+    a = LogisticRegression(enable_sparse_data_optim=False, **kw).fit((sp.csr_matrix(X), y))
     np.testing.assert_array_equal(a.coef_, b.coef_)
     np.testing.assert_array_equal(a.intercept_, b.intercept_)
+    converted = []
+    real = port_sparse.ell_from_csr
+    monkeypatch.setattr(port_sparse, "ell_from_csr", lambda c: converted.append(1) or real(c))
+    e = LogisticRegression(**kw).fit((sp.csr_matrix(X), y))
+    assert converted
+    # two solver paths to one optimum, each stopped by tol
+    np.testing.assert_allclose(e.coef_, b.coef_, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(e.intercept_, b.intercept_, rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

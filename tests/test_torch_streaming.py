@@ -483,10 +483,13 @@ def test_budget_decision_follows_jax(hbm_bytes, force, need):
 
 
 def test_not_ported_options_raise(tmp_path):
-    """The streamed fits' checkpoints raise, naming the ROADMAP item; an
-    unknown sampling mode raises.  DuHL sampling and a DuHL chunk selection,
-    which raised before the chunk cache was ported, now run: the fits report
-    their sampling, and a selection yields the chunks at those positions."""
+    """An unknown sampling mode raises.  The streamed fits' checkpoints,
+    which raised before the resilience layer was ported, now run: under
+    `streaming_checkpoint_dir` or a `checkpoint_path` the fit gives the
+    unchecked fit's result and removes its file at the end.  DuHL sampling
+    and a DuHL chunk selection, which raised before the chunk cache was
+    ported, run: the fits report their sampling, and a selection yields the
+    chunks at those positions."""
     X, y, _ = _rows(14, n=300, d=3)
     path = _write(tmp_path / "n.parquet", X, y)
     fits = (lambda **kw: port_streaming.logreg_streaming_fit(path, "features", (), "label",
@@ -497,13 +500,16 @@ def test_not_ported_options_raise(tmp_path):
         port_config.set_config(streaming_chunk_sampling="duhl")
         res = fit()
         assert res["sampled_epochs"] >= 0 and res["chunk_visits_saved"] >= 0
-        port_config.set_config(streaming_chunk_sampling="off",
-                               streaming_checkpoint_dir=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fit()
+        port_config.set_config(streaming_chunk_sampling="off")
+        plain = fit()
+        port_config.set_config(streaming_checkpoint_dir=str(tmp_path))
+        checked = fit(checkpoint_dir=str(tmp_path))
         port_config.reset_config()
-        with pytest.raises(NotImplementedError, match="item 5"):
-            fit(checkpoint_path=str(tmp_path / "c.npz"))
+        by_path = fit(checkpoint_path=str(tmp_path / "c.npz"))
+        for got in (checked, by_path):
+            key = "coef" if "coef" in plain else "centers"
+            np.testing.assert_array_equal(got[key], plain[key])
+        assert not list(tmp_path.glob("*.npz"))
         port_config.set_config(streaming_chunk_sampling="maybe")
         with pytest.raises(ValueError, match="off|duhl"):
             fit()
