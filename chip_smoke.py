@@ -120,9 +120,9 @@ Phases, each of which makes the script exit non-zero when it fails:
    entry points (no hand-written kernel: the histogram is `scatter_add_`
    over row chunks, the rest torch ops): (l) the reference benchmark's
    random_forest_classifier_50t_d13 (numTrees=50, maxDepth=13,
-   maxBins=128, bench.py:1013-1016; 3 of its 50 trees) and (m)
+   maxBins=128, bench.py:1013-1016; 2 of its 50 trees) and (m)
    random_forest_regressor_30t_d6
-   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed; 4
+   (numTrees=30, maxDepth=6, maxBins=128, a label made from the seed; 2
    of its 30 trees) on
    phase 5's (b) rows, 1,000,000 x 3000; (n) BASELINE.json's classifier
    (maxDepth=16, bench.py:221-224) on (h)'s 100,000,000 x 64 standard
@@ -300,6 +300,27 @@ Phases, each of which makes the script exit non-zero when it fails:
    the deadline + 2 s, then a fit that waits for the abandoned one); a
    real torch.cuda.OutOfMemoryError in the transform (ballast leaves less
    than one chunk free) recovered by halving, the predictions equal.
+16. serving through the public entry points (serving/: host code and
+   torch ops; the served kNN route runs the fused kernel): (hh) bench.py's
+   bench_serving at full width — a LogisticRegression fitted on 100,000
+   rows x 3000 of (b)'s rows, PCA k=3 on phase 3's 1M x 128 items and
+   NearestNeighbors k=32 over them (phase 3's model, registered with its
+   `_search`), 300 one-row requests a model, sequential transforms against
+   the coalescing server: queries/s, p50/p99 ms, batches, the speedup, the
+   card's idle share from the serving utilization timeline, each served
+   slice held against the model's own transform of the same rows; the
+   fused kernel's launch counts reset before and read after the served kNN
+   run, and the kernel timed at the served batch sizes q = 1, 8 and 64
+   beside its bound, its plain version and torch.matmul + torch.topk.
+   (ii) bench_serving_scale's 200 pinned d = 64 models (a
+   LogisticRegression, a PCA and a kNN fanned out), 2,000 one-row requests
+   4:1 interactive:batch, queued while paused and drained at depth 1 and
+   at the auto depth: aggregate queries/s, the worst p99, interactive
+   drops (must be 0), outputs byte-equal across the depths.  (jj) an
+   injected serving_dispatch OOM and a serving_collect transient at depth
+   3 (every request answered once, exactly), then bench_serving_control's
+   brownout cut to 10 s windows: batch shed before interactive, the phase
+   back to normal.
 
 The last lines of standard output are a JSON object of the logistic
 cells' numbers, one of the PCA and LinearRegression cells' numbers, one
@@ -309,9 +330,10 @@ of the clustering cells' numbers, one of the forest cells' numbers
 numbers ({"cache_stats": [...]}), one of the meta layer's cells
 ({"meta": [...]}), one of the ANN cells ({"ann": [...]}), one of the
 UMAP cells ({"umap": [...]}), one of phase 15's cells ({"sparse": [...]}),
-a JSON object of the kernels' numbers
-(phase 13 adds the float32 fused function at (x)'s shape, phase 14 the
-fused function at UMAP's two shapes and the k > 32 merge),
+one of phase 16's ({"serving": [...]}), a JSON object of the kernels'
+numbers (phase 13 adds the float32 fused function at (x)'s shape, phase 14
+the fused function at UMAP's two shapes and the k > 32 merge, phase 16
+the fused function at the served batch sizes),
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -3011,14 +3033,14 @@ def phase_forest_float64(device, n: int, seed: int) -> dict:
 
 
 # The phase's trees, cut to what the script's time allows (its limit is
-# 1,200 s; phases 14 and 15 take about two and a half minutes of it): (n)
+# 1,200 s; phases 14-16 take about three minutes of it): (n)
 # BASELINE.json configs[3]'s rows, 1 of its 100 trees (about 3.4 s a tree
 # on an H100),
-# its fit from numpy 1; (l) 3 of the reference benchmark's 50 trees
-# (1.5 s a tree), (m) 4 of its 30 (0.8 s a tree), their fits from numpy 1
+# its fit from numpy 1; (l) 2 of the reference benchmark's 50 trees
+# (1.6 s a tree), (m) 2 of its 30 (0.9 s a tree), their fits from numpy 1
 # (the same first tree)
 RF_N_ROWS, RF_N_TREES = 100_000_000, 1
-RF_L_TREES, RF_M_TREES, RF_NUMPY_TREES = 3, 4, 1
+RF_L_TREES, RF_M_TREES, RF_NUMPY_TREES = 2, 2, 1
 
 
 def phase_forest(device, args, wide_X, wide_y) -> dict:
@@ -5722,6 +5744,418 @@ def phase_sparse_resilience(device, args, card: str) -> dict:
     return {"cells": [ee, ff, gg]}
 
 
+# Phase 16: the serving path (serving/).  (hh) bench.py's bench_serving at
+# full width, (ii) bench_serving_scale's 200 pinned models, (jj) faults and
+# bench_serving_control's brownout, cut to fit the phase.
+SERVE_REQUESTS = 300  # one-row requests per model in (hh), bench_serving's count
+SERVE_LR_ROWS = 100_000  # (hh)'s LogisticRegression fit rows, of (b)'s generator
+SERVE_K = 32  # (hh)'s kNN, phase 3's k over phase 3's 1M x 128 items
+SERVE_QS = (1, 8, 64)  # the served batch sizes of the fused kernel's rows
+SERVE_SCALE_MODELS = 200
+SERVE_SCALE_REQUESTS = 2000
+SERVE_SCALE_DIM = 64
+
+
+def _serving_util() -> dict:
+    """The serving utilization timeline since its last clear: the card's
+    busy and idle shares (a batch is busy from its dispatch to its CUDA
+    event observed complete, so the idle share is a lower bound)."""
+    from spark_rapids_ml_torch.telemetry import utilization
+
+    u = utilization.summarize(domain="serving")
+    if not u:
+        return {"idle_share": None}
+    return {"busy_share": u["device_busy_fraction"],
+            "idle_share": round(1.0 - u["device_busy_fraction"], 4),
+            "wall_s": u["wall_s"],
+            "gaps": [(r["kind"], r.get("cause", ""), r["stolen_s"])
+                     for r in u["gap_attribution"][:4]]}
+
+
+def _settled(server) -> None:
+    """Wait for the collect worker to count the last batch (its futures
+    resolve just before)."""
+    deadline = time.time() + 10
+    while server.pipeline_info()["inflight"] and time.time() < deadline:
+        time.sleep(0.001)
+
+
+def _hold_outputs(name: str, got: dict, want: dict) -> float:
+    """A served output against the model's own transform of the same rows
+    on the card: float columns within 1e-5 of the column's largest
+    magnitude (the served batches pad to other row counts than the whole
+    block, so cuBLAS may sum in another order), discrete columns equal but
+    where a float column shows a tie (a probability within 1e-6 of 0.5)."""
+    worst = 0.0
+    for col, w in want.items():
+        g, w = np.asarray(got[col]), np.asarray(w)
+        if g.shape != w.shape:
+            raise AssertionError(f"(hh) {name}.{col}: shape {g.shape} != {w.shape}")
+        if np.issubdtype(w.dtype, np.floating):
+            err = float(np.abs(g.astype(np.float64) - w).max()) if w.size else 0.0
+            if not err <= 1e-5 * max(1.0, float(np.abs(w).max())):
+                raise AssertionError(f"(hh) {name}.{col}: served differs by {err:.3e}")
+            worst = max(worst, err)
+    for col, w in want.items():
+        w, g = np.asarray(w), np.asarray(got[col])
+        if np.issubdtype(w.dtype, np.floating):
+            continue
+        bad = np.nonzero(g != w)[0]
+        probs = want.get("probability")
+        if bad.size and (probs is None or not np.all(np.abs(probs[bad] - 0.5).min(-1) < 1e-6)):
+            raise AssertionError(f"(hh) {name}.{col}: {bad.size} rows differ")
+    return worst
+
+
+def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
+    """(hh): bench_serving at full width through the entry points, and the
+    fused kernel's rows at the served batch sizes."""
+    import torch
+
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+    from spark_rapids_ml_torch.serving import ServingServer
+    from spark_rapids_ml_torch.telemetry import utilization
+
+    t0 = time.perf_counter()
+    lr = LogisticRegression(maxIter=20).fit((lr_X, lr_y))
+    t_lr = time.perf_counter() - t0
+    items = knn_model.item_features
+    t0 = time.perf_counter()
+    pca = PCA(k=3).setInputCol("features").setOutputCol("proj").fit({"features": items})
+    t_pca = time.perf_counter() - t0
+    log(f"  (hh) fits: LogisticRegression {lr_X.shape[0]} x {lr_X.shape[1]} {t_lr:.2f} s, "
+        f"PCA k=3 {items.shape[0]} x {items.shape[1]} {t_pca:.2f} s")
+
+    def knn_transform(Q):
+        dist, pos = knn_model._search(np.asarray(Q, np.float32), SERVE_K)
+        return {"distances": dist, "indices": pos}
+
+    models = {"logreg": (lr, None, lr_X.shape[1]), "pca": (pca, None, items.shape[1]),
+              "knn": (knn_model, knn_transform, items.shape[1])}
+    config.set_config(serving_max_wait_ms=5.0)  # bench_serving's
+    server = ServingServer()
+    for name, (m, fn, d) in models.items():
+        server.register(name, m, n_features=d, transform=fn)
+    server.start()
+    rng = np.random.default_rng(seed + 160)
+    cells, served_launches = [], None
+    try:
+        for name, (m, fn, d) in models.items():
+            reqs = [rng.standard_normal((1, d), dtype=np.float32) for _ in range(SERVE_REQUESTS)]
+            seq = fn or m._transform_array
+            seq(reqs[0])
+            server.transform(name, reqs[0], timeout=300)
+            t0 = time.perf_counter()
+            for r in reqs:
+                seq(r)  # each call ends in a fetch to the host
+            seq_s = time.perf_counter() - t0
+            _settled(server)
+            b0 = server.pipeline_info()["batches"]
+            utilization.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            futs = [server.submit(name, r) for r in reqs]
+            outs = [f.result(timeout=300) for f in futs]
+            srv_s = time.perf_counter() - t0
+            launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES,
+                        "merge": fk.MERGE_LAUNCHES}
+            _settled(server)
+            batches = server.pipeline_info()["batches"] - b0
+            util = _serving_util()
+            rep = server.report()[name]
+            # the same burst again under torch.profiler: the share of its
+            # wall the card spent in kernels
+            prof_ms, busy = device_busy_share(
+                lambda: [f.result(timeout=300) for f in [server.submit(name, r) for r in reqs]])
+            want = seq(np.concatenate(reqs))
+            got = {c: np.concatenate([o[c] for o in outs]) for c in outs[0]}
+            if name == "knn":
+                # ids equal but at ties: a differing slot's distance equals
+                # the reference's within the kernel's float32 rounding
+                err = float(np.abs(got["distances"] - want["distances"]).max())
+                diff = got["indices"] != want["indices"]
+                tie = np.isclose(got["distances"][diff], want["distances"][diff],
+                                 rtol=1e-5, atol=1e-5)
+                if err > 1e-4 or not tie.all():
+                    raise AssertionError(f"(hh) knn: served differs (d err {err:.3e}, "
+                                         f"{int((~tie).sum())} id slots not ties)")
+                if launches["main"] < 1:
+                    raise AssertionError("(hh) the served kNN route launched no fused kernel")
+                served_launches = dict(launches, batches=batches)
+            else:
+                err = _hold_outputs(name, got, want)
+            cell = {
+                "cell": f"(hh) {name}", "requests": SERVE_REQUESTS, "d": d,
+                "seq_qps": SERVE_REQUESTS / seq_s, "qps": SERVE_REQUESTS / srv_s,
+                "speedup_x": seq_s / srv_s, "p50_ms": rep.get("p50_ms"),
+                "p99_ms": rep.get("p99_ms"), "batches": batches, "max_abs_err": err,
+                "pipeline_depth": server.pipeline_info()["depth"], **util,
+                "profiled_burst_ms": prof_ms, "kernel_busy_share": busy,
+            }
+            if name == "knn":
+                cell["launches"] = launches
+            log(f"  (hh) {name}: sequential {cell['seq_qps']:.1f} q/s, served {cell['qps']:.1f} "
+                f"q/s ({cell['speedup_x']:.2f}x) in {batches} batches, p50 "
+                f"{cell['p50_ms']} ms, p99 {cell['p99_ms']} ms, depth "
+                f"{cell['pipeline_depth']}, idle share {util['idle_share']} (timeline; "
+                f"kernels {busy} of a profiled burst of {prof_ms:.1f} ms), max err "
+                f"{err:.3e}" + (f", launches {launches}" if name == "knn" else "")
+                + f" [{card}]")
+            cells.append(cell)
+        totals = server.report()["_totals"]
+        log(f"  (hh) pinned bytes {totals['pinned_bytes']}, batches {totals['batches']}")
+    finally:
+        server.stop()
+        server.registry.clear()
+        config.reset_config()
+
+    # the fused kernel at the served batch sizes, on the staged items the
+    # served route searched
+    items_t, valid_t, _ = knn_model._device_items[1]
+    n, dim = items_t.shape[0], items_t.shape[1]
+    per_batch = served_launches["main"] / max(served_launches["batches"], 1)
+    kernels = []
+    for q in SERVE_QS:
+        Qt = torch.as_tensor(rng.standard_normal((q, dim), dtype=np.float32), device=device)
+        kd, kp = fk.fused_topk_sqdist(items_t, valid_t, Qt, SERVE_K)
+        td, tp = fk.fused_topk_sqdist_reference(items_t, valid_t, Qt, SERVE_K, bq=1024, bn=8192)
+        torch.cuda.synchronize()
+        err = compare(f"(hh) served q={q}: kernel vs twin", kd, kp, td, tp, exact=False)
+        ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, Qt, SERVE_K), reps=20)
+        plain_ms = cuda_ms(lambda: fk.fused_topk_sqdist_reference(
+            items_t, valid_t, Qt, SERVE_K, bq=1024, bn=8192), reps=2)
+        library_ms = cuda_ms(lambda: library_topk(items_t, Qt, SERVE_K), reps=20)
+        nbytes = 4.0 * (n * dim + q * dim + 2 * n) + 8.0 * q * SERVE_K
+        bound_ms, bound_by = bound(3 * 2.0 * q * n * dim, _PEAK_TF32, nbytes)
+        log(f"  (hh) fused_topk_sqdist at q={q} over {n} x {dim}, k={SERVE_K}: {ms:.4f} ms "
+            f"(bound {bound_ms:.4f} ms, {bound_by}, share {bound_ms / ms:.1%}); twin "
+            f"{plain_ms:.3f} ms; torch.matmul + torch.topk {library_ms:.4f} ms; "
+            f"{per_batch:.2f} main-kernel launches a served batch")
+        kernels.append(entry(
+            "fused_knn_tf32", served_launches["main"], err, ms, plain_ms, bound_ms, bound_by,
+            library_ms, f"served: {n}x{dim} float32 items, q={q}, k={SERVE_K}; launches "
+            f"are (hh)'s served run ({served_launches['batches']} batches, split "
+            f"{served_launches['split']}, merge {served_launches['merge']})",
+            launches_per_batch=per_batch))
+    return cells, kernels
+
+
+def _scale_models(seed: int):
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_torch.knn import NearestNeighbors
+
+    X, y = gen_binary(20_000, SERVE_SCALE_DIM, seed + 161)
+    knn = NearestNeighbors(k=8).fit({"features": X[:2000]})
+
+    def nn_transform(Q):
+        dist, pos = knn._search(np.asarray(Q, np.float32), 8)
+        return {"distances": dist, "indices": pos}
+
+    return [(LogisticRegression(maxIter=10).fit((X, y)), None),
+            (PCA(k=8).setInputCol("features").setOutputCol("proj").fit({"features": X}), None),
+            (knn, nn_transform)]
+
+
+def serve_ii(device, specs, seed: int, card: str) -> dict:
+    """(ii): bench_serving_scale's 200 pinned models, 4:1 interactive:batch,
+    the burst queued while paused (so both depths coalesce the same
+    batches) and drained at depth 1 and at the auto depth."""
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.serving import ServingOverload, ServingServer
+    from spark_rapids_ml_torch.telemetry import utilization
+
+    rng = np.random.default_rng(seed + 162)
+    reqs = [rng.standard_normal((1, SERVE_SCALE_DIM), dtype=np.float32)
+            for _ in range(SERVE_SCALE_REQUESTS)]
+    runs = {}
+    for depth in (1, 0):
+        config.set_config(serving_pipeline_depth=depth, serving_max_wait_ms=5.0,
+                          serving_max_queue=4 * SERVE_SCALE_REQUESTS)
+        server = ServingServer()
+        for i in range(SERVE_SCALE_MODELS):
+            m, fn = specs[i % len(specs)]
+            server.register(f"m{i:03d}", m, n_features=SERVE_SCALE_DIM, transform=fn)
+        server.start()
+        try:
+            for name in ("m000", "m001", "m002"):
+                server.transform(name, reqs[0], timeout=300)
+            _settled(server)
+            b0 = server.pipeline_info()["batches"]
+            utilization.clear()
+            drops = 0
+            server.pause()
+            t0 = time.perf_counter()
+            futs = []
+            for j, r in enumerate(reqs):
+                pr = "batch" if j % 5 == 4 else "interactive"
+                try:
+                    futs.append(server.submit(f"m{j % SERVE_SCALE_MODELS:03d}", r, priority=pr))
+                except ServingOverload:
+                    drops += pr == "interactive"
+                    futs.append(None)
+            t_submit = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            server.resume()
+            outs = [f.result(timeout=600) if f is not None else None for f in futs]
+            t_end = time.perf_counter()
+            _settled(server)
+            rep = server.report()
+            p99 = max(v.get("p99_ms", 0.0) for k, v in rep.items() if not k.startswith("_"))
+            runs[depth] = {
+                "cell": f"(ii) {SERVE_SCALE_MODELS} models, depth "
+                        f"{'auto' if depth == 0 else depth}",
+                "resolved_depth": server.pipeline_info()["depth"],
+                "qps": SERVE_SCALE_REQUESTS / (t_end - t0),
+                "drain_qps": SERVE_SCALE_REQUESTS / (t_end - t1), "submit_s": t_submit,
+                "worst_p99_ms": p99, "interactive_drops": drops,
+                "batches": server.pipeline_info()["batches"] - b0,
+                "pinned_bytes": rep["_totals"]["pinned_bytes"], **_serving_util(),
+                "outs": outs,
+            }
+        finally:
+            server.stop()
+            server.registry.clear()
+            config.reset_config()
+        r = runs[depth]
+        log(f"  {r['cell']} (resolved {r['resolved_depth']}): {r['qps']:.1f} q/s aggregate "
+            f"({r['drain_qps']:.1f} q/s draining), worst p99 {r['worst_p99_ms']} ms, "
+            f"{r['batches']} batches, interactive drops {drops}, idle share "
+            f"{r['idle_share']} [{card}]")
+        if drops:
+            raise AssertionError(f"{r['cell']}: {drops} interactive requests dropped")
+    for a, b in zip(runs[1].pop("outs"), runs[0].pop("outs")):
+        for col in a:
+            if a[col].tobytes() != b[col].tobytes():
+                raise AssertionError(f"(ii) depth 1 and the auto depth differ in {col}")
+    runs[0]["pipeline_speedup_x"] = runs[0]["qps"] / runs[1]["qps"]
+    log(f"  (ii) both depths byte-equal; auto over depth 1 "
+        f"{runs[0]['pipeline_speedup_x']:.2f}x")
+    return [runs[1], runs[0]]
+
+
+def serve_jj(device, pca, seed: int, card: str) -> dict:
+    """(jj): an injected serving_dispatch OOM and a serving_collect
+    transient at depth 3, then bench_serving_control's brownout cut to fit
+    the phase: every request answered once, batch shed before
+    interactive."""
+    from spark_rapids_ml_torch import config
+    from spark_rapids_ml_torch.resilience import fault_inject
+    from spark_rapids_ml_torch.resilience.retry import RETRIES
+    from spark_rapids_ml_torch.serving import ServingOverload, ServingServer
+    from spark_rapids_ml_torch.telemetry import utilization
+
+    rng = np.random.default_rng(seed + 163)
+    d = pca.components_.shape[1]
+    config.set_config(serving_pipeline_depth=3, serving_max_batch_rows=8,
+                      retry_backoff_s=0.01, retry_jitter=0.0, serving_max_queue=256,
+                      serving_controller_interval_s=0.05, serving_brownout_sustain_s=0.2,
+                      serving_brownout_recover_s=0.2)
+    server = ServingServer()
+    server.register("ctl", pca, n_features=d)
+    server.start()
+    try:
+        server.transform("ctl", rng.standard_normal((1, d), dtype=np.float32), timeout=300)
+        utilization.clear()
+        reqs = [rng.standard_normal((1, d), dtype=np.float32) for _ in range(64)]
+        answered = []
+        server.pause()
+        futs = [server.submit("ctl", r) for r in reqs]
+        for f in futs:
+            f.add_done_callback(lambda f: answered.append(f.request_id))
+        r_oom = RETRIES.value(label="serving_dispatch", action="oom")
+        r_tr = RETRIES.value(label="serving_dispatch", action="transient")
+        t0 = time.perf_counter()
+        with fault_inject("serving_dispatch", "oom", times=1), \
+                fault_inject("serving_collect", "timeout", times=1):
+            server.resume()
+            outs = [f.result(timeout=120) for f in futs]
+        fault_s = time.perf_counter() - t0
+        want = pca._transform_array(np.concatenate(reqs))["proj"]
+        got = np.concatenate([o["proj"] for o in outs])
+        err = float(np.abs(got - want).max())
+        retried = (RETRIES.value(label="serving_dispatch", action="oom") - r_oom,
+                   RETRIES.value(label="serving_dispatch", action="transient") - r_tr)
+        if (sorted(answered) != sorted(f.request_id for f in futs)
+                or err > 1e-5 * max(1.0, float(np.abs(want).max())) or min(retried) < 1):
+            raise AssertionError(f"(jj) faults: answered {len(answered)} of {len(futs)}, "
+                                 f"err {err:.3e}, retries (oom, transient) {retried}")
+        fault_util = _serving_util()
+        log(f"  (jj) faults at depth 3: {len(futs)} requests answered once in {fault_s:.3f} s, "
+            f"retries (oom, transient) {retried}, cap now {server._shrunk_cap}, max err "
+            f"{err:.3e}, idle share {fault_util['idle_share']}")
+
+        def phase() -> str:
+            return server.report()["ctl"]["controller"]["brownout_phase"]
+
+        utilization.clear()
+        config.set_config(serving_slo_targets="ctl=0.0001")
+        batch_total = batch_shed = inter_drops = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 10.0:
+            pend = []
+            for i in range(8):
+                pr = "batch" if i % 2 else "interactive"
+                try:
+                    pend.append(server.submit("ctl", reqs[i], priority=pr))
+                    batch_total += pr == "batch"
+                except ServingOverload:
+                    batch_total += pr == "batch"
+                    batch_shed += pr == "batch"
+                    inter_drops += pr == "interactive"
+            for f in pend:
+                f.result(timeout=60)
+            if phase() != "normal" and batch_shed:
+                break
+        t_shed = time.perf_counter() - t0
+        shed_phase = phase()
+        config.set_config(serving_slo_targets="ctl=60000")
+        t0 = time.perf_counter()
+        recovery_s = None
+        while time.perf_counter() - t0 < 10.0:
+            server.transform("ctl", reqs[0], timeout=60)
+            if phase() == "normal":
+                recovery_s = time.perf_counter() - t0
+                break
+            time.sleep(0.02)
+        brown_util = _serving_util()
+        log(f"  (jj) brownout: {shed_phase} after {t_shed:.2f} s, batch shed "
+            f"{batch_shed} of {batch_total}, interactive drops {inter_drops}, back to normal "
+            f"in {recovery_s} s, idle share {brown_util['idle_share']} [{card}]")
+        if not batch_shed or inter_drops or recovery_s is None:
+            raise AssertionError("(jj) brownout: batch must shed before interactive, and "
+                                 "the phase must recover")
+    finally:
+        server.stop()
+        server.registry.clear()
+        config.reset_config()
+    return {"cell": "(jj) faults at depth 3 and the brownout", "requests": len(futs),
+            "fault_s": fault_s, "retries_oom_transient": retried, "max_abs_err": err,
+            "fault_idle_share": fault_util["idle_share"],
+            "shed_fraction": batch_shed / max(batch_total, 1), "interactive_drops": inter_drops,
+            "shed_after_s": t_shed, "recovery_s": recovery_s,
+            "brownout_idle_share": brown_util["idle_share"]}
+
+
+def phase_serving(device, args, knn_model, lr_X, lr_y, card: str) -> dict:
+    """Phase 16: (hh), (ii), (jj)."""
+    from spark_rapids_ml_torch import config
+
+    config.reset_config()
+    t_phase = time.perf_counter()
+    hh, kernels = serve_hh(device, lr_X, lr_y, knn_model, args.seed, card)
+    log(f"  (hh) done at {time.perf_counter() - t_phase:.1f} s")
+    specs = _scale_models(args.seed)
+    ii = serve_ii(device, specs, args.seed, card)
+    log(f"  (ii) done at {time.perf_counter() - t_phase:.1f} s")
+    jj = serve_jj(device, specs[1][0], args.seed, card)
+    log(f"  phase 16 {time.perf_counter() - t_phase:.1f} s")
+    return {"cells": hh + ii + [jj], "kernels": kernels}
+
+
 def phase_build(args) -> None:
     from spark_rapids_ml_torch.ops import _build
     from spark_rapids_ml_torch.ops import fused_knn as fk
@@ -5872,6 +6306,7 @@ def main() -> int:
     stage("phase 12: the meta layer: (v) bench.py's cv_cached cell, (w) CrossValidator, "
           "fitMultiple and evaluate at the reference benchmark's width")
     meta = phase_meta(device, args, wide_X, wide_y)
+    serve_X, serve_y = wide_X[:SERVE_LR_ROWS].copy(), wide_y[:SERVE_LR_ROWS].copy()
     del wide_X, wide_y
 
     stage("phase 13: ApproximateNearestNeighbors: (x) IVF-Flat and IVF-PQ at BASELINE.json's "
@@ -5888,6 +6323,13 @@ def main() -> int:
           "KMeans resume")
     sparse = phase_sparse_resilience(device, args, card)
 
+    stage(f"phase 16: serving: (hh) bench_serving at full width ({SERVE_LR_ROWS} x 3000 "
+          f"LogisticRegression, PCA k=3 and kNN k={SERVE_K} over phase 3's items), (ii) "
+          f"{SERVE_SCALE_MODELS} pinned models at depth 1 and auto, (jj) faults at depth 3 "
+          "and the brownout")
+    serving = phase_serving(device, args, main_out["model"], serve_X, serve_y, card)
+    del serve_X, serve_y
+
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"logistic": logistic["cells"]}))
     print(json.dumps({"pca_linear": pca_linear["cells"]}))
@@ -5899,8 +6341,9 @@ def main() -> int:
     print(json.dumps({"ann": ann["cells"]}, default=float))
     print(json.dumps({"umap": umap["cells"]}, default=float))
     print(json.dumps({"sparse": sparse["cells"]}, default=float))
-    print(json.dumps({"kernels": main_out["kernels"] + f64 + [ann["kernel"]] + umap["kernels"]},
-                     default=float))
+    print(json.dumps({"serving": serving["cells"]}, default=float))
+    print(json.dumps({"kernels": main_out["kernels"] + f64 + [ann["kernel"]] + umap["kernels"]
+                      + serving["kernels"]}, default=float))
     print(card)
     print(json.dumps({
         "ok": True,

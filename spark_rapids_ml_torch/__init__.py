@@ -19,7 +19,11 @@
 # cache's replays (`parallel.device_cache`), the one-pass statistics
 # (`stats`: `summarize`, `Summarizer`, `describe`), and the meta layer:
 # `metrics`, the evaluators (`evaluation`), `fitMultiple`, CrossValidator on
-# the stage-once dataset cache (`tuning`) and `pipeline`.
+# the stage-once dataset cache (`tuning`) and `pipeline`; and the serving
+# layer (`serving`: the micro-batching server, its pipeline on CUDA
+# streams, residency, the control plane, the HTTP endpoint) with the
+# `tracing` spans and the `telemetry` it reads (the metrics registry,
+# named locks, the device idle-gap timeline).
 #
 # Entry points run on "cuda:0" unless the caller asks for the CPU with
 # `set_default_device("cpu")` or SPARK_RAPIDS_ML_TORCH_DEVICE=cpu; without

@@ -2,7 +2,7 @@
 # Global configuration — the port of spark_rapids_ml_tpu/config.py for the
 # core keys and the keys the exact-kNN, LogisticRegression, PCA,
 # LinearRegression, clustering, parquet/streaming, chunk-cache, statistics,
-# meta-layer, UMAP and resilience slices read.
+# meta-layer, UMAP, resilience, tracing/telemetry and serving slices read.
 # The confs live in a process-global dict, overridable from the
 # environment (`SPARK_RAPIDS_ML_TORCH_<KEY>`) or `set_config()`.  Key
 # names and defaults match the JAX package, except where a comment says
@@ -177,10 +177,93 @@ _DEFAULTS: Dict[str, Any] = {
     # "site:kind[:times[:skip]]" comma list, e.g.
     # "fit_kernel:oom:1,transform_dispatch:timeout:1:2"; empty disables.
     "fault_inject_spec": "",
+    # Elastic device-loss recovery (resilience/elastic.py).  The JAX
+    # package shrinks its mesh to the surviving devices ("on"), down to
+    # `elastic_min_devices`, else takes the full retry.  One card has no
+    # survivors, so every value gives the full retry: accepted, no result
+    # changes.
+    "elastic": "on",
+    "elastic_min_devices": 1,
+    # Pad a transform's staged chunks to the {1, 1.5} x 2^k row-bucket grid
+    # (parallel/mesh.py `bucket_rows`, min 256) and align its full chunks
+    # to the grid (core.py `_transform_mesh`).  The padding rows are zeros
+    # and never returned.  On a card it gives every padding class one
+    # product shape, so a row's result does not depend on how many rows
+    # share its chunk.  Fits stage exact shapes whatever its value.
+    "shape_bucketing": True,
+    # Stage small arrays (below 4 MiB) with one copy from a reused pinned
+    # host buffer and one direct host-to-device copy, without the chunk
+    # loop (parallel/mesh.py `RowStager._stage_small_direct`); the same
+    # bytes either way.  The serving layer's micro-batches live on it.
+    "staging_small_direct": True,
+    # When set, `tracing.device_profile` regions run under torch.profiler
+    # and write a Chrome trace into this directory.
+    "profile_dir": None,
+    # Named-lock contention profiling (telemetry/locks.py): a blocked
+    # acquire that waited at least this many milliseconds drops a
+    # `lock_slow_wait[<name>]` instant marker into the active run's span
+    # tree (the cumulative wait/hold counters record regardless).  <= 0
+    # disables the markers.
+    "lock_slow_wait_ms": 50.0,
+    # The serving layer (serving/), with the JAX package's keys and
+    # defaults.  serving_max_batch_rows: hard cap on the rows one coalesced
+    # dispatch may carry; the effective cap is min(this,
+    # host_batch_bytes / row bytes), halved further after an OOM (floor:
+    # one row).
+    "serving_max_batch_rows": 4096,
+    # Longest a queued request waits for co-batchable traffic before its
+    # batch dispatches anyway (milliseconds).
+    "serving_max_wait_ms": 2.0,
+    # Admission control: requests beyond this many queued across all
+    # models are rejected with a typed ServingOverload.
+    "serving_max_queue": 1024,
+    # The HTTP JSON endpoint (serving/http.py) on this loopback port when
+    # a server starts; 0 = off.
+    "serving_port": 0,
+    # A request whose total latency reaches this many milliseconds has its
+    # batch's span tree captured (`ServingServer.slow_traces()`); <= 0 off.
+    "serving_slow_trace_ms": 0.0,
+    # Declared p99 latency target (milliseconds) of every served model, read
+    # by the `slo_burn_rate{model,window}` gauges; <= 0 disables them.
+    # `serving_slo_targets` ("model=ms,model2=ms") overrides it per model.
+    "serving_slo_p99_ms": 0.0,
+    "serving_slo_targets": "",
+    # The closed-loop controller (serving/control.py): "on" runs the
+    # per-model AIMD feedback on the coalescing cap and max-wait,
+    # priority-class admission and the brownout phase machine; "off" keeps
+    # the static knobs.  Its interval (seconds), burn high and low waters,
+    # the batch class's queue/dispatch share, and the default class.
+    "serving_controller": "on",
+    "serving_controller_interval_s": 1.0,
+    "serving_controller_burn_high": 1.0,
+    "serving_controller_burn_low": 0.5,
+    "serving_batch_share": 0.25,
+    "serving_priority_default": "interactive",
+    # Brownout: a 1m burn at or above `serving_brownout_burn` held for
+    # `serving_brownout_sustain_s` escalates one phase (normal ->
+    # shed_batch -> shed_interactive); a burn at or below the low water
+    # held for `serving_brownout_recover_s` de-escalates one.
+    "serving_brownout_burn": 2.0,
+    "serving_brownout_sustain_s": 5.0,
+    "serving_brownout_recover_s": 5.0,
+    # Pad coalesced micro-batches to the row-bucket grid whatever
+    # `shape_bucketing` says: every padding class computes with one
+    # product shape.
+    "serving_padding_buckets": True,
+    # Staged dispatch pipeline (serving/server.py): how many coalesced
+    # batches may be in flight at once (1 = fully serialized, the
+    # byte-parity baseline); 0 = auto from the serving idle-gap profile,
+    # at most `serving_pipeline_max_depth`.  Each in-flight batch has its
+    # own CUDA stream on a card.
+    "serving_pipeline_depth": 0,
+    "serving_pipeline_max_depth": 4,
+    # Rotate which model's due batch dispatches within a priority class
+    # (FIFO within each model's class either way).
+    "serving_pipeline_interleave": True,
 }
 
 # Keys whose default is None, and the type an environment value takes.
-_TYPES: Dict[str, type] = {"hbm_bytes": int, "num_workers": int}
+_TYPES: Dict[str, type] = {"hbm_bytes": int, "num_workers": int, "profile_dir": str}
 
 _ENV_PREFIX = "SPARK_RAPIDS_ML_TORCH_"
 

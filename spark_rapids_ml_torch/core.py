@@ -715,31 +715,34 @@ class _TpuEstimator(Estimator, _TpuCaller):
                 f"({sorted(self._fallback_params)}) needs the scikit-learn fallback, "
                 "which is not ported (the Meta layer item (2) of ROADMAP.md)")
         from .resilience import counts_snapshot
+        from .tracing import device_profile
 
         t0 = time.time()
         self._fit_record = {}
         self._chunk_metrics_at_start = chunk_metrics_snapshot()
         self._resilience_at_start = counts_snapshot()
         attrs = None
-        if isinstance(dataset, DeviceDataset):
-            self._fit_record["route"] = "device_dataset"
-            fit_input = self._stage_from_device(dataset)
-        else:
-            if is_parquet_path(dataset) and get_config("streaming_ingest"):
-                attrs = self._stage_or_stream(dataset)
+        # `profile_dir` set: the fit runs under torch.profiler (tracing.py)
+        with device_profile():
+            if isinstance(dataset, DeviceDataset):
+                self._fit_record["route"] = "device_dataset"
+                fit_input = self._stage_from_device(dataset)
+            else:
+                if is_parquet_path(dataset) and get_config("streaming_ingest"):
+                    attrs = self._stage_or_stream(dataset)
+                if attrs is None:
+                    batch = self._extract(dataset)
+                    self._validate_input(batch)
+                    attrs = self._maybe_fit_sparse_stats(batch)
+                    if attrs is None:
+                        attrs = self._maybe_fit_fused(batch)
+                    if attrs is None:
+                        self._fit_record["route"] = "staged"
+                        fit_input = self._stage_fit_input(batch)
+                    del batch
             if attrs is None:
-                batch = self._extract(dataset)
-                self._validate_input(batch)
-                attrs = self._maybe_fit_sparse_stats(batch)
-                if attrs is None:
-                    attrs = self._maybe_fit_fused(batch)
-                if attrs is None:
-                    self._fit_record["route"] = "staged"
-                    fit_input = self._stage_fit_input(batch)
-                del batch
-        if attrs is None:
-            attrs = self._run_fit_kernel(fit_input)
-            del fit_input
+                attrs = self._run_fit_kernel(fit_input)
+                del fit_input
         model = self._create_model(attrs)
         self._copyValues(model)
         model._num_workers = self._num_workers
@@ -896,6 +899,17 @@ class _TpuEstimatorSupervised(_TpuEstimator):
         return True
 
 
+def weights_on(a: Any, device, dtype) -> Any:
+    """A model array as a tensor on `device` in `dtype`.  A serving model's
+    pinned attributes are tensors already on the card (serving/registry.py)
+    and are only cast there; a host array is copied."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+
 class _TpuModel(Model, _TpuCaller):
     def __init__(self, **model_attributes: Any) -> None:
         super().__init__()
@@ -947,7 +961,12 @@ class _TpuModel(Model, _TpuCaller):
     def _transform_mesh(self, X: Any) -> Optional[Dict[str, np.ndarray]]:
         """Batched inference on the device: rows in chunks of
         `host_batch_bytes` (halved, since two chunks are in flight), each
-        staged and run through `_transform_device`.  A one-deep pipeline:
+        staged and run through `_transform_device`.  Under `shape_bucketing`
+        (the JAX package's rule) full chunks sit on the row-bucket grid and
+        the tail chunk is staged zero-padded up to it (parallel/mesh.py
+        `bucket_rows`), so every chunk of a padding class computes with
+        one product shape; a chunk an OOM halved below the grid stages its
+        exact rows.  A one-deep pipeline:
         chunk i+1 is converted on the host and copied on a side stream while
         chunk i computes; then chunk i is fetched and published whole.
 
@@ -966,8 +985,9 @@ class _TpuModel(Model, _TpuCaller):
 
         import torch
 
+        from .config import get_config
         from .parallel import DeviceContext
-        from .parallel.mesh import RowStager
+        from .parallel.mesh import RowStager, bucket_rows, bucket_rows_floor
         from .resilience import RetryPolicy, maybe_inject
         from .streaming import chunk_rows_for
 
@@ -989,7 +1009,15 @@ class _TpuModel(Model, _TpuCaller):
         # the model was fitted (and saved) with
         with DeviceContext() as ctx:
             device = ctx.device
-        chunk = max(1, chunk_rows_for(d, np.dtype(x_dtype).itemsize) // 2)
+        chunk = chunk_rows_for(d, np.dtype(x_dtype).itemsize)
+        bucketing = bool(get_config("shape_bucketing"))
+        if bucketing:
+            # full chunks on the bucket grid carry no padding; only the tail
+            # chunk pads up (mesh.py `bucket_rows`), as in the JAX package
+            chunk = bucket_rows_floor(chunk)
+        chunk = max(1, chunk // 2)
+        if bucketing:
+            chunk = bucket_rows_floor(chunk)
         copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
         def _stage(lo: int):
@@ -998,7 +1026,11 @@ class _TpuModel(Model, _TpuCaller):
             CPU)."""
             maybe_inject("transform_dispatch")
             hi = min(lo + chunk, n)
-            st = RowStager(hi - lo, device)
+            # a chunk pads up to its bucket only where the bucket fits the
+            # chunk size: an OOM-halved chunk below the grid stages exact
+            # rows, so halving still frees memory
+            st = RowStager.for_replicated(
+                hi - lo, device, bucketing=bucketing and bucket_rows(hi - lo) <= chunk)
 
             def put():
                 return (st.stage_sparse if sparse_in else st.stage)(X[lo:hi], x_dtype)

@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from ..core import FitInput, _TpuEstimatorSupervised, _TpuModel
+from ..core import FitInput, _TpuEstimatorSupervised, _TpuModel, weights_on
 from ..params import (
     HasElasticNetParam,
     HasEnableSparseDataOptim,
@@ -645,12 +645,12 @@ class LogisticRegressionModel(
         import torch
 
         from ..ops.logistic import binary_predict, logreg_predict
-        from ..parallel.mesh import _numpy_dtype
+        from ..parallel.mesh import _numpy_dtype, _torch_dtype
 
         dt = _numpy_dtype(Xs.dtype)
 
         def on_device(a):
-            return torch.as_tensor(np.asarray(a, dt), device=Xs.device)
+            return weights_on(a, Xs.device, _torch_dtype(dt))
 
         if self._is_binomial():
             preds, probs, raw = binary_predict(

@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from ..core import FitInput, _TpuEstimator, _TpuModel
+from ..core import FitInput, _TpuEstimator, _TpuModel, weights_on
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -322,7 +322,7 @@ class KMeansModel(KMeansClass, _TpuModel, _KMeansTpuParams):
 
         from ..ops.kmeans import kmeans_predict
 
-        C = torch.tensor(self.cluster_centers_, device=Xs.device).to(Xs.dtype)
+        C = weights_on(self.cluster_centers_, Xs.device, Xs.dtype)
         return {self.getOrDefault("predictionCol"): kmeans_predict(Xs, C)}
 
     def cpu(self):

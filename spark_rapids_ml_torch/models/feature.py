@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from ..core import FitInput, _TpuEstimator, _TpuModel
+from ..core import FitInput, _TpuEstimator, _TpuModel, weights_on
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -300,7 +300,7 @@ class PCAModel(PCAClass, _TpuModel, _PCATpuParams):
 
         from ..ops.pca import pca_transform
 
-        comps = torch.tensor(self.components_, device=Xs.device).to(Xs.dtype)
+        comps = weights_on(self.components_, Xs.device, Xs.dtype)
         return {self.getOrDefault("outputCol"): pca_transform(Xs, comps)}
 
     def cpu(self):

@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from ..core import FitInput, _TpuEstimatorSupervised, _TpuModel
+from ..core import FitInput, _TpuEstimatorSupervised, _TpuModel, weights_on
 from ..params import (
     HasElasticNetParam,
     HasFeaturesCol,
@@ -495,7 +495,7 @@ class LinearRegressionModel(
 
         from ..ops.linear import linreg_predict
 
-        coef = torch.tensor(self.coef_, device=Xs.device).to(Xs.dtype)
+        coef = weights_on(self.coef_, Xs.device, Xs.dtype)
         b0 = torch.tensor(self.intercept_, dtype=torch.float64).to(Xs.dtype).to(Xs.device)
         return {self.getOrDefault("predictionCol"): linreg_predict(Xs, coef, b0)}
 

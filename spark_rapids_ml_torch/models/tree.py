@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from ..core import FitInput, _TpuEstimator, _TpuModel
+from ..core import FitInput, _TpuEstimator, _TpuModel, weights_on
 from ..params import (
     HasFeaturesCol,
     HasFeaturesCols,
@@ -406,7 +406,7 @@ class _RandomForestModel(_RandomForestClass, _TpuModel, _RandomForestParams):
         from ..ops.forest import forest_apply
 
         def put(a, dtype):
-            return torch.as_tensor(np.asarray(a), device=Xs.device).to(dtype)
+            return weights_on(a, Xs.device, dtype)
 
         leaves = forest_apply(
             Xs,

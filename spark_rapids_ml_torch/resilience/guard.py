@@ -15,7 +15,9 @@
 # is still running then, the call raises `DispatchTimeout` without
 # dispatching, so that a real hang never blocks a caller past its
 # deadlines.  A call without a deadline runs at once, as in the JAX
-# package (on a card its work queues behind the abandoned work's).
+# package (on a card its work queues behind the abandoned work's).  The
+# worker adopts the caller's trace context (tracing.py), so its spans join
+# the caller's run.
 #
 from __future__ import annotations
 
@@ -91,10 +93,16 @@ def guarded(fn: Callable[[], Any], deadline: Optional[float] = None, label: str 
     if wait_abandoned(deadline):
         raise _timeout(label, deadline, "abandoned work still running", log)
 
+    from ..tracing import adopt_trace_context
+
     result: list = []
     failure: list = []
+    # the worker's spans and markers land in the caller's trace buffer, at
+    # its depth and under its run id
+    adopt = adopt_trace_context()
 
     def _worker() -> None:
+        adopt()
         try:
             out = fn()
             _synchronize()

@@ -37,6 +37,9 @@ from . import metrics
 
 logger = get_logger("spark_rapids_ml_torch.resilience")
 
+# `retries_total{label,action}` in the telemetry registry
+RETRIES = metrics.RETRIES
+
 # Messages of CUDA errors that leave the process's context unusable: every
 # later CUDA call fails, so a retry in the same process cannot succeed.
 _STICKY_CUDA = (

@@ -1,0 +1,542 @@
+#
+# Named instrumented locks: the port of spark_rapids_ml_torch/telemetry/
+# locks.py.  `named_lock(name)` wraps the stdlib primitives with per-lock
+# accounting the rest of telemetry can read:
+#
+#   lock_acquisitions_total{lock}   every successful acquire
+#   lock_contended_total{lock}      acquires that had to block
+#   lock_wait_seconds_total{lock}   blocked-acquire seconds
+#   lock_hold_seconds_total{lock}   held seconds (outermost for RLocks)
+#
+# plus a live holder/waiter table (`lock_table()`) and slow-wait instant
+# markers (`lock_slow_wait[<name>]`, threshold `lock_slow_wait_ms`)
+# dropped into the active run's span tree, so a stalled run's trace shows
+# the lock it starved on.
+#
+# Every lock name is declared in LOCK_CATALOG (as metric names are in
+# METRIC_CATALOG).
+#
+# Design constraints (why this module looks the way it does):
+#   - stdlib-only at module scope, config/tracing/registry imported
+#     LAZILY: the metrics registry's own internal lock is a named lock,
+#     so locks.py must be importable while registry.py is mid-import.
+#   - the hot path (uncontended acquire/release) updates PLAIN
+#     attributes — they are serialized by the lock itself, the one
+#     mutex that is always held when they change.  Registry counters
+#     are published by `publish_lock_metrics()`, never inline: an
+#     acquire of the registry lock must not recurse into the registry.
+#   - holder/waiter bookkeeping uses single GIL-atomic dict/attribute
+#     writes, readable lock-free by `lock_table()`.
+#
+from __future__ import annotations
+
+import threading
+import time
+import weakref
+from typing import Any, Dict, List, Optional
+
+# ---------------------------------------------------------------------------
+# Canonical lock catalog, the JAX package's names.  `module` names the
+# declaring file (repo-relative; an entry whose module the port has not
+# written yet keeps the name that module will declare); `kind` is lock /
+# rlock / condition.  Tests may mint ad-hoc names freely.
+# ---------------------------------------------------------------------------
+LOCK_CATALOG: Dict[str, Dict[str, Any]] = {
+    # parallel/: dataset + chunk caches, staging writers, codecs
+    "device_cache": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/parallel/device_cache.py",
+    },
+    "dataset_cache": {
+        "kind": "rlock", "module": "spark_rapids_ml_torch/parallel/device_cache.py",
+    },
+    "chunk_cache": {
+        "kind": "rlock", "module": "spark_rapids_ml_torch/parallel/device_cache.py",
+    },
+    "staging_writer": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/parallel/mesh.py",
+    },
+    "chunk_codec": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/parallel/chunk_codec.py",
+    },
+    # cross-process reduce seam: KV sequence counters + cached psum jits
+    "multiproc_kv": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/parallel/context.py",
+    },
+    # serving/: the dispatcher condition + report state + model registry
+    "serving_dispatch": {
+        "kind": "condition", "module": "spark_rapids_ml_torch/serving/server.py",
+    },
+    "serving_report": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/serving/server.py",
+    },
+    "serving_registry": {
+        "kind": "rlock", "module": "spark_rapids_ml_torch/serving/registry.py",
+    },
+    # the feedback controller's actuator/phase state; leaf lock — the
+    # dispatcher condition may be held when entering it, never the
+    # reverse
+    "serving_control": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/serving/control.py",
+    },
+    # stats/: the shared one-pass statistics locks
+    "stat_metrics": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/stats/engine.py",
+    },
+    "device_step": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/stats/engine.py",
+    },
+    # monitor/
+    "drift_monitor": {
+        "kind": "rlock", "module": "spark_rapids_ml_torch/monitor/monitor.py",
+    },
+    # resilience/
+    "faults": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/resilience/faults.py",
+    },
+    "elastic": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/resilience/elastic.py",
+    },
+    # pod rank-loss recovery: generation/plan state, liveness tables,
+    # and the in-flight cross-process wait registry
+    "pod_state": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/resilience/pod.py",
+    },
+    # telemetry/: the registry's own internal lock is named too (it is
+    # one of the hottest in the process), plus the install/http/owner
+    # guards
+    "metrics_registry": {
+        "kind": "rlock", "module": "spark_rapids_ml_torch/telemetry/registry.py",
+    },
+    "memory_telemetry": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/telemetry/memory.py",
+    },
+    "telemetry_http": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/telemetry/exporters.py",
+    },
+    "heartbeat_owners": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/telemetry/heartbeat.py",
+    },
+    "compile_install": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/telemetry/compile.py",
+    },
+    "flight_recorder": {
+        "kind": "rlock",
+        "module": "spark_rapids_ml_torch/telemetry/flight_recorder.py",
+    },
+    "flight_recorder_install": {
+        "kind": "lock",
+        "module": "spark_rapids_ml_torch/telemetry/flight_recorder.py",
+    },
+    "fit_telemetry_active": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/telemetry/report.py",
+    },
+    "hang_doctor": {
+        "kind": "rlock",
+        "module": "spark_rapids_ml_torch/telemetry/hang_doctor.py",
+    },
+    # core.py: fitMultiple's thread-safe model iterator
+    "fit_multiple": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/core.py",
+    },
+    # native.py: the one-shot native library build/load guard
+    "native_build": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/native.py",
+    },
+    # fleet.py: pod-observatory state — peer clock samples, current
+    # pass bookkeeping, drift-window publish/fetch caches.  Never held
+    # across a KV wait
+    "fleet_state": {
+        "kind": "lock", "module": "spark_rapids_ml_torch/telemetry/fleet.py",
+    },
+}
+
+# waits shorter than this never record a lock_wait utilization interval
+# (micro-contention is normal; the attribution table wants stalls)
+_MIN_WAIT_INTERVAL_S = 0.001
+
+# bootstrap lock guarding the live-instance table and publish state —
+# deliberately a BARE threading.Lock: the instrumentation cannot
+# instrument itself (the named-lock rule exempts this module)
+_table_mu = threading.Lock()
+_instances: List = []  # (name, kind, weakref-to-core)
+
+# slow-wait conf cache: re-read at most every few seconds so the
+# contended path never pays a per-acquire config-lock round trip
+_slow_conf: Dict[str, float] = {"t": 0.0, "ms": 50.0}
+_SLOW_CONF_REFRESH_S = 5.0
+
+_tls = threading.local()
+
+
+def _register(core: "_LockCore", kind: str) -> None:
+    with _table_mu:
+        # prune dead instances lazily (staging writers churn per fit)
+        _instances[:] = [e for e in _instances if e[2]() is not None]
+        _instances.append((core.name, kind, weakref.ref(core)))
+
+
+def _slow_wait_ms() -> float:
+    now = time.monotonic()
+    if now - _slow_conf["t"] >= _SLOW_CONF_REFRESH_S:
+        ms = _slow_conf["ms"]
+        try:
+            from ..config import get_config
+
+            ms = float(get_config("lock_slow_wait_ms"))
+        except Exception:
+            pass
+        with _table_mu:
+            _slow_conf["ms"] = ms
+            _slow_conf["t"] = now
+    return _slow_conf["ms"]
+
+
+def _note_wait(name: str, waited_s: float) -> None:
+    """A contended acquire finished: record the utilization interval and
+    (past the threshold) drop a slow-wait instant into the active run's
+    span tree.  Re-entrancy guarded — recording the event itself may take
+    locks (a trace tap), and a slow wait THERE must not recurse."""
+    if getattr(_tls, "in_note", False):
+        return
+    _tls.in_note = True
+    try:
+        t1 = time.perf_counter()
+        if waited_s >= _MIN_WAIT_INTERVAL_S:
+            from .utilization import note_interval
+
+            note_interval("lock_wait", t1 - waited_s, t1, cause=name,
+                          domain="any")
+        ms = _slow_wait_ms()
+        if ms > 0 and waited_s * 1e3 >= ms:
+            from ..tracing import event
+
+            event(
+                f"lock_slow_wait[{name}]",
+                detail=f"waited_ms={waited_s * 1e3:.1f}",
+            )
+    except Exception:
+        pass  # instrumentation must never fail the acquire it observed
+    finally:
+        _tls.in_note = False
+
+
+class _LockCore:
+    """Instrumentation shared by every named-lock flavor: an inner
+    stdlib lock plus wait/hold accounting and a live holder/waiter
+    table.  The plain counter attributes are mutated only while the
+    inner lock is HELD (the lock serializes its own bookkeeping);
+    holder/waiter entries are single GIL-atomic writes, read lock-free
+    by `lock_table()`."""
+
+    reentrant = False
+
+    __slots__ = (
+        "name", "_inner", "_waiters", "_holder",
+        "acquisitions", "contended", "wait_s", "hold_s", "_pub",
+        "__weakref__",
+    )
+
+    def __init__(self, name: str, inner: Any) -> None:
+        self.name = name
+        self._inner = inner
+        # tid -> (thread name, wall t0, perf t0); set before a blocking
+        # acquire, popped after — the doctor's waiter view
+        self._waiters: Dict[int, tuple] = {}
+        # (tid, thread name, wall t, perf t, depth) or None
+        self._holder: Optional[tuple] = None
+        self.acquisitions = 0
+        self.contended = 0
+        self.wait_s = 0.0
+        self.hold_s = 0.0
+        # last totals published to the registry (per-core, so a dying
+        # instance can never make the process counters run backwards)
+        self._pub = {"acq": 0, "cont": 0, "wait": 0.0, "hold": 0.0}
+        _register(self, "rlock" if self.reentrant else "lock")
+
+    # -- acquire/release ----------------------------------------------------
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        # fast path first: a nonblocking inner acquire succeeds both for
+        # an uncontended lock AND for the reentrant owner, so the common
+        # case pays one C acquire, one get_ident and one clock read.
+        # Thread NAMES are resolved lazily by lock_table() — the hot
+        # path must not pay threading.current_thread() per acquire.
+        if self._inner.acquire(False):
+            me = threading.get_ident()
+            h = self._holder
+            self.acquisitions += 1
+            if self.reentrant and h is not None and h[0] == me:
+                self._holder = (me, h[1], h[2], h[3], h[4] + 1)
+            else:
+                # wall "since" (slot 2) derives lazily in lock_table()
+                # from the perf stamp — one clock read on the hot path
+                self._holder = (me, None, None, time.perf_counter(), 1)
+            return True
+        if not blocking:
+            return False
+        me = threading.get_ident()
+        t0 = time.perf_counter()
+        self._waiters[me] = (
+            threading.current_thread().name, time.time(), t0,
+        )
+        try:
+            ok = self._inner.acquire(True, timeout)
+        finally:
+            self._waiters.pop(me, None)
+        if ok:
+            self._note_acquired(me, time.perf_counter() - t0)
+        return ok
+
+    def _note_acquired(self, me: int, waited_s: float) -> None:
+        # runs while HOLDING the inner lock: plain attribute updates are
+        # serialized by the lock itself
+        self.acquisitions += 1
+        self._holder = (
+            me, threading.current_thread().name,
+            time.time(), time.perf_counter(), 1,
+        )
+        if waited_s > 0.0:
+            self.contended += 1
+            self.wait_s += waited_s
+            _note_wait(self.name, waited_s)
+
+    def release(self) -> None:
+        h = self._holder
+        me = threading.get_ident()
+        if h is not None and (h[0] == me or not self.reentrant):
+            # plain Locks may legally be released from another thread;
+            # account the hold to whoever acquired it
+            if self.reentrant and h[4] > 1:
+                self._holder = (h[0], h[1], h[2], h[3], h[4] - 1)
+            else:
+                self.hold_s += time.perf_counter() - h[3]
+                self._holder = None
+        self._inner.release()
+
+    def __enter__(self) -> "_LockCore":
+        self.acquire()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        inner_locked = getattr(self._inner, "locked", None)
+        if callable(inner_locked):
+            return bool(inner_locked())
+        return self._holder is not None
+
+    # -- Condition protocol (threading.Condition delegates to these) --------
+
+    def _is_owned(self) -> bool:
+        h = self._holder
+        return h is not None and h[0] == threading.get_ident()
+
+    def _release_save(self):
+        """Full release for Condition.wait: close out the hold window
+        (whatever the reentrant depth) and hand back the state
+        `_acquire_restore` needs to rebuild it."""
+        h = self._holder
+        me = threading.get_ident()
+        depth = 1
+        if h is not None and h[0] == me:
+            self.hold_s += time.perf_counter() - h[3]
+            depth = h[4]
+            self._holder = None
+        inner_save = getattr(self._inner, "_release_save", None)
+        if callable(inner_save):
+            return (inner_save(), depth)
+        self._inner.release()
+        return (None, depth)
+
+    def _acquire_restore(self, saved) -> None:
+        """Reacquire after Condition.wait.  The idle notify wait happened
+        on the condition's internal waiter lock, NOT here — this measures
+        only the genuine reacquire contention."""
+        state, depth = saved
+        me = threading.get_ident()
+        t0 = time.perf_counter()
+        self._waiters[me] = (
+            threading.current_thread().name, time.time(), t0,
+        )
+        try:
+            inner_restore = getattr(self._inner, "_acquire_restore", None)
+            if state is not None and callable(inner_restore):
+                inner_restore(state)
+            else:
+                self._inner.acquire()
+        finally:
+            self._waiters.pop(me, None)
+        waited = time.perf_counter() - t0
+        self.acquisitions += 1
+        self._holder = (
+            me, threading.current_thread().name,
+            time.time(), time.perf_counter(), depth,
+        )
+        if waited > _MIN_WAIT_INTERVAL_S:
+            self.contended += 1
+            self.wait_s += waited
+            _note_wait(self.name, waited)
+
+    def __repr__(self) -> str:
+        h = self._holder
+        state = f"held by {h[1]} (depth {h[4]})" if h else "unlocked"
+        return f"<NamedLock {self.name!r} {state}>"
+
+
+class NamedLock(_LockCore):
+    """Instrumented `threading.Lock`."""
+
+
+class NamedRLock(_LockCore):
+    """Instrumented `threading.RLock`."""
+
+    reentrant = True
+
+
+def named_lock(name: str, kind: str = "lock"):
+    """Mint one instrumented lock registered under `name`.
+
+    `kind`: "lock" (default), "rlock", or "condition" (a
+    `threading.Condition` built over an instrumented RLock, so the
+    condition's own acquire/release traffic is profiled and its holder
+    shows in the holder table).  Package modules use names declared in
+    `LOCK_CATALOG`; tests may mint ad-hoc names freely."""
+    if kind == "lock":
+        return NamedLock(name, threading.Lock())
+    if kind == "rlock":
+        return NamedRLock(name, threading.RLock())
+    if kind == "condition":
+        return threading.Condition(NamedRLock(name, threading.RLock()))
+    raise ValueError(f"unknown named_lock kind: {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Live table + registry publication
+# ---------------------------------------------------------------------------
+
+
+def _live_cores() -> List[tuple]:
+    with _table_mu:
+        entries = [(n, k, ref()) for n, k, ref in _instances]
+    return [(n, k, c) for n, k, c in entries if c is not None]
+
+
+def lock_table() -> List[Dict[str, Any]]:
+    """The live holder/waiter table: one row per lock INSTANCE (several
+    instances may share a catalog name — e.g. two serving servers), with
+    cumulative wait/hold accounting and, when held or waited on, who by
+    and for how long.  Lock-free snapshot; values are observational."""
+    now_wall = time.time()
+    now_perf = time.perf_counter()
+    # thread names resolve here, not on the acquire hot path
+    tnames = {t.ident: t.name for t in threading.enumerate()}
+    out: List[Dict[str, Any]] = []
+    for name, kind, core in _live_cores():
+        row: Dict[str, Any] = {
+            "name": name,
+            "kind": kind,
+            "acquisitions": core.acquisitions,
+            "contended": core.contended,
+            "wait_s": round(core.wait_s, 6),
+            "hold_s": round(core.hold_s, 6),
+        }
+        h = core._holder
+        if h is not None:
+            since = h[2] if h[2] is not None else (
+                now_wall - (now_perf - h[3])
+            )
+            row["holder"] = {
+                "thread_id": h[0],
+                "thread": h[1] or tnames.get(h[0], "?"),
+                "since": round(since, 3),
+                "held_s": round(max(now_wall - since, 0.0), 3),
+                "depth": h[4],
+            }
+        waiters = [
+            {
+                "thread_id": tid,
+                "thread": w[0],
+                "since": round(w[1], 3),
+                "waited_s": round(max(now_wall - w[1], 0.0), 3),
+            }
+            for tid, w in list(core._waiters.items())
+        ]
+        if waiters:
+            row["waiters"] = waiters
+        out.append(row)
+    return out
+
+
+_metrics: Dict[str, Any] = {}
+
+# serializes publish_lock_metrics: concurrent publishers would read the same
+# per-core ledger, double-inc the registry counters AND overshoot the
+# ledger past the core's actual totals (silently swallowing the next
+# real deltas).  Deliberately NOT _table_mu: the slow-wait path takes
+# _table_mu while holding an arbitrary named lock, and a publisher
+# holds this mutex while acquiring the registry lock — sharing one
+# mutex across those two orders could deadlock.  Nothing ever waits on
+# _publish_mu while holding another lock, so this order is safe.
+_publish_mu = threading.Lock()
+
+
+def _ensure_metrics() -> Dict[str, Any]:
+    if not _metrics:
+        from .registry import counter
+
+        acq = counter(
+            "lock_acquisitions_total", "Named-lock acquisitions by lock"
+        )
+        cont = counter(
+            "lock_contended_total",
+            "Named-lock acquisitions that had to block, by lock",
+        )
+        wait = counter(
+            "lock_wait_seconds_total",
+            "Seconds spent blocked acquiring named locks, by lock",
+        )
+        hold = counter(
+            "lock_hold_seconds_total",
+            "Seconds named locks were held, by lock",
+        )
+        with _table_mu:
+            _metrics.update(acq=acq, cont=cont, wait=wait, hold=hold)
+    return _metrics
+
+
+def publish_lock_metrics() -> None:
+    """Fold every live lock's accounting into the registry counter
+    families (per-core monotone deltas, so counters never run
+    backwards).  Called by readers of the registry — never inline on
+    the acquire path, which must not recurse into the registry."""
+    m = _ensure_metrics()
+    with _publish_mu:
+        for name, _kind, core in _live_cores():
+            pub = core._pub
+            d_acq = core.acquisitions - pub["acq"]
+            d_cont = core.contended - pub["cont"]
+            d_wait = core.wait_s - pub["wait"]
+            d_hold = core.hold_s - pub["hold"]
+            if d_acq > 0:
+                m["acq"].inc(d_acq, lock=name)
+                pub["acq"] += d_acq
+            if d_cont > 0:
+                m["cont"].inc(d_cont, lock=name)
+                pub["cont"] += d_cont
+            if d_wait > 0:
+                m["wait"].inc(d_wait, lock=name)
+                pub["wait"] += d_wait
+            if d_hold > 0:
+                m["hold"].inc(d_hold, lock=name)
+                pub["hold"] += d_hold
+
+
+__all__ = [
+    "LOCK_CATALOG",
+    "NamedLock",
+    "NamedRLock",
+    "lock_table",
+    "named_lock",
+    "publish_lock_metrics",
+]

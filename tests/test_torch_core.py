@@ -535,3 +535,111 @@ def test_cuml_params_alias_matches_jax(name):
     model, ref_model = est.fit(data), ref.fit(data)
     assert model.cuml_params is model.tpu_params
     assert model.cuml_params == ref_model.cuml_params
+
+
+# ---------------------------------------------------------------------------
+# F5: every conf key of the JAX package is a port key or waits for an item
+# ---------------------------------------------------------------------------
+
+# the JAX package's conf keys the port does not read yet, by the ROADMAP.md
+# section 1 item whose modules read them
+_KEYS_OF_LATER_ITEMS = {
+    6: ("bench_history_path", "telemetry_dir", "telemetry_port", "heartbeat_interval_s",
+        "memory_provider", "memory_sample_interval_s", "flight_recorder",
+        "flight_recorder_dir", "flight_recorder_events", "flight_recorder_window_s",
+        "hang_doctor", "hang_doctor_stall_s", "drift_baseline", "drift_window_s",
+        "drift_min_window_rows", "drift_top_k", "drift_alert_threshold",
+        "drift_alert_sustain_s", "drift_fleet_merge"),
+    8: ("coordinator_address", "process_id", "num_processes", "multiproc_reduce",
+        "multiproc_reduce_timeout_s", "multiproc_agreement_check", "knn_replicate_max_bytes",
+        "pod_elastic", "pod_heartbeat_interval_s", "pod_death_grace_s",
+        "pod_incident_ring_deadline_s"),
+    9: ("spark_collect_max_bytes", "spark_exchange_dir"),
+}
+
+
+def test_every_jax_conf_key_is_a_port_key_or_waits_for_an_item():
+    later = [k for keys in _KEYS_OF_LATER_ITEMS.values() for k in keys]
+    assert len(later) == len(set(later))
+    jax_keys, port_keys = set(jax_config._DEFAULTS), set(port_config._DEFAULTS)
+    assert port_keys <= jax_keys
+    assert jax_keys - port_keys == set(later)
+    assert not set(later) & port_keys
+
+
+_F5_AND_SLICE_17_KEYS = (
+    "elastic", "elastic_min_devices", "shape_bucketing", "staging_small_direct",
+    "profile_dir", "lock_slow_wait_ms",
+) + tuple(k for k in sorted(port_config._DEFAULTS) if k.startswith("serving_"))
+
+
+@pytest.mark.parametrize("key", _F5_AND_SLICE_17_KEYS)
+def test_f5_serving_and_tracing_keys_take_the_jax_defaults(key):
+    assert port_config.get_config(key) == jax_config.get_config(key)
+    port_config.set_config(**{key: jax_config.get_config(key)})
+    assert port_config.get_config(key) == jax_config._DEFAULTS[key]
+
+
+def test_there_are_twenty_serving_keys():
+    assert sum(k.startswith("serving_") for k in port_config._DEFAULTS) == 20
+
+
+def test_transform_pads_to_the_bucket_grid_and_fits_do_not(monkeypatch):
+    """Under `shape_bucketing` a transform's chunk stages zero-padded to
+    the row-bucket grid (the JAX package's rule) and returns only its
+    rows; a fit stages the exact rows whatever the conf."""
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.parallel import mesh
+
+    staged = []
+    real = mesh.RowStager.stage
+
+    def spy(self, arr, dtype=None):
+        out = real(self, arr, dtype)
+        if np.asarray(arr).ndim == 2:
+            staged.append((out.shape[0], np.asarray(arr).shape[0]))
+            assert not out[np.asarray(arr).shape[0]:].any()  # padding rows are zeros
+        return out
+
+    monkeypatch.setattr(mesh.RowStager, "stage", spy)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(300, 5))
+    y = (X[:, 0] > 0).astype(float)
+    m = LogisticRegression(regParam=0.01).fit((X, y))
+    assert staged == [(300, 300)]
+    out = m.transform(X)
+    assert staged[1:] == [(384, 300)] and out["probability"].shape == (300, 2)
+    port_config.set_config(shape_bucketing=False)
+    exact = m.transform(X)
+    assert staged[2:] == [(300, 300)]
+    for col in out:
+        np.testing.assert_array_equal(out[col], exact[col])
+
+
+def test_an_oom_halved_chunk_below_the_grid_stages_exact_rows(monkeypatch):
+    """Halving after an OOM must shrink what is staged: a chunk below the
+    256-row bucket floor is not padded back up to it."""
+    from spark_rapids_ml_torch.classification import LogisticRegression
+    from spark_rapids_ml_torch.parallel import mesh
+
+    staged = []
+    real = mesh.RowStager.stage
+
+    def tight(self, arr, dtype=None):
+        if np.asarray(arr).ndim == 2:
+            rows = self.n_padded
+            staged.append(rows)
+            if rows > 100:
+                raise torch.cuda.OutOfMemoryError("CUDA out of memory. (test ballast)")
+        return real(self, arr, dtype)
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(1000, 5))
+    m = LogisticRegression(regParam=0.01).fit((X, (X[:, 0] > 0).astype(float)))
+    ref = m.transform(X)
+    monkeypatch.setattr(mesh.RowStager, "stage", tight)
+    port_config.set_config(host_batch_bytes=5 * 8 * 1024)
+    out = m.transform(X)
+    assert staged[:4] == [1024, 512, 256, 128] and max(staged[4:]) <= 100
+    np.testing.assert_array_equal(out["prediction"], ref["prediction"])
+    np.testing.assert_allclose(out["probability"], ref["probability"], rtol=1e-12)

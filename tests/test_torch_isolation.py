@@ -6,7 +6,8 @@
 # parquet readers of fused.py, the chunk cache and the statistics; and the
 # meta layer: a CrossValidator fit, and the load of a CrossValidatorModel the
 # JAX package saved, which names the JAX package's model class; and UMAP,
-# whose import alone brings in neither); and
+# whose import alone brings in neither; and the serving path: a server
+# answering requests in the process and over HTTP); and
 # chip_smoke.py refuses to run without a CUDA device or without the rest of
 # the repo.
 #
@@ -296,6 +297,52 @@ def test_sparse_and_resilience_run_with_jax_unimportable(tmp_path):
         "with resilience.fault_inject('transform_dispatch', 'oom'):\n"
         "    out = b.transform(X)\n"
         "assert (out['prediction'] == a.transform(X)['prediction']).all()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_a_server_answers_requests_with_jax_unimportable():
+    """The serving path (serving/, tracing.py, telemetry/): importing it
+    brings in neither JAX nor the JAX package, and a server pins a model,
+    coalesces requests, answers them over HTTP and reports, with both made
+    unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['spark_rapids_ml_tpu'] = None\n"
+        "import json, urllib.request\n"
+        "import numpy as np\n"
+        "import spark_rapids_ml_torch as p\n"
+        "import spark_rapids_ml_torch.tracing, spark_rapids_ml_torch.telemetry\n"
+        "from spark_rapids_ml_torch.serving import ServingServer, ServingClient\n"
+        "from spark_rapids_ml_torch.serving.http import start_serving_http\n"
+        "from spark_rapids_ml_torch.classification import LogisticRegression\n"
+        "p.set_default_device('cpu')\n"
+        "rng = np.random.default_rng(0)\n"
+        "X = rng.normal(size=(300, 16)).astype(np.float32)\n"
+        "m = LogisticRegression(maxIter=10).fit((X, (X[:, 0] > 0).astype(float)))\n"
+        "srv = ServingServer(); srv.register('lr', m); srv.start()\n"
+        "http = start_serving_http(srv, port=0)\n"
+        "try:\n"
+        "    srv.pause()\n"
+        "    futs = [srv.submit('lr', X[i:i + 1]) for i in range(8)]\n"
+        "    srv.resume()\n"
+        "    got = np.concatenate([f.result(timeout=60)['probability'] for f in futs])\n"
+        "    assert (got == m.transform(X[:8])['probability']).all()\n"
+        "    body = json.dumps({'instances': X[:2].tolist()}).encode()\n"
+        "    req = urllib.request.Request(f'http://127.0.0.1:{http.server_port}'\n"
+        "                                 '/v1/models/lr:transform', data=body)\n"
+        "    assert json.load(urllib.request.urlopen(req, timeout=60))['rows'] == 2\n"
+        "    assert srv.report()['lr']['requests'] == 9\n"
+        "finally:\n"
+        "    http.shutdown(); http.server_close(); srv.stop()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
         "'spark_rapids_ml_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
