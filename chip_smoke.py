@@ -19,7 +19,8 @@ Phases, each of which makes the script exit non-zero when it fails:
    (nvcc, one process per source, all started together) and its time, each
    kernel's registers, spills and shared memory (ptxas), and the tensor-core
    instructions in the built library's SASS (cuobjdump): the float32 kernel
-   must hold HGMMA (wgmma), the float64 kernel DMMA;
+   must hold HGMMA (wgmma), the float64 kernel DMMA; and each kernel's
+   local-memory loads and stores (LDL, STL);
 2. kernels vs their plain versions, on the card: the split pass bit for
    bit; each main kernel against its plain version (both sides merged); the
    merge pass bit for bit in float32 and float64 at (S, k) = (5, 32),
@@ -29,7 +30,12 @@ Phases, each of which makes the script exit non-zero when it fails:
    exact ties (duplicated integer rows, also across the item splits),
    widths that are no multiple of the kernel's chunk (d = 17, 33, 131 and
    4100), k larger than a split's items, forced split counts, float32 and
-   float64, and k = 1, 32 and 1000;
+   float64, and k = 1, 32 and 1000 (where the route takes the small-q
+   kernel, the 3xTF32 kernel is held on the case too); the small-q kernel
+   against its plain version on `smallq_cases` (ragged n, invalid items,
+   d = 6, 17, 33, 130, q = 1, 7, 64 and 100, k = 1, 5, 32, forced splits,
+   exact ties, signed zeros, tails), both sides' lists merged, ids equal
+   but at ties;
 3. the main path at full size: NearestNeighbors(k).setIdCol("id").fit(items)
    -> kneighbors(queries) -> exactNearestNeighborsJoin, through the public
    entry points; every kernel's launch count is reset just before and read
@@ -310,8 +316,15 @@ Phases, each of which makes the script exit non-zero when it fails:
    card's idle share from the serving utilization timeline, each served
    slice held against the model's own transform of the same rows; the
    fused kernel's launch counts reset before and read after the served kNN
-   run, and the kernel timed at the served batch sizes q = 1, 8 and 64
-   beside its bound, its plain version and torch.matmul + torch.topk.
+   run (one small-q kernel launch a batch), and the fused function timed at
+   the served batch sizes q = 1, 8 and 64 through its route (the small-q
+   kernel and the merge, each also alone on the card, and the route by
+   split count) and through the 3xTF32 route, beside its bound, its plain
+   version and torch.matmul + torch.topk, held against the twin and the
+   small-q route against the 3xTF32 route (ids equal but at ties, d^2
+   1e-4); the float64 function at the same sizes beside torch.matmul +
+   torch.topk in float64; both float32 routes swept over q (SMALLQ_SWEEP),
+   the sweep that set fused_knn._SMALL_Q.
    (ii) bench_serving_scale's 200 pinned d = 64 models (a
    LogisticRegression, a PCA and a kNN fanned out), 2,000 one-row requests
    4:1 interactive:batch, queued while paused and drained at depth 1 and
@@ -333,7 +346,8 @@ UMAP cells ({"umap": [...]}), one of phase 15's cells ({"sparse": [...]}),
 one of phase 16's ({"serving": [...]}), a JSON object of the kernels'
 numbers (phase 13 adds the float32 fused function at (x)'s shape, phase 14
 the fused function at UMAP's two shapes and the k > 32 merge, phase 16
-the fused function at the served batch sizes),
+the small-q kernel at the served batch sizes, the 3xTF32 route's time
+beside it),
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -364,8 +378,8 @@ _SOURCE = "spark_rapids_ml_torch/ops/csrc/fused_knn.cu"
 _REPLACES = "spark_rapids_ml_tpu/ops/pallas_knn.py:148"
 # the kernels of fused_knn.cu, as their names appear in ptxas and SASS
 _KERNELS = ("tf32_split_kernel", "fused_knn_tf32_kernel", "merge_partials_kernel",
-            "merge_partials_regs_kernel", "fused_knn_f64_kernel")
-# template arguments as the Itanium ABI mangles them
+            "merge_partials_regs_kernel", "fused_knn_f64_kernel", "fused_knn_smallq_kernel")
+# template arguments as the Itanium ABI mangles them (an int N as LiNE)
 _TEMPLATE_ARGS = {"f": "float", "d": "double", "Lb1E": "true", "Lb0E": "false"}
 
 
@@ -426,9 +440,17 @@ def _kernel_of(symbol: str) -> str:
         rest, args = symbol[at + len(name):], []
         if rest.startswith("I"):
             rest = rest[1:]
-            while (tok := next((t for t in _TEMPLATE_ARGS if rest.startswith(t)), None)):
-                args.append(_TEMPLATE_ARGS[tok])
-                rest = rest[len(tok):]
+            while True:
+                tok = next((t for t in _TEMPLATE_ARGS if rest.startswith(t)), None)
+                num = re.match(r"Li(\d+)E", rest)
+                if tok:
+                    args.append(_TEMPLATE_ARGS[tok])
+                    rest = rest[len(tok):]
+                elif num:
+                    args.append(num.group(1))
+                    rest = rest[num.end():]
+                else:
+                    break
         return f"{name}<{', '.join(args)}>" if args else name
     return symbol
 
@@ -455,15 +477,18 @@ def ptxas_report(text: str) -> dict:
 
 
 def sass_counts(lib_path: Path, nvcc: str) -> dict:
-    """Tensor-core instructions (HGMMA, HMMA, DMMA) in each kernel of a
-    built library, from `cuobjdump -sass`."""
+    """Tensor-core instructions (HGMMA, HMMA, DMMA) and local-memory loads
+    and stores (LDL, STL: spills, or an array the compiler could not keep
+    in registers) in each kernel of a built library, from `cuobjdump
+    -sass`."""
     exe = Path(nvcc).parent / "cuobjdump"
     sass = subprocess.run([str(exe), "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
     out = {}
     for chunk in sass.split("Function : ")[1:]:
         name = _kernel_of(chunk.split(None, 1)[0])
-        out[name] = {op: len(re.findall(rf"\b{op}\.", chunk)) for op in ("HGMMA", "HMMA", "DMMA")}
+        out[name] = {op: len(re.findall(rf"\b{op}\b", chunk))
+                     for op in ("HGMMA", "HMMA", "DMMA", "LDL", "STL")}
     return out
 
 
@@ -496,6 +521,36 @@ def compare(name, kd, ki, td, ti, exact: bool) -> float:
         raise AssertionError(f"{name}: d2 differs beyond {rtol:g} * max(1, d2)")
     if agree < 0.999:
         raise AssertionError(f"{name}: only {agree:.4%} of id slots agree")
+    return err
+
+
+def compare_ties_aside(name, kd, ki, td, ti, X, Q, exact: bool) -> float:
+    """Hold (kd, ki) against (td, ti) where a case has too few id slots for
+    `compare`'s share of equal slots (one swapped near tie at q = 1 is 2 of
+    32): exact cases bit for bit (`compare`); else the same +inf/-1 tails,
+    every finite d^2 within 1e-4 * max(1, d^2), and every id slot that
+    differs a tie: both items at float64 squared distances from the query
+    within that tolerance of each other."""
+    if exact:
+        return compare(name, kd, ki, td, ti, exact=True)
+    kd, td = kd.cpu().double().numpy(), td.cpu().double().numpy()
+    ki, ti = ki.cpu().numpy(), ti.cpu().numpy()
+    fin = np.isfinite(td)
+    if not np.array_equal(fin, np.isfinite(kd)) or not np.array_equal(ki < 0, ti < 0):
+        raise AssertionError(f"{name}: +inf/-1 tails differ")
+    err = float(np.abs(kd[fin] - td[fin]).max()) if fin.any() else 0.0
+    tol = _RTOL["torch.float32"] * np.maximum(1.0, np.abs(td))
+    if not (np.abs(kd[fin] - td[fin]) <= tol[fin]).all():
+        raise AssertionError(f"{name}: d2 differs beyond 1e-4 * max(1, d2)")
+    X, Q = np.asarray(X, np.float64), np.asarray(Q, np.float64)
+    for i, j in np.argwhere(ki != ti):
+        a = ((X[ki[i, j]] - Q[i]) ** 2).sum()
+        b = ((X[ti[i, j]] - Q[i]) ** 2).sum()
+        if abs(a - b) > tol[i, j]:
+            raise AssertionError(f"{name}: query {i} slot {j}: id {ki[i, j]} at {a} against "
+                                 f"{ti[i, j]} at {b}: not a tie")
+    log(f"  {name}: max|d2 - d2 reference| = {err:.3e}, id slots equal = "
+        f"{float((ki == ti).mean()):.6f}, every other slot a tie")
     return err
 
 
@@ -557,6 +612,81 @@ def phase2_cases(seed: int) -> list:
         cases.append((f"{dt} k=1000 > a split's 768 items", X, np.ones(5000), Q, 1000, dt,
                       False, 7))
     return cases
+
+
+def smallq_cases(seed: int) -> list:
+    """(name, items, valid, queries, k, exact, splits) of the small-q kernel
+    against its plain version, as numpy arrays: ragged n (no whole tile of
+    256 items), invalid items inside the set and at the tail, d = 6, 17, 33
+    and 130 (no whole 32-float chunk; 6, 17 and 33 take 4-byte copies), q =
+    1, 7 and 64, k = 1, 5 and 32, forced split counts; then q = 100 (two
+    query blocks), and exact cases: integer rows repeated (ties broken by
+    position, also across splits), signed zeros, fewer valid items than k,
+    fewer items than k.  splits None: the wrapper's choice."""
+    rng = np.random.default_rng(seed + 18)
+    cases = []
+    split_cycle = (None, 1, 3, 7)
+    i = 0
+    for d in (6, 17, 33, 130):
+        for q in (1, 7, 64):
+            for k in (1, 5, 32):
+                n = 1000 + 37 * i
+                v = np.ones(n)
+                v[::7] = 0.0
+                v[-50:] = 0.0
+                cases.append((f"small-q n={n} d={d} q={q} k={k}", rng.normal(size=(n, d)), v,
+                              rng.normal(size=(q, d)), k, False, split_cycle[i % 4]))
+                i += 1
+    cases.append(("small-q q=100 (two query blocks) k=32", rng.normal(size=(3000, 40)),
+                  np.ones(3000), rng.normal(size=(100, 40)), 32, False, None))
+    Xi = rng.integers(-3, 4, size=(1500, 17)).astype(np.float64)
+    Xi[750:] = Xi[:750]  # every row twice, 750 positions apart: ties across splits
+    for q, s in ((7, 3), (64, None)):
+        cases.append((f"small-q exact ties q={q} k=32", Xi, np.ones(1500),
+                      rng.integers(-3, 4, size=(q, 17)).astype(np.float64), 32, True, s))
+    Xz = rng.integers(-2, 3, size=(600, 8)).astype(np.float64)
+    Xz[Xz == 0] = -0.0
+    Xz[::3] = np.abs(Xz[::3])  # +0.0 and -0.0 in the same columns
+    Qz = rng.integers(-2, 3, size=(5, 8)).astype(np.float64)
+    Qz[Qz == 0] = -0.0
+    cases.append(("small-q signed zeros q=5 k=5", Xz, np.ones(600), Qz, 5, True, 2))
+    v = np.zeros(300)
+    v[:4] = 1.0
+    cases.append(("small-q tails k>valid q=10 k=7", rng.integers(-3, 4, size=(300, 6)), v,
+                  rng.integers(-3, 4, size=(10, 6)), 7, True, None))
+    cases.append(("small-q fewer items than k q=3 k=32", rng.integers(-3, 4, size=(20, 33)),
+                  np.ones(20), rng.integers(-3, 4, size=(3, 33)), 32, True, None))
+    return cases
+
+
+def phase2_smallq(device, seed: int) -> None:
+    """The small-q kernel against its plain version on `smallq_cases`:
+    each side's (q, S, k) lists merged by the plain merge (a list past the
+    row's merged top-k depends on the order the blocks ran), held by
+    `compare_ties_aside`."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    before = fk.SMALLQ_LAUNCHES
+    cases = smallq_cases(seed)
+    for name, X, v, Q, k, exact, splits in cases:
+        Xt, vt, Qt = (torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
+                      for a in (X, v, Q))
+        s = splits or fk.smallq_splits(Xt.shape[0], Qt.shape[0],
+                                       fk.smallq_wave(device, Qt.shape[0]))
+        part_d, part_i = fk.fused_knn_smallq(Xt, vt, Qt, k, s)
+        pd, pi = fk.fused_knn_smallq_reference(Xt, vt, Qt, k, s)
+        torch.cuda.synchronize()
+        if part_d.shape != pd.shape:
+            raise AssertionError(f"{name}: lists {tuple(part_d.shape)} != {tuple(pd.shape)}")
+        q2 = (Qt * Qt).sum(dim=1)
+        compare_ties_aside(f"{name} S={part_d.shape[1]}",
+                           *fk.merge_partials_reference(part_d, part_i, q2, k),
+                           *fk.merge_partials_reference(pd, pi, q2, k), X, Q, exact)
+    if fk.SMALLQ_LAUNCHES - before != len(cases):
+        raise AssertionError(f"{len(cases)} small-q cases launched the kernel "
+                             f"{fk.SMALLQ_LAUNCHES - before} times")
 
 
 def hold_main_kernel(name, X, v, Q, k, splits, part_d, part_i, bq=256, bn=512) -> float:
@@ -654,8 +784,12 @@ def phase_kernels_vs_plain(device, seed: int) -> None:
         for splits, k in ((5, 32), (8, 100), (32, 1000)):
             merge_bit_exact(device, rng, dtype, splits, k)
 
-    f32_before, f64_before = fk.LAUNCHES, fk.LAUNCHES_F64
+    phase2_smallq(device, seed)
+
+    before = (fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.LAUNCHES_F64)
     cases = phase2_cases(seed)
+    n_smallq = 0
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name, X, v, Q, k, dt, exact, splits in cases:
         dt = getattr(torch, dt)
         Xt = torch.as_tensor(X, dtype=dt, device=device).contiguous()
@@ -665,16 +799,28 @@ def phase_kernels_vs_plain(device, seed: int) -> None:
         td, ti = fk.fused_topk_sqdist_reference(Xt, vt, Qt, k)
         torch.cuda.synchronize()
         compare(name, kd, ki, td, ti, exact)
+        if fk.route(Qt.shape[0], k, dt) == "fused_knn_smallq":
+            # the route took the small-q kernel: the 3xTF32 main kernel is
+            # held on the same case through its own entry
+            n_smallq += 1
+            s = splits or fk.auto_splits(Xt.shape[0], Qt.shape[0], k, sms)
+            kd, ki = fk.merge_partials(*fk.topk_partials(Xt, vt, Qt, k, s),
+                                       (Qt * Qt).sum(dim=1), k)
+            torch.cuda.synchronize()
+            compare(name + " (3xTF32 main kernel)", kd, ki, td, ti, exact)
     n64 = sum(c[5] == "float64" for c in cases)
-    if (fk.LAUNCHES - f32_before, fk.LAUNCHES_F64 - f64_before) != (len(cases) - n64, n64):
-        raise AssertionError(f"{len(cases) - n64} float32 and {n64} float64 cases launched "
-                             f"{fk.LAUNCHES - f32_before} and {fk.LAUNCHES_F64 - f64_before} times")
+    want = (len(cases) - n64, n_smallq, n64)
+    got = tuple(a - b for a, b in zip((fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.LAUNCHES_F64), before))
+    if got != want:
+        raise AssertionError(f"phase 2's cases should launch the 3xTF32, small-q and float64 "
+                             f"main kernels {want} times; they launched them {got} times")
 
 
 def reset_counts() -> None:
     from spark_rapids_ml_torch.ops import fused_knn as fk
 
-    fk.LAUNCHES = fk.LAUNCHES_F64 = fk.SPLIT_LAUNCHES = fk.MERGE_LAUNCHES = 0
+    fk.LAUNCHES = fk.SMALLQ_LAUNCHES = fk.LAUNCHES_F64 = fk.SPLIT_LAUNCHES = 0
+    fk.MERGE_LAUNCHES = 0
 
 
 def library_topk(items_t, queries_t, k: int, block: int = 1024):
@@ -5751,6 +5897,7 @@ SERVE_REQUESTS = 300  # one-row requests per model in (hh), bench_serving's coun
 SERVE_LR_ROWS = 100_000  # (hh)'s LogisticRegression fit rows, of (b)'s generator
 SERVE_K = 32  # (hh)'s kNN, phase 3's k over phase 3's 1M x 128 items
 SERVE_QS = (1, 8, 64)  # the served batch sizes of the fused kernel's rows
+SMALLQ_SWEEP = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)  # the q of the route sweep
 SERVE_SCALE_MODELS = 200
 SERVE_SCALE_REQUESTS = 2000
 SERVE_SCALE_DIM = 64
@@ -5860,8 +6007,8 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
             futs = [server.submit(name, r) for r in reqs]
             outs = [f.result(timeout=300) for f in futs]
             srv_s = time.perf_counter() - t0
-            launches = {"main": fk.LAUNCHES, "split": fk.SPLIT_LAUNCHES,
-                        "merge": fk.MERGE_LAUNCHES}
+            launches = {"main": fk.LAUNCHES, "smallq": fk.SMALLQ_LAUNCHES,
+                        "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
             _settled(server)
             batches = server.pipeline_info()["batches"] - b0
             util = _serving_util()
@@ -5882,8 +6029,10 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
                 if err > 1e-4 or not tie.all():
                     raise AssertionError(f"(hh) knn: served differs (d err {err:.3e}, "
                                          f"{int((~tie).sum())} id slots not ties)")
-                if launches["main"] < 1:
-                    raise AssertionError("(hh) the served kNN route launched no fused kernel")
+                if launches["smallq"] < 1 or launches["main"] + launches["smallq"] != batches:
+                    raise AssertionError(f"(hh) the served kNN route should launch the small-q "
+                                         f"kernel (one main kernel a batch, {batches} "
+                                         f"batches): {launches}")
                 served_launches = dict(launches, batches=batches)
             else:
                 err = _hold_outputs(name, got, want)
@@ -5912,35 +6061,111 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
         server.registry.clear()
         config.reset_config()
 
-    # the fused kernel at the served batch sizes, on the staged items the
-    # served route searched
+    # the fused function at the served batch sizes, on the staged items the
+    # served route searched: the route (the small-q kernel, then the merge)
+    # against its twin and the 3xTF32 route, timed beside its bound, its
+    # plain version and the library; the 3xTF32 route and the float64
+    # function at the same sizes; the sweep that set fk._SMALL_Q
     items_t, valid_t, _ = knn_model._device_items[1]
     n, dim = items_t.shape[0], items_t.shape[1]
-    per_batch = served_launches["main"] / max(served_launches["batches"], 1)
-    kernels = []
+    per_batch = (served_launches["main"] + served_launches["smallq"]) / max(
+        served_launches["batches"], 1)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    served = (f"launches are (hh)'s served run ({served_launches['batches']} batches: small-q "
+              f"{served_launches['smallq']}, 3xTF32 {served_launches['main']}, split "
+              f"{served_launches['split']}, merge {served_launches['merge']})")
+    kernels, f64_cells = [], []
+    items64, valid64 = items_t.double(), valid_t.double()
     for q in SERVE_QS:
         Qt = torch.as_tensor(rng.standard_normal((q, dim), dtype=np.float32), device=device)
+        q2 = (Qt * Qt).sum(dim=1)
+        if fk.route(q, SERVE_K, torch.float32) != "fused_knn_smallq":
+            raise AssertionError(f"(hh) q={q}: the route does not take the small-q kernel")
         kd, kp = fk.fused_topk_sqdist(items_t, valid_t, Qt, SERVE_K)
         td, tp = fk.fused_topk_sqdist_reference(items_t, valid_t, Qt, SERVE_K, bq=1024, bn=8192)
+        tf_splits = fk.auto_splits(n, q, SERVE_K, sms)
+
+        def tf32_route():
+            return fk.merge_partials(*fk.topk_partials(items_t, valid_t, Qt, SERVE_K, tf_splits),
+                                     q2, SERVE_K)
+
+        fd, fp = tf32_route()
         torch.cuda.synchronize()
-        err = compare(f"(hh) served q={q}: kernel vs twin", kd, kp, td, tp, exact=False)
+        err = compare(f"(hh) served q={q}: small-q route vs twin", kd, kp, td, tp, exact=False)
+        tf_err = compare(f"(hh) served q={q}: 3xTF32 route vs twin", fd, fp, td, tp, exact=False)
+        host_items = knn_model.item_features
+        compare_ties_aside(f"(hh) served q={q}: small-q route vs 3xTF32 route", kd, kp, fd, fp,
+                           host_items, Qt.cpu().numpy(), exact=False)
+        splits = fk.smallq_splits(n, q, fk.smallq_wave(device, q))
         ms = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, Qt, SERVE_K), reps=20)
+        kernel_ms = graph_ms(lambda: fk.fused_knn_smallq(items_t, valid_t, Qt, SERVE_K, splits))
+        part_d, part_i = fk.fused_knn_smallq(items_t, valid_t, Qt, SERVE_K, splits)
+        merge_ms = graph_ms(lambda: fk.merge_partials(part_d, part_i, q2, SERVE_K))
+        tf_ms = cuda_ms(tf32_route, reps=20)
         plain_ms = cuda_ms(lambda: fk.fused_topk_sqdist_reference(
             items_t, valid_t, Qt, SERVE_K, bq=1024, bn=8192), reps=2)
         library_ms = cuda_ms(lambda: library_topk(items_t, Qt, SERVE_K), reps=20)
         nbytes = 4.0 * (n * dim + q * dim + 2 * n) + 8.0 * q * SERVE_K
         bound_ms, bound_by = bound(3 * 2.0 * q * n * dim, _PEAK_TF32, nbytes)
-        log(f"  (hh) fused_topk_sqdist at q={q} over {n} x {dim}, k={SERVE_K}: {ms:.4f} ms "
-            f"(bound {bound_ms:.4f} ms, {bound_by}, share {bound_ms / ms:.1%}); twin "
+        fp32_ms, fp32_by = bound(2.0 * q * n * dim, _PEAK_FP32, nbytes)
+        sweep = {}
+        for s in sorted({max(1, splits // 4), max(1, splits // 2), splits, 2 * splits}):
+            sweep[s] = cuda_ms(lambda: fk.fused_topk_sqdist(items_t, valid_t, Qt, SERVE_K,
+                                                            splits=s), reps=10)
+        log(f"  (hh) fused_topk_sqdist at q={q} over {n} x {dim}, k={SERVE_K}: small-q route "
+            f"{ms:.4f} ms (the kernel {kernel_ms:.4f} ms and the merge {merge_ms:.4f} ms on the "
+            f"card, at S = {splits}) (bound {bound_ms:.4f} ms, {bound_by}, share "
+            f"{bound_ms / ms:.1%}; at FP32 {fp32_ms:.4f} ms, {fp32_by}, share "
+            f"{fp32_ms / ms:.1%}); 3xTF32 route {tf_ms:.4f} ms (S = {tf_splits}); twin "
             f"{plain_ms:.3f} ms; torch.matmul + torch.topk {library_ms:.4f} ms; "
-            f"{per_batch:.2f} main-kernel launches a served batch")
+            f"{per_batch:.2f} main-kernel launches a served batch [{card}]")
+        log(f"  (hh) small-q route at q={q} by S: "
+            + ", ".join(f"{s}: {t:.4f}" for s, t in sweep.items()))
         kernels.append(entry(
-            "fused_knn_tf32", served_launches["main"], err, ms, plain_ms, bound_ms, bound_by,
-            library_ms, f"served: {n}x{dim} float32 items, q={q}, k={SERVE_K}; launches "
-            f"are (hh)'s served run ({served_launches['batches']} batches, split "
-            f"{served_launches['split']}, merge {served_launches['merge']})",
-            launches_per_batch=per_batch))
-    return cells, kernels
+            "fused_knn_smallq_kernel", served_launches["smallq"], err, ms, plain_ms, bound_ms,
+            bound_by, library_ms, f"served: {n}x{dim} float32 items, q={q}, k={SERVE_K}, "
+            f"S={splits}; ms is the whole fused_topk_sqdist call (small-q kernel + merge); "
+            + served + "; kernel_device_ms and merge_device_ms are one call in a CUDA graph; "
+            "tf32_route_ms is split + 3xTF32 main kernel + merge on the same queries, called "
+            "directly (the route no longer takes it at this q)",
+            launches_per_batch=per_batch, kernel_device_ms=kernel_ms, merge_device_ms=merge_ms,
+            fp32_bound_ms=fp32_ms, splits_sweep=sweep, tf32_route_ms=tf_ms,
+            tf32_route_max_abs_err=tf_err, tf32_route_splits=tf_splits))
+        # float64 at the served sizes: recorded only (the served route is float32)
+        Q64 = Qt.double()
+        f64_ms = cuda_ms(lambda: fk.fused_topk_sqdist(items64, valid64, Q64, SERVE_K),
+                         reps=10)
+        f64_lib = cuda_ms(lambda: library_topk(items64, Q64, SERVE_K), reps=10)
+        f64_bound, f64_by = bound(2.0 * q * n * dim, _PEAK_FP64,
+                                  8.0 * (n * dim + q * dim + 2 * n) + 12.0 * q * SERVE_K)
+        log(f"  (hh) float64 fused_topk_sqdist at q={q} over the float64 copy of the items: "
+            f"{f64_ms:.4f} ms (bound {f64_bound:.4f} ms, {f64_by}, share "
+            f"{f64_bound / f64_ms:.1%}); torch.matmul + torch.topk in float64 {f64_lib:.4f} ms "
+            f"[{card}]")
+        f64_cells.append({"cell": f"(hh) float64 function at q={q}", "n": n, "d": dim,
+                          "k": SERVE_K, "ms": f64_ms, "library_ms": f64_lib,
+                          "bound_ms": f64_bound, "bound_by": f64_by})
+    del items64, valid64
+
+    # the sweep that set fk._SMALL_Q: both routes by q, called directly
+    route_sweep = {}
+    for q in SMALLQ_SWEEP:
+        Qt = torch.as_tensor(rng.standard_normal((q, dim), dtype=np.float32), device=device)
+        q2 = (Qt * Qt).sum(dim=1)
+        s_sq = fk.smallq_splits(n, q, fk.smallq_wave(device, q))
+        s_tf = fk.auto_splits(n, q, SERVE_K, sms)
+        route_sweep[q] = (
+            cuda_ms(lambda: fk.merge_partials(
+                *fk.fused_knn_smallq(items_t, valid_t, Qt, SERVE_K, s_sq), q2, SERVE_K), reps=10),
+            cuda_ms(lambda: fk.merge_partials(
+                *fk.topk_partials(items_t, valid_t, Qt, SERVE_K, s_tf), q2, SERVE_K), reps=10))
+    log(f"  (hh) routes by q at {n} x {dim}, k={SERVE_K}, ms small-q / 3xTF32 (fk._SMALL_Q = "
+        f"{fk._SMALL_Q}): " + ", ".join(f"{q}: {a:.4f} / {b:.4f}"
+                                         for q, (a, b) in route_sweep.items()) + f" [{card}]")
+    f64_cells.append({"cell": "(hh) routes by q, ms small-q / 3xTF32",
+                      "sweep": {str(q): list(t) for q, t in route_sweep.items()},
+                      "small_q": fk._SMALL_Q})
+    return cells + f64_cells, kernels
 
 
 def _scale_models(seed: int):

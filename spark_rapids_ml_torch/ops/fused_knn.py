@@ -14,6 +14,9 @@
 #                                its plain version beside it, which CPU
 #                                tensors run; `topk_partials` chains the
 #                                first two.
+#   fused_knn_smallq             the float32 kernel for few queries, with its
+#                                plain version `fused_knn_smallq_reference`;
+#                                `route` says which kernel a call takes.
 #   fused_knn_f64                the float64 main kernel, with its plain
 #                                version `fused_knn_f64_reference`; the merge
 #                                pass takes float64 too.
@@ -24,6 +27,9 @@
 # the tensor cores, the item sweep split S ways across blocks, selection on
 # the accumulators, one sorted partial list per row and split) and the merge
 # pass (the S lists by (score, position), then the ||q||^2 epilogue).
+# float32 with q <= _SMALL_Q queries and k <= 32 runs two instead: the
+# small-q kernel (one pass over the raw items, IEEE float32 FMAs on the
+# CUDA cores, the same (q, S, k) lists) and the merge pass.
 # float64 on the card runs two: the main kernel (products on the FP64
 # tensor cores, the same split sweep and selection) and the merge pass, so
 # `float32_inputs=False` keeps float64 inside the kernels (the JAX package
@@ -57,13 +63,27 @@ _MAX_SPLITS = 32
 _MIN_SPLIT_TILES = 16
 _BLOCK_COST = 0.03
 _SPLIT_SCRATCH_BYTES = 256 << 20
+# the small-q kernel (csrc SQ_TILE, SQ_QMAX): items per tile, queries per
+# block, and the largest k it takes (a row's list is one register a lane)
+_SQ_TILE = 256
+_SQ_QBLOCK = 64
+_SQ_MAX_K = 32
+# float32 calls with at most this many queries (and k <= _SQ_MAX_K) take the
+# small-q kernel: the largest q of chip_smoke.py's sweep (phase 16, both
+# routes called directly, 1M x 128 items, k = 32) at which it is the faster
+# route.  ms small-q / 3xTF32 on an H100 80GB HBM3 at 700 W: q = 1 0.242 /
+# 2.354, 8 0.334 / 2.559, 64 0.899 / 3.214, 128 1.534 / 3.536, 256 2.793 /
+# 3.559, 512 5.469 / 3.581, 1024 10.735 / 5.189 (PERF.md, PR 18).
+_SMALL_Q = 256
 
 # Launches since the last reset (chip_smoke.py resets them before the main
 # path and reads them after), each counted by the wrapper that launches the
-# kernel: the float32 main kernel (one per fused_topk_sqdist call), the
-# float64 main kernel, the split pass and the merge pass (either type).
-# The plain versions never count.
+# kernel: the float32 main kernel (3xTF32), the float32 small-q kernel (one
+# of the two per float32 fused_topk_sqdist call), the float64 main kernel,
+# the split pass and the merge pass (either type).  The plain versions
+# never count.
 LAUNCHES = 0
+SMALLQ_LAUNCHES = 0
 LAUNCHES_F64 = 0
 SPLIT_LAUNCHES = 0
 MERGE_LAUNCHES = 0
@@ -79,19 +99,20 @@ def padded_width(d: int) -> int:
     return max(_BK, -(-d // _BK) * _BK)
 
 
-def split_plan(n: int, splits: int) -> Tuple[int, int]:
+def split_plan(n: int, splits: int, tile: int = _BN) -> Tuple[int, int]:
     """(tiles per split, number of splits) for an item sweep of n items in
-    tiles of 64 cut into at most `splits` ranges.  Split s covers items
-    [s * tps * 64, min((s + 1) * tps * 64, n)); no split is empty."""
-    tiles = max(1, -(-n // _BN))
+    tiles of `tile` (the main kernels' 64, the small-q kernel's 256) cut
+    into at most `splits` ranges.  Split s covers items [s * tps * tile,
+    min((s + 1) * tps * tile, n)); no split is empty."""
+    tiles = max(1, -(-n // tile))
     tps = -(-tiles // max(1, min(splits, tiles)))
     return tps, -(-tiles // tps)
 
 
-def split_bounds(n: int, splits: int):
-    """The item ranges [lo, hi) of `split_plan(n, splits)`."""
-    tps, s = split_plan(n, splits)
-    return [(i * tps * _BN, min((i + 1) * tps * _BN, n)) for i in range(s)]
+def split_bounds(n: int, splits: int, tile: int = _BN):
+    """The item ranges [lo, hi) of `split_plan(n, splits, tile)`."""
+    tps, s = split_plan(n, splits, tile)
+    return [(i * tps * tile, min((i + 1) * tps * tile, n)) for i in range(s)]
 
 
 def auto_splits(n: int, q: int, k: int, sms: int, dtype=torch.float32) -> int:
@@ -111,6 +132,26 @@ def auto_splits(n: int, q: int, k: int, sms: int, dtype=torch.float32) -> int:
         return -(-qblocks * s // sms) * (1.0 / s + _BLOCK_COST)
 
     return min(range(1, top + 1), key=cost)
+
+
+def smallq_splits(n: int, q: int, wave: int) -> int:
+    """Splits of the small-q kernel's item sweep: one wave of `wave`
+    resident blocks (`fused_knn_smallq_wave`) over the ceil(q / 64) query
+    blocks, at most one split per 256-item tile."""
+    per_block = max(1, wave // -(-q // _SQ_QBLOCK))
+    return max(1, min(per_block, -(-n // _SQ_TILE)))
+
+
+def route(q: int, k: int, dtype) -> str:
+    """The kernel `fused_topk_sqdist` runs on the card, from the call's
+    shape and dtype alone: float64 takes the float64 main kernel; float32
+    with q <= _SMALL_Q and k <= 32 the small-q kernel; other float32 calls
+    the 3xTF32 main kernel.  Each is followed by the merge pass."""
+    if dtype == torch.float64:
+        return "fused_knn_f64"
+    if q <= _SMALL_Q and k <= _SQ_MAX_K:
+        return "fused_knn_smallq"
+    return "fused_knn_tf32"
 
 
 def tf32_split_reference(x: torch.Tensor, d_pad: int) -> torch.Tensor:
@@ -162,16 +203,17 @@ def merge_partials_reference(
     return out_d, torch.where(empty, -1, top_i)
 
 
-def _split_topk(score_tile, n: int, q: int, k: int, splits: int, bq: int, bn: int, dt, dev):
+def _split_topk(score_tile, n: int, q: int, k: int, splits: int, bq: int, bn: int, dt, dev,
+                tile: int = _BN):
     """Each row's sorted (score, position) list of every item range of
-    `split_bounds(n, splits)`: (q, S, k) scores, +inf where empty, and int32
-    positions, -1 where empty.  Query rows go in blocks of `bq`, a range's
+    `split_bounds(n, splits, tile)`: (q, S, k) scores, +inf where empty, and
+    int32 positions, -1 where empty.  Query rows go in blocks of `bq`, a range's
     items in tiles of `bn`; `score_tile(q0, q1, n0, n1)` gives a tile's
     scores, >= _BIG where the item is invalid.  Each tile joins the running
     (rows, k) state of its range, and a stable sort keeps the k least, so
     ties go to the lowest position exactly as the TPU kernel's first-argmin
     does."""
-    bounds = split_bounds(n, splits)
+    bounds = split_bounds(n, splits, tile)
     part_d = torch.empty((q, len(bounds), k), dtype=dt, device=dev)
     part_i = torch.empty((q, len(bounds), k), dtype=torch.int32, device=dev)
     bq = min(bq, max(8, q))
@@ -233,6 +275,31 @@ def fused_knn_f64_reference(items, xs, queries, k: int, splits: int,
     return _split_topk(score_tile, n, queries.shape[0], k, splits, bq, bn, xs.dtype, xs.device)
 
 
+def _ieee_score_tile(items, item_valid, queries):
+    """The twin's scores: ||x||^2 - 2 q.x in IEEE arithmetic under
+    `matmul_precision()`, +BIG where the item is invalid, as a
+    `_split_topk` score_tile."""
+    x2 = item_norms(items, item_valid)
+    valid = item_valid > 0
+
+    def score_tile(q0, q1, n0, n1):
+        with matmul_precision():
+            qx = queries[q0:q1] @ items[n0:n1].T
+        return torch.where(valid[n0:n1], x2[n0:n1] - 2.0 * qx, _BIG)
+
+    return score_tile
+
+
+def fused_knn_smallq_reference(items, item_valid, queries, k: int, splits: int,
+                               bq: int = 256, bn: int = 512):
+    """Plain version of the small-q kernel: the twin's IEEE float32 scores
+    (`_ieee_score_tile`), then the (q, S, k) sorted partial lists of
+    `_split_topk` over the item ranges of `split_plan(n, splits, 256)`."""
+    return _split_topk(_ieee_score_tile(items, item_valid, queries), items.shape[0],
+                       queries.shape[0], k, splits, bq, bn, queries.dtype, queries.device,
+                       tile=_SQ_TILE)
+
+
 def fused_topk_sqdist_reference(
     items: torch.Tensor,  # (n, d)
     item_valid: torch.Tensor,  # (n,) > 0 for a real item
@@ -251,16 +318,9 @@ def fused_topk_sqdist_reference(
     `merge_partials_reference` joins the ranges' lists, adds ||q||^2 and
     clamps at 0, with +inf and -1 past the valid count.  Every `splits`
     gives the same result."""
-    x2 = item_norms(items, item_valid)
-    valid = item_valid > 0
-
-    def score_tile(q0, q1, n0, n1):
-        with matmul_precision():
-            qx = queries[q0:q1] @ items[n0:n1].T
-        return torch.where(valid[n0:n1], x2[n0:n1] - 2.0 * qx, _BIG)
-
-    part_d, part_i = _split_topk(score_tile, items.shape[0], queries.shape[0], k, splits, bq, bn,
-                                 queries.dtype, queries.device)
+    part_d, part_i = _split_topk(_ieee_score_tile(items, item_valid, queries), items.shape[0],
+                                 queries.shape[0], k, splits, bq, bn, queries.dtype,
+                                 queries.device)
     return merge_partials_reference(part_d, part_i, (queries * queries).sum(dim=1), k)
 
 
@@ -280,6 +340,7 @@ def _lib() -> ctypes.CDLL:
             "fused_knn_tf32": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
             "merge_partials": [ptr] * 3 + [i64] * 4 + [ptr] * 3,
             "fused_knn_f64": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
+            "fused_knn_smallq": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -287,7 +348,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         for name, argtypes in (("fused_knn_tf32_smem_bytes", [i64]),
                                ("fused_knn_tf32_stages", [i64]),
-                               ("fused_knn_f64_smem_bytes", [i64])):
+                               ("fused_knn_f64_smem_bytes", [i64]),
+                               ("fused_knn_smallq_wave", [i64])):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i64
         lib.fused_knn_error_string.argtypes = [ctypes.c_int]
@@ -422,6 +484,59 @@ def fused_knn_f64(items, queries, xs, k: int, splits: int):
     return part_d, part_i
 
 
+_SMALLQ_WAVE = {}
+
+
+def smallq_wave(device: torch.device, q: int) -> int:
+    """Blocks of the small-q kernel for q queries that the card holds at
+    once (the CUDA occupancy of its instance), cached per card and instance."""
+    qt = min(_SQ_QBLOCK, 1 << max(0, q - 1).bit_length())
+    key = (torch.device(device).index, qt)
+    if key not in _SMALLQ_WAVE:
+        with torch.cuda.device(device):
+            wave = _lib().fused_knn_smallq_wave(qt)
+        if wave < 1:
+            raise RuntimeError(f"fused_knn_smallq_wave failed: "
+                               f"{_lib().fused_knn_error_string(int(-1 - wave)).decode()}")
+        _SMALLQ_WAVE[key] = wave
+    return _SMALLQ_WAVE[key]
+
+
+def fused_knn_smallq(items, item_valid, queries, k: int, splits: int):
+    """The small-q kernel on contiguous float32 items (n, d), item_valid
+    (n,) and queries (q, d), k <= 32: the (q, S, k) sorted partial
+    (score, position) lists, S = `split_plan(n, splits, 256)[1]`.  CUDA
+    tensors launch the kernel; CPU tensors run
+    `fused_knn_smallq_reference`.  On the card a split keeps only entries
+    that beat the k-th entry other splits of the row have reached, so its
+    list may end early; the lists merged (`merge_partials`) give the same
+    top-k."""
+    global SMALLQ_LAUNCHES
+    tensors = (items, item_valid, queries)
+    if not all(t.dtype == torch.float32 and t.is_contiguous() for t in tensors) \
+            or items.dim() != 2 or queries.dim() != 2 or queries.shape[1] != items.shape[1] \
+            or item_valid.shape != (items.shape[0],):
+        raise ValueError("fused_knn_smallq takes contiguous float32 items (n, d), item_valid "
+                         "(n,) and queries (q, d)")
+    (n, d), q = items.shape, queries.shape[0]
+    if not 1 <= k <= _SQ_MAX_K or n < 1 or q < 1 or splits < 1:
+        raise ValueError(f"fused_knn_smallq takes 1 <= k <= {_SQ_MAX_K}, n >= 1, q >= 1 and "
+                         f"splits >= 1; got k={k}, n={n}, q={q}, splits={splits}")
+    if max(n, d, q) > _INT32_MAX:
+        raise ValueError(f"fused_knn_smallq indexes with int32; got n={n}, d={d}, q={q}")
+    if not _on_cuda(queries):
+        return fused_knn_smallq_reference(items, item_valid, queries, k, splits)
+    tps, s = split_plan(n, splits, _SQ_TILE)
+    part_d = torch.empty((q, s, k), dtype=torch.float32, device=queries.device)
+    part_i = torch.empty((q, s, k), dtype=torch.int32, device=queries.device)
+    row_kth = torch.full((q,), -1, dtype=torch.int64, device=queries.device)  # all ones
+    _run("fused_knn_smallq", queries.device, items.data_ptr(), item_valid.data_ptr(),
+         queries.data_ptr(), n, q, d, k, tps, s, part_d.data_ptr(), part_i.data_ptr(),
+         row_kth.data_ptr())
+    SMALLQ_LAUNCHES += 1
+    return part_d, part_i
+
+
 def topk_partials(items, item_valid, queries, k: int, splits: int):
     """float32 on the card, up to the merge: the split passes and the main
     kernel, giving each row's (S, k) sorted partial lists."""
@@ -473,9 +588,10 @@ def fused_topk_sqdist(
     """Exact brute-force kNN: (squared distances (q, k), int32 item
     POSITIONS (q, k)), best first; invalid items never appear (+inf and
     -1 past the valid count).  CUDA tensors launch the hand-written
-    kernels; CPU tensors run `fused_topk_sqdist_reference`.  `splits` cuts
-    the item sweep into that many ranges (default: `auto_splits` on
-    the card, 1 on the CPU); it never changes the result."""
+    kernels `route(q, k, dtype)` names, then the merge pass; CPU tensors
+    run `fused_topk_sqdist_reference`.  `splits` cuts the item sweep into
+    that many ranges (default: `smallq_splits` or `auto_splits` on the
+    card, 1 on the CPU); it never changes the result."""
     _check(items, item_valid, queries, k, splits)
     if not _on_cuda(queries):
         return fused_topk_sqdist_reference(items, item_valid, queries, k, splits=splits or 1)
@@ -484,14 +600,20 @@ def fused_topk_sqdist(
     if q == 0 or n == 0:
         return (torch.full((q, k), float("inf"), dtype=dt, device=dev),
                 torch.full((q, k), -1, dtype=torch.int32, device=dev))
-    if splits is None:
-        splits = auto_splits(n, q, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-                             dt)
-    if dt == torch.float64:
-        part_d, part_i = fused_knn_f64(items, queries, padded_item_norms(items, item_valid), k,
-                                       splits)
+    kernel = route(q, k, dt)
+    if kernel == "fused_knn_smallq":
+        part_d, part_i = fused_knn_smallq(
+            items, item_valid.to(torch.float32).contiguous(), queries, k,
+            splits or smallq_splits(n, q, smallq_wave(dev, q)))
     else:
-        part_d, part_i = topk_partials(items, item_valid, queries, k, splits)
+        if splits is None:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            splits = auto_splits(n, q, k, sms, dt)
+        if kernel == "fused_knn_f64":
+            part_d, part_i = fused_knn_f64(items, queries, padded_item_norms(items, item_valid),
+                                           k, splits)
+        else:
+            part_d, part_i = topk_partials(items, item_valid, queries, k, splits)
     return merge_partials(part_d, part_i, (queries * queries).sum(dim=1), k)
 
 

@@ -30,7 +30,7 @@ import torch
 
 from ..config import get_config
 from .distances import sqdist
-from .fused_knn import knn_topk_fused
+from .fused_knn import knn_topk_fused, route
 
 # query rows per block of the plain forms
 _QUERY_BLOCK = 1024
@@ -40,9 +40,11 @@ _BLOCKED_TILE_LIMIT_BYTES = 2 << 30
 
 # Which form the last `knn_topk_single` ran ("kernel") and why
 # ("decided_by": "forced" for pallas_knn="on" or "auto", "config" for
-# "off").  The fused kernel on a CUDA tensor reads "fused_knn_tf32" (float32)
-# or "fused_knn_f64" (float64), the kernels of csrc/fused_knn.cu; on a CPU
-# tensor the wrapper runs its twin, "fused_topk_sqdist_reference".
+# "off").  The fused kernel on a CUDA tensor reads the main kernel that ran
+# (fused_knn.py `route`): "fused_knn_smallq" (float32, few queries, k <= 32),
+# "fused_knn_tf32" (other float32) or "fused_knn_f64" (float64), the kernels
+# of csrc/fused_knn.cu; on a CPU tensor the wrapper runs its twin,
+# "fused_topk_sqdist_reference".
 LAST_KERNEL_DECISION: Dict[str, Optional[str]] = {"kernel": None, "decided_by": None}
 
 _MODES = ("on", "auto", "off")
@@ -137,7 +139,7 @@ def knn_topk_single(items, item_valid, item_ids, queries, k: int):
     if mode != "off":  # "auto" is "on"
         kernel = "fused_topk_sqdist_reference"
         if queries.is_cuda:
-            kernel = "fused_knn_f64" if queries.dtype == torch.float64 else "fused_knn_tf32"
+            kernel = route(int(queries.shape[0]), k, queries.dtype)
         LAST_KERNEL_DECISION.update(kernel=kernel, decided_by="forced")
         return knn_topk_fused(items, item_valid, item_ids, queries, k)
     qb = min(_QUERY_BLOCK, max(int(queries.shape[0]), 1))

@@ -641,3 +641,142 @@ def test_merge_slot_rule_matches_plain_version(dtype, splits, k):
         assert slots == set(range(splits * k))
         assert [got_i[j] for j in range(k)] == want_i[r].tolist()
         assert [got_d[j] for j in range(k)] == want_d[r].tolist()
+
+
+# ---- the small-q kernel's plain version and the route ---------------------------
+
+
+def _smallq_data(seed, n, d, q):
+    """Ragged n (no whole tile of 256 items), invalid items inside the set
+    and at the tail, and 40 rows repeated (exact ties)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X[n // 2 : n // 2 + 40] = X[:40]
+    Q = rng.normal(size=(q, d)).astype(np.float32)
+    valid = np.ones(n, np.float32)
+    valid[::11] = 0.0
+    valid[-30:] = 0.0
+    return X, Q, valid
+
+
+def _held_ties_aside(d2, ids, d2_ref, ids_ref, X, Q, rtol):
+    """d^2 within rtol of the reference (relative, absolute below 1); the
+    same +inf / -1 tails; where the ids differ, both items lie at the same
+    float64 distance from the query within rtol (a tie that the two
+    summation orders break differently)."""
+    d2, d2_ref = np.asarray(d2, np.float64), np.asarray(d2_ref, np.float64)
+    ids, ids_ref = np.asarray(ids), np.asarray(ids_ref)
+    assert np.array_equal(ids < 0, ids_ref < 0)
+    fin = np.isfinite(d2_ref)
+    assert np.array_equal(fin, np.isfinite(d2))
+    assert (np.abs(d2[fin] - d2_ref[fin]) <= rtol * np.maximum(1.0, d2_ref[fin])).all()
+    rows, cols = np.nonzero(ids != ids_ref)
+    X64, Q64 = X.astype(np.float64), Q.astype(np.float64)
+    a = ((X64[ids[rows, cols]] - Q64[rows]) ** 2).sum(1)
+    b = ((X64[ids_ref[rows, cols]] - Q64[rows]) ** 2).sum(1)
+    assert (np.abs(a - b) <= rtol * np.maximum(1.0, b)).all()
+
+
+@pytest.mark.parametrize("d", [6, 17, 33])
+@pytest.mark.parametrize("q", [1, 3, 8, 64])
+def test_smallq_plain_version_matches_the_jax_kernel(q, d):
+    """The small-q kernel's plain version, its lists merged by the plain
+    merge, against the JAX package's Pallas kernel in interpret mode, for
+    k = 1, 5, 32 over three item splits.  Tolerance: d^2 within 1e-5
+    relative (the two sum q.x in other orders), ids equal except at ties;
+    the repeated rows tie exactly in both and go to the lower position."""
+    n = 400 + 23 * d + q
+    X, Q, valid = _smallq_data(q * 100 + d, n, d, q)
+    before = (fk.SMALLQ_LAUNCHES, fk.MERGE_LAUNCHES)
+    for k in (1, 5, 32):
+        part_d, part_i = fk.fused_knn_smallq(_t(X), _t(valid), _t(Q), k, 3)
+        assert part_d.shape == (q, fk.split_plan(n, 3, 256)[1], k)
+        d2, ids = fk.merge_partials(part_d, part_i, (_t(Q) * _t(Q)).sum(dim=1), k)
+        d2j, ij = jax_fused(jnp.asarray(X), jnp.asarray(valid), jnp.asarray(Q), k,
+                            bq=8, bn=128, interpret=True)
+        _held_ties_aside(d2.numpy(), ids.numpy(), np.asarray(d2j), np.asarray(ij), X, Q, 1e-5)
+    assert (fk.SMALLQ_LAUNCHES, fk.MERGE_LAUNCHES) == before  # the CPU never counts
+
+
+@pytest.mark.parametrize("data,splits", [("normal", 1), ("integers", 3), ("integers", 7)])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_smallq_plain_version_is_the_twin_bit_for_bit(data, splits, q):
+    """Where the arithmetic order is the same the plain version and the
+    twin agree bit for bit: one split runs the twin's own tiles; on integer
+    rows every product and sum is exact, so any split count gives the
+    twin's result, ties across the splits going to the lower position."""
+    rng = np.random.default_rng(q + splits)
+    if data == "normal":
+        X, Q, valid = _smallq_data(q, 1500, 24, q)
+    else:
+        X = np.tile(rng.integers(-3, 4, size=(256, 17)), (6, 1)).astype(np.float32)
+        Q = rng.integers(-3, 4, size=(q, 17)).astype(np.float32)
+        valid = np.ones(X.shape[0], np.float32)
+        valid[::13] = 0.0
+    for k in (1, 5, 32):
+        part_d, part_i = fk.fused_knn_smallq_reference(_t(X), _t(valid), _t(Q), k, splits)
+        d2, ids = fk.merge_partials_reference(part_d, part_i, (_t(Q) * _t(Q)).sum(dim=1), k)
+        d2t, it = fk.fused_topk_sqdist_reference(_t(X), _t(valid), _t(Q), k)
+        assert torch.equal(ids, it) and torch.equal(d2, d2t)
+
+
+def test_route_is_a_function_of_the_shape_and_dtype():
+    f32, f64 = torch.float32, torch.float64
+    assert fk.route(1, 32, f32) == "fused_knn_smallq"
+    assert fk.route(fk._SMALL_Q, 1, f32) == "fused_knn_smallq"
+    assert fk.route(fk._SMALL_Q + 1, 32, f32) == "fused_knn_tf32"
+    assert fk.route(1, 33, f32) == "fused_knn_tf32"  # k > 32: the register lists end at 32
+    assert fk.route(10_000, 32, f32) == "fused_knn_tf32"
+    for q, k in ((1, 1), (8, 32), (10_000, 1000)):
+        assert fk.route(q, k, f64) == "fused_knn_f64"
+
+
+def test_smallq_splits_fill_one_wave():
+    """One wave of resident blocks over the ceil(q / 64) query blocks, at
+    most one split per 256-item tile; the item ranges cover every item in
+    whole tiles."""
+    assert fk.smallq_splits(1_000_000, 1, 264) == 264
+    assert fk.smallq_splits(1_000_000, 64, 132) == 132
+    assert fk.smallq_splits(1_000_000, 65, 132) == 66
+    assert fk.smallq_splits(1_000_000, 256, 132) == 33
+    assert fk.smallq_splits(1000, 1, 264) == 4  # 4 tiles
+    assert fk.smallq_splits(1_000_000, 1000, 132) == 8
+    assert fk.smallq_splits(1_000_000, 10_000, 132) == 1
+    bounds = fk.split_bounds(1_000_000, 264, 256)
+    assert bounds[0][0] == 0 and bounds[-1][1] == 1_000_000 and len(bounds) <= 264
+    assert all(lo % 256 == 0 and hi > lo for lo, hi in bounds)
+
+
+@pytest.mark.parametrize("bad", ["float64", "valid_dtype", "k", "width", "noncontig", "empty",
+                                 "splits"])
+def test_smallq_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    X, Q, valid = _smallq_data(1, 300, 8, 4)
+    items, v, queries, k, splits = _t(X), _t(valid), _t(Q), 5, 2
+    if bad == "float64":
+        items, queries = items.double(), queries.double()
+    elif bad == "valid_dtype":
+        v = v.double()
+    elif bad == "k":
+        k = 33
+    elif bad == "width":
+        queries = queries[:, :4].contiguous()
+    elif bad == "noncontig":
+        items = torch.from_numpy(np.asfortranarray(X))
+    elif bad == "empty":
+        queries = queries[:0]
+    else:
+        splits = 0
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq(items, v, queries, k, splits)
+
+
+def test_smallq_route_on_cpu_is_the_twin_and_never_counts():
+    """A CPU tensor never launches: the wrapper of the fused function runs
+    the twin at every q, and the small-q wrapper its plain version."""
+    X, Q, valid = _smallq_data(2, 700, 12, 8)
+    before = (fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.SPLIT_LAUNCHES, fk.MERGE_LAUNCHES)
+    d2a, ia = fk.fused_topk_sqdist(_t(X), _t(valid), _t(Q), 6)
+    d2b, ib = fk.fused_topk_sqdist_reference(_t(X), _t(valid), _t(Q), 6)
+    assert torch.equal(ia, ib) and torch.equal(d2a, d2b)
+    fk.fused_knn_smallq(_t(X), _t(valid), _t(Q), 6, 2)
+    assert (fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.SPLIT_LAUNCHES, fk.MERGE_LAUNCHES) == before

@@ -58,7 +58,9 @@ def _assert_ties_where_ids_differ(items, queries, d2t, ik, it):
 
 
 def _launches(dtype):
-    return fk.LAUNCHES_F64 if dtype == torch.float64 else fk.LAUNCHES
+    """Main-kernel launches of the dtype: float32 takes the 3xTF32 or the
+    small-q kernel by `fk.route`."""
+    return fk.LAUNCHES_F64 if dtype == torch.float64 else fk.LAUNCHES + fk.SMALLQ_LAUNCHES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -216,7 +218,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         fk.fused_topk_sqdist(items.half(), v, items[:2].half(), 3)
 
 
-@pytest.mark.parametrize("dtype,kernel", [(np.float32, "fused_knn_tf32"),
+@pytest.mark.parametrize("dtype,kernel", [(np.float32, "fused_knn_smallq"),
                                           (np.float64, "fused_knn_f64")])
 def test_nearest_neighbors_on_the_card(cuda_device, dtype, kernel):
     rng = np.random.default_rng(1)
@@ -357,3 +359,103 @@ def test_merge_kernel_on_lists_that_end_early(cuda_device, dtype, q, splits, k):
     md, mi = fk.merge_partials(part_d, part_i, q2, k)
     rd, ri = fk.merge_partials_reference(part_d, part_i, q2, k)
     assert torch.equal(mi, ri) and torch.equal(md, rd)
+
+
+# ---- the small-q kernel ---------------------------------------------------------
+
+
+def _smallq_cases():
+    import chip_smoke
+
+    return chip_smoke.smallq_cases(0)
+
+
+@pytest.mark.parametrize("case", range(len(_smallq_cases())))
+def test_smallq_kernel_matches_its_plain_version(cuda_device, case):
+    """chip_smoke.py's phase 2 cases of the small-q kernel: ragged n,
+    invalid items, d = 6, 17, 33, 130, q = 1, 7, 64 and 100, k = 1, 5, 32,
+    forced splits, exact ties, signed zeros and tails.  Each side's lists
+    merged: every finite d^2 within 1e-4 * max(1, d^2) and every differing
+    id a tie (exact cases bit for bit)."""
+    import chip_smoke
+
+    name, X, v, Q, k, exact, splits = _smallq_cases()[case]
+    items, valid, queries = _on(cuda_device, torch.float32, X, v, Q)
+    s = splits or fk.smallq_splits(len(X), len(Q), fk.smallq_wave(cuda_device, len(Q)))
+    before = fk.SMALLQ_LAUNCHES
+    part_d, part_i = fk.fused_knn_smallq(items, valid, queries, k, s)
+    assert fk.SMALLQ_LAUNCHES == before + 1
+    pd, pi = fk.fused_knn_smallq_reference(items, valid, queries, k, s)
+    assert part_d.shape == pd.shape
+    q2 = (queries * queries).sum(dim=1)
+    chip_smoke.compare_ties_aside(name, *fk.merge_partials(part_d, part_i, q2, k),
+                                  *fk.merge_partials_reference(pd, pi, q2, k), X, Q, exact)
+
+
+@pytest.mark.parametrize("d", [64, 130])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_smallq_route_matches_the_tf32_route(cuda_device, q, d):
+    """The route (small-q kernel + merge) against the 3xTF32 route on the
+    same queries: ids equal except at ties, d^2 within 1e-4."""
+    import chip_smoke
+
+    rng = np.random.default_rng(q + d)
+    X, Q = rng.normal(size=(20_000, d)), rng.normal(size=(q, d))
+    items, queries, v = _on(cuda_device, torch.float32, X, Q, np.ones(20_000))
+    for k in (1, 32):
+        assert fk.route(q, k, torch.float32) == "fused_knn_smallq"
+        before = (fk.SMALLQ_LAUNCHES, fk.LAUNCHES)
+        kd, ki = fk.fused_topk_sqdist(items, v, queries, k)
+        assert (fk.SMALLQ_LAUNCHES, fk.LAUNCHES) == (before[0] + 1, before[1])
+        td, ti = fk.merge_partials(*fk.topk_partials(items, v, queries, k, 4),
+                                   (queries * queries).sum(dim=1), k)
+        chip_smoke.compare_ties_aside(f"q={q} d={d} k={k}", kd, ki, td, ti, X, Q, exact=False)
+
+
+def test_smallq_kernel_repeats(cuda_device):
+    """One launch repeated: with one split the partial lists are bit-equal
+    (no other block shares the row's k-th key); with the wrapper's splits a
+    list past the row's merged top-k depends on the order the blocks ran,
+    and the merged lists are bit-equal."""
+    rng = np.random.default_rng(11)
+    items, queries, v = _on(cuda_device, torch.float32, rng.normal(size=(50_000, 96)),
+                            rng.normal(size=(8, 96)), np.ones(50_000))
+    q2 = (queries * queries).sum(dim=1)
+    a = fk.fused_knn_smallq(items, v, queries, 32, 1)
+    b = fk.fused_knn_smallq(items, v, queries, 32, 1)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    s = fk.smallq_splits(50_000, 8, fk.smallq_wave(cuda_device, 8))
+    ma = fk.merge_partials(*fk.fused_knn_smallq(items, v, queries, 32, s), q2, 32)
+    mb = fk.merge_partials(*fk.fused_knn_smallq(items, v, queries, 32, s), q2, 32)
+    assert torch.equal(ma[0], mb[0]) and torch.equal(ma[1], mb[1])
+
+
+def test_route_takes_the_kernel_its_rule_names(cuda_device):
+    """q <= _SMALL_Q and k <= 32 launch the small-q kernel, one query more
+    or k = 33 the 3xTF32 kernel; the results agree with the twin."""
+    rng = np.random.default_rng(5)
+    items, v = _on(cuda_device, torch.float32, rng.normal(size=(3000, 20)), np.ones(3000))
+    for q, k, kernel in ((fk._SMALL_Q, 32, "fused_knn_smallq"),
+                         (fk._SMALL_Q + 1, 32, "fused_knn_tf32"), (5, 33, "fused_knn_tf32")):
+        (queries,) = _on(cuda_device, torch.float32, rng.normal(size=(q, 20)))
+        before = (fk.SMALLQ_LAUNCHES, fk.LAUNCHES)
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k)
+        small = kernel == "fused_knn_smallq"
+        assert (fk.SMALLQ_LAUNCHES, fk.LAUNCHES) == (before[0] + small, before[1] + (not small))
+        assert fk.route(q, k, torch.float32) == kernel
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
+        _assert_matches_twin(d2k, ik, d2t, it, min_agree=0.99)
+        _assert_ties_where_ids_differ(items, queries, d2t, ik, it)
+
+
+def test_smallq_kernel_rejects_what_it_does_not_take(cuda_device):
+    """A CUDA tensor the kernel does not take raises; nothing gives way to
+    the plain version."""
+    items = torch.zeros((300, 8), device=cuda_device)
+    v = torch.ones(300, device=cuda_device)
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq(items.double(), v.double(), items[:2].double(), 3, 1)
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq(items, v, items[:2], 33, 1)
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq(items, v, items[:2, :4], 3, 1)

@@ -51,14 +51,22 @@ def reset_port_state() -> None:
 
 def reset_jax_state() -> None:
     """The JAX package's conf, elastic state and device-budget
-    reservations, as its serving tests reset them."""
+    reservations, as its serving tests reset them, and the process state
+    its server's report reads: the utilization timeline and the pod
+    observatory's last pass report (`_totals["pod"]`, which any JAX fused
+    or statistics pass earlier in the process leaves behind; the port has
+    no pod observatory)."""
     from spark_rapids_ml_tpu.config import reset_config, set_config
     from spark_rapids_ml_tpu.parallel.device_cache import get_device_cache
     from spark_rapids_ml_tpu.resilience.elastic import reset_elastic
+    from spark_rapids_ml_tpu.telemetry import utilization
+    from spark_rapids_ml_tpu.telemetry.fleet import reset_fleet
 
     reset_config()
     set_config(retry_backoff_s=0.01, retry_jitter=0.0)
     reset_elastic()
+    utilization.clear()
+    reset_fleet()
     cache = get_device_cache()
     for tag in list(cache._external):
         cache.release_external(tag)
