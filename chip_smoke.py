@@ -8,7 +8,7 @@ Run from the root of a checkout:
                           [--lr-wide-rows 1000000] [--lr-wide-dim 3000]
                           [--lr-multi-rows 200000] [--pca-rows 1000000]
                           [--pca-dim 128] [--g-rows 200000] [--h-rows 100000000]
-                          [--j-rows 300000] [--k-rows 200000] [--k-dbscan-rows 20000]
+                          [--j-rows 300000] [--k-rows 200000] [--k-dbscan-rows 10000]
                           [--r-rows 2000000]
 
 Phases, each of which makes the script exit non-zero when it fails:
@@ -20,7 +20,10 @@ Phases, each of which makes the script exit non-zero when it fails:
    kernel's registers, spills and shared memory (ptxas), and the tensor-core
    instructions in the built library's SASS (cuobjdump): the float32 kernel
    must hold HGMMA (wgmma), the float64 kernel DMMA; and each kernel's
-   local-memory loads and stores (LDL, STL);
+   local-memory loads and stores (LDL, STL), none in any of the float64
+   small-q kernel's six instances; then the profiler's device time as the
+   script reads it (`trace_device_us`) against `key_averages()` on one
+   trace, equal to 1e-9;
 2. kernels vs their plain versions, on the card: the split pass bit for
    bit; each main kernel against its plain version (both sides merged); the
    merge pass bit for bit in float32 and float64 at (S, k) = (5, 32),
@@ -30,12 +33,13 @@ Phases, each of which makes the script exit non-zero when it fails:
    exact ties (duplicated integer rows, also across the item splits),
    widths that are no multiple of the kernel's chunk (d = 17, 33, 131 and
    4100), k larger than a split's items, forced split counts, float32 and
-   float64, and k = 1, 32 and 1000 (where the route takes the small-q
-   kernel, the 3xTF32 kernel is held on the case too); the small-q kernel
-   against its plain version on `smallq_cases` (ragged n, invalid items,
-   d = 6, 17, 33, 130, q = 1, 7, 64 and 100, k = 1, 5, 32, forced splits,
-   exact ties, signed zeros, tails), both sides' lists merged, ids equal
-   but at ties;
+   float64, and k = 1, 32 and 1000 (where the route takes a small-q
+   kernel, the main kernel of the type is held on the case too); the
+   small-q kernel, float32 and float64, against its plain version on
+   `smallq_cases` (ragged n, invalid items, d = 6, 17, 33, 130, q = 1, 7,
+   64 and 100, k = 1, 5, 32, forced splits, exact ties, signed zeros,
+   tails), both sides' lists merged, ids equal but at ties (the type's
+   tolerance), the integer cases bit for bit;
 3. the main path at full size: NearestNeighbors(k).setIdCol("id").fit(items)
    -> kneighbors(queries) -> exactNearestNeighborsJoin, through the public
    entry points; every kernel's launch count is reset just before and read
@@ -107,7 +111,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    bench.py's 300,000 x 16 blobs (60 centres, std 0.6, eps 1.2,
    min_samples 5) at the default byte cap and at 4096 MB, and in float64,
    (k) float64: KMeans k=10 on 200,000 x 256 with weights and DBSCAN on
-   20,000 rows of blobs, on the card and on the CPU.  Each KMeans cell:
+   10,000 rows of blobs, on the card and on the CPU.  Each KMeans cell:
    the fit, the layers of a Lloyd pass (assign, update, and a one-hot
    matmul update beside it), the row norms, the seeding and the shift
    fetch, each beside its bound; held: trainingCost within 1e-5 of a
@@ -134,7 +138,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    (maxDepth=16, bench.py:221-224) on (h)'s 100,000,000 x 64 standard
    normal rows with a linear label, its 100 trees cut to 1;
    (o) float64 with weights in [0.2, 2), bootstrap and a feature subset
-   (gini, entropy and variance), card against CPU.  Each of (l)-(n): fits
+   (gini, entropy and variance) on 100,000 x 64, card against CPU.  Each of (l)-(n): fits
    from a DeviceDataset and from numpy (1 tree: the same first tree), a
    transform of 1,000,000 rows, the
    card's busy share over a one-tree fit, and two trees (one at (n))
@@ -161,9 +165,10 @@ Phases, each of which makes the script exit non-zero when it fails:
 10. parquet and beyond the card's memory, through the public entry points
    (no hand-written kernel: the parquet decode on the host, the copies,
    and the statistics and solvers of phases 5, 6 and 8), in a temporary
-   directory (its free space printed first; about 13 GB of disk): (p) phase 5's (b) rows and labels, 1,000,000 x 3000 float32,
-   with (e)'s three scaled columns, written in bench.py:900-931's layout
-   (FixedSizeList, 50,000-row row groups, about 12 GB); the decode alone
+   directory (its free space printed first; about 7 GB of disk): (p) the
+   first 500,000 (`PARQUET_ROWS`) of phase 5's (b) rows and labels, x 3000
+   float32, with (e)'s three scaled columns, written in bench.py:900-931's
+   layout (FixedSizeList, 50,000-row row groups, about 6 GB); the decode alone
    (the range readers) as the rate a fit cannot beat; PCA k=3 and OLS on the
    fused pass from parquet, LogisticRegression (maxIter=200, (b)'s
    params) and KMeans k=1000 ((i)'s params) on stage_parquet + _fit_array,
@@ -206,7 +211,7 @@ Phases, each of which makes the script exit non-zero when it fails:
    metrics in one pass and one by one, held against float64 numpy (1e-5)
    and the HyperLogLog estimate of the same registers from the numpy
    twin, then count, mean, variance, min, max, normL2, numNonZeros and
-   distinctCount of (p)'s 12 GB file twice (a decode, then a replay), the
+   distinctCount of (p)'s 6 GB file twice (a decode, then a replay), the
    moments against float64 (1e-5).
 12. the meta layer through the public entry points (no hand-written
    kernel: the fits of phases 5 and 6, an `index_select` for each gathered
@@ -311,20 +316,29 @@ Phases, each of which makes the script exit non-zero when it fails:
    bench_serving at full width — a LogisticRegression fitted on 100,000
    rows x 3000 of (b)'s rows, PCA k=3 on phase 3's 1M x 128 items and
    NearestNeighbors k=32 over them (phase 3's model, registered with its
-   `_search`), 300 one-row requests a model, sequential transforms against
+   `_search`), and a float64 NearestNeighbors k=32 (float32_inputs=False)
+   fitted on the float64 copy of those items (`knn64`, registered with
+   dtype float64), 300 one-row requests a model, sequential transforms against
    the coalescing server: queries/s, p50/p99 ms, batches, the speedup, the
    card's idle share from the serving utilization timeline, each served
    slice held against the model's own transform of the same rows; the
-   fused kernel's launch counts reset before and read after the served kNN
-   run (one small-q kernel launch a batch), and the fused function timed at
+   fused kernel's launch counts reset before and read after each served kNN
+   run (one small-q kernel launch a batch; knn64: the float64 small-q
+   kernel at least once a batch and the float64 main kernel never), and
+   the fused function timed at
    the served batch sizes q = 1, 8 and 64 through its route (the small-q
    kernel and the merge, each also alone on the card, and the route by
    split count) and through the 3xTF32 route, beside its bound, its plain
    version and torch.matmul + torch.topk, held against the twin and the
    small-q route against the 3xTF32 route (ids equal but at ties, d^2
-   1e-4); the float64 function at the same sizes beside torch.matmul +
-   torch.topk in float64; both float32 routes swept over q (SMALLQ_SWEEP),
-   the sweep that set fused_knn._SMALL_Q.
+   1e-4); both float32 routes swept over q (SMALLQ_SWEEP), the sweep that
+   set fused_knn._SMALL_Q; the float64 function at the same sizes on
+   knn64's staged items through its route (the float64 small-q kernel and
+   the merge, each also alone on the card) and through the float64
+   main-kernel route called directly, beside its bound, its plain version
+   and torch.matmul + torch.topk in float64, both held against the plain
+   version (ids equal but at ties, d^2 1e-10); both float64 routes swept
+   over q, the sweep that set fused_knn._SMALL_Q_F64.
    (ii) bench_serving_scale's 200 pinned d = 64 models (a
    LogisticRegression, a PCA and a kNN fanned out), 2,000 one-row requests
    4:1 interactive:batch, queued while paused and drained at depth 1 and
@@ -347,7 +361,8 @@ one of phase 16's ({"serving": [...]}), a JSON object of the kernels'
 numbers (phase 13 adds the float32 fused function at (x)'s shape, phase 14
 the fused function at UMAP's two shapes and the k > 32 merge, phase 16
 the small-q kernel at the served batch sizes, the 3xTF32 route's time
-beside it),
+beside it, and the float64 small-q kernel at the same sizes, the float64
+main-kernel route's time beside it),
 the card's name and power limit, and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 No JAX is imported.
@@ -378,7 +393,8 @@ _SOURCE = "spark_rapids_ml_torch/ops/csrc/fused_knn.cu"
 _REPLACES = "spark_rapids_ml_tpu/ops/pallas_knn.py:148"
 # the kernels of fused_knn.cu, as their names appear in ptxas and SASS
 _KERNELS = ("tf32_split_kernel", "fused_knn_tf32_kernel", "merge_partials_kernel",
-            "merge_partials_regs_kernel", "fused_knn_f64_kernel", "fused_knn_smallq_kernel")
+            "merge_partials_regs_kernel", "fused_knn_f64_kernel", "fused_knn_smallq_kernel",
+            "fused_knn_smallq_f64_kernel")
 # template arguments as the Itanium ABI mangles them (an int N as LiNE)
 _TEMPLATE_ARGS = {"f": "float", "d": "double", "Lb1E": "true", "Lb0E": "false"}
 
@@ -528,20 +544,22 @@ def compare_ties_aside(name, kd, ki, td, ti, X, Q, exact: bool) -> float:
     """Hold (kd, ki) against (td, ti) where a case has too few id slots for
     `compare`'s share of equal slots (one swapped near tie at q = 1 is 2 of
     32): exact cases bit for bit (`compare`); else the same +inf/-1 tails,
-    every finite d^2 within 1e-4 * max(1, d^2), and every id slot that
-    differs a tie: both items at float64 squared distances from the query
-    within that tolerance of each other."""
+    every finite d^2 within rtol * max(1, d^2) (rtol by dtype, `_RTOL`:
+    1e-4 in float32, 1e-10 in float64), and every id slot that differs a
+    tie: both items at float64 squared distances from the query within that
+    tolerance of each other."""
     if exact:
         return compare(name, kd, ki, td, ti, exact=True)
+    rtol = _RTOL[str(td.dtype)]
     kd, td = kd.cpu().double().numpy(), td.cpu().double().numpy()
     ki, ti = ki.cpu().numpy(), ti.cpu().numpy()
     fin = np.isfinite(td)
     if not np.array_equal(fin, np.isfinite(kd)) or not np.array_equal(ki < 0, ti < 0):
         raise AssertionError(f"{name}: +inf/-1 tails differ")
     err = float(np.abs(kd[fin] - td[fin]).max()) if fin.any() else 0.0
-    tol = _RTOL["torch.float32"] * np.maximum(1.0, np.abs(td))
+    tol = rtol * np.maximum(1.0, np.abs(td))
     if not (np.abs(kd[fin] - td[fin]) <= tol[fin]).all():
-        raise AssertionError(f"{name}: d2 differs beyond 1e-4 * max(1, d2)")
+        raise AssertionError(f"{name}: d2 differs beyond {rtol:g} * max(1, d2)")
     X, Q = np.asarray(X, np.float64), np.asarray(Q, np.float64)
     for i, j in np.argwhere(ki != ti):
         a = ((X[ki[i, j]] - Q[i]) ** 2).sum()
@@ -659,34 +677,49 @@ def smallq_cases(seed: int) -> list:
     return cases
 
 
-def phase2_smallq(device, seed: int) -> None:
-    """The small-q kernel against its plain version on `smallq_cases`:
-    each side's (q, S, k) lists merged by the plain merge (a list past the
-    row's merged top-k depends on the order the blocks ran), held by
-    `compare_ties_aside`."""
+def smallq_kernel(dtype):
+    """(wrapper, launch count, query block) of the small-q kernel of
+    `dtype` (torch.float32 or torch.float64)."""
     import torch
 
     from spark_rapids_ml_torch.ops import fused_knn as fk
 
-    before = fk.SMALLQ_LAUNCHES
+    if dtype == torch.float64:
+        return fk.fused_knn_smallq_f64, fk.SMALLQ_F64_LAUNCHES, fk._SQ_QBLOCK_F64
+    return fk.fused_knn_smallq, fk.SMALLQ_LAUNCHES, fk._SQ_QBLOCK
+
+
+def phase2_smallq(device, seed: int) -> None:
+    """The small-q kernel, float32 and float64, against its plain version
+    (one for both types) on `smallq_cases`: each side's (q, S, k) lists
+    merged by the plain merge (a list past the row's merged top-k depends
+    on the order the blocks ran), held by `compare_ties_aside` at the
+    type's tolerance."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
     cases = smallq_cases(seed)
-    for name, X, v, Q, k, exact, splits in cases:
-        Xt, vt, Qt = (torch.as_tensor(a, dtype=torch.float32, device=device).contiguous()
-                      for a in (X, v, Q))
-        s = splits or fk.smallq_splits(Xt.shape[0], Qt.shape[0],
-                                       fk.smallq_wave(device, Qt.shape[0]))
-        part_d, part_i = fk.fused_knn_smallq(Xt, vt, Qt, k, s)
-        pd, pi = fk.fused_knn_smallq_reference(Xt, vt, Qt, k, s)
-        torch.cuda.synchronize()
-        if part_d.shape != pd.shape:
-            raise AssertionError(f"{name}: lists {tuple(part_d.shape)} != {tuple(pd.shape)}")
-        q2 = (Qt * Qt).sum(dim=1)
-        compare_ties_aside(f"{name} S={part_d.shape[1]}",
-                           *fk.merge_partials_reference(part_d, part_i, q2, k),
-                           *fk.merge_partials_reference(pd, pi, q2, k), X, Q, exact)
-    if fk.SMALLQ_LAUNCHES - before != len(cases):
-        raise AssertionError(f"{len(cases)} small-q cases launched the kernel "
-                             f"{fk.SMALLQ_LAUNCHES - before} times")
+    for dt in (torch.float32, torch.float64):
+        run, before, qblock = smallq_kernel(dt)
+        for name, X, v, Q, k, exact, splits in cases:
+            Xt, vt, Qt = (torch.as_tensor(a, dtype=dt, device=device).contiguous()
+                          for a in (X, v, Q))
+            s = splits or fk.smallq_splits(Xt.shape[0], Qt.shape[0],
+                                           fk.smallq_wave(device, Qt.shape[0], dt), qblock)
+            part_d, part_i = run(Xt, vt, Qt, k, s)
+            pd, pi = fk.fused_knn_smallq_reference(Xt, vt, Qt, k, s)
+            torch.cuda.synchronize()
+            if part_d.shape != pd.shape:
+                raise AssertionError(f"{name}: lists {tuple(part_d.shape)} != {tuple(pd.shape)}")
+            q2 = (Qt * Qt).sum(dim=1)
+            compare_ties_aside(f"{str(dt)[6:]} {name} S={part_d.shape[1]}",
+                               *fk.merge_partials_reference(part_d, part_i, q2, k),
+                               *fk.merge_partials_reference(pd, pi, q2, k), X, Q, exact)
+        launched = smallq_kernel(dt)[1] - before
+        if launched != len(cases):
+            raise AssertionError(f"{len(cases)} small-q {dt} cases launched the kernel "
+                                 f"{launched} times")
 
 
 def hold_main_kernel(name, X, v, Q, k, splits, part_d, part_i, bq=256, bn=512) -> float:
@@ -786,9 +819,13 @@ def phase_kernels_vs_plain(device, seed: int) -> None:
 
     phase2_smallq(device, seed)
 
-    before = (fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.LAUNCHES_F64)
+    def counts():
+        return {"fused_knn_tf32": fk.LAUNCHES, "fused_knn_smallq": fk.SMALLQ_LAUNCHES,
+                "fused_knn_f64": fk.LAUNCHES_F64, "fused_knn_smallq_f64": fk.SMALLQ_F64_LAUNCHES}
+
+    before = counts()
+    want = dict.fromkeys(before, 0)
     cases = phase2_cases(seed)
-    n_smallq = 0
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for name, X, v, Q, k, dt, exact, splits in cases:
         dt = getattr(torch, dt)
@@ -799,28 +836,33 @@ def phase_kernels_vs_plain(device, seed: int) -> None:
         td, ti = fk.fused_topk_sqdist_reference(Xt, vt, Qt, k)
         torch.cuda.synchronize()
         compare(name, kd, ki, td, ti, exact)
-        if fk.route(Qt.shape[0], k, dt) == "fused_knn_smallq":
-            # the route took the small-q kernel: the 3xTF32 main kernel is
-            # held on the same case through its own entry
-            n_smallq += 1
-            s = splits or fk.auto_splits(Xt.shape[0], Qt.shape[0], k, sms)
-            kd, ki = fk.merge_partials(*fk.topk_partials(Xt, vt, Qt, k, s),
-                                       (Qt * Qt).sum(dim=1), k)
+        kernel = fk.route(Qt.shape[0], k, dt)
+        want[kernel] += 1
+        if kernel in ("fused_knn_smallq", "fused_knn_smallq_f64"):
+            # the route took a small-q kernel: the main kernel of the type
+            # is held on the same case through its own entry
+            s = splits or fk.auto_splits(Xt.shape[0], Qt.shape[0], k, sms, dt)
+            if dt == torch.float64:
+                main = "fused_knn_f64"
+                parts = fk.fused_knn_f64(Xt, Qt, fk.padded_item_norms(Xt, vt), k, s)
+            else:
+                main = "fused_knn_tf32"
+                parts = fk.topk_partials(Xt, vt, Qt, k, s)
+            want[main] += 1
+            kd, ki = fk.merge_partials(*parts, (Qt * Qt).sum(dim=1), k)
             torch.cuda.synchronize()
-            compare(name + " (3xTF32 main kernel)", kd, ki, td, ti, exact)
-    n64 = sum(c[5] == "float64" for c in cases)
-    want = (len(cases) - n64, n_smallq, n64)
-    got = tuple(a - b for a, b in zip((fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.LAUNCHES_F64), before))
+            compare(f"{name} ({main} main kernel)", kd, ki, td, ti, exact)
+    got = {name: n - before[name] for name, n in counts().items()}
     if got != want:
-        raise AssertionError(f"phase 2's cases should launch the 3xTF32, small-q and float64 "
-                             f"main kernels {want} times; they launched them {got} times")
+        raise AssertionError(f"phase 2's cases should launch the main and small-q kernels "
+                             f"{want} times; they launched them {got} times")
 
 
 def reset_counts() -> None:
     from spark_rapids_ml_torch.ops import fused_knn as fk
 
-    fk.LAUNCHES = fk.SMALLQ_LAUNCHES = fk.LAUNCHES_F64 = fk.SPLIT_LAUNCHES = 0
-    fk.MERGE_LAUNCHES = 0
+    fk.LAUNCHES = fk.SMALLQ_LAUNCHES = fk.LAUNCHES_F64 = fk.SMALLQ_F64_LAUNCHES = 0
+    fk.SPLIT_LAUNCHES = fk.MERGE_LAUNCHES = 0
 
 
 def library_topk(items_t, queries_t, k: int, block: int = 1024):
@@ -1296,12 +1338,61 @@ def oracle_parts(X, w, y, classes: int, l2: float, device) -> dict:
     return out
 
 
-def device_busy_share(fn) -> tuple:
-    """(wall ms of one `fn()` call, the share of it the card spent in
-    kernels) from a torch.profiler trace of the call; the share is None
-    when the trace holds no device time."""
+def trace_device_us(prof) -> float:
+    """The device time of a finished torch.profiler trace: the sum of its
+    device-side activities' durations (kernels, copies, fills), the same
+    sum as `self_device_time_total` over `key_averages()`' CUDA entries
+    (a CPU op's entry counts its kernels' time too, so only the device's
+    own entries count), read from the raw trace: `key_averages()` builds
+    every event's tree first, which takes tens of seconds on a trace of a
+    fit's tens of thousands of launches."""
+    from torch.autograd import DeviceType
+
+    # the names key_averages() leaves out (torch.autograd.profiler._filter_name)
+    skip = {"[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+            "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+            "aten::is_leaf", "aten::output_nr", "aten::_version"}
+    total_ns = 0
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_async()
+                or e.start_thread_id() != e.end_thread_id() or e.name() in skip
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        total_ns += e.end_ns() - e.start_ns()
+    return total_ns / 1e3
+
+
+def hold_trace_read(launches: int = 1000) -> None:
+    """`trace_device_us` against `key_averages()`' sum on one trace of
+    2 x `launches` small kernels: equal to 1e-9 relative (the script's
+    busy shares read the first), with each read's seconds."""
     import torch
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(4096, 256, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            (x * 2.0).sum(0)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw = trace_device_us(prof)
+    t1 = time.perf_counter()
+    agg = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    t2 = time.perf_counter()
+    log(f"  profiler device time of {2 * launches} launches: raw events {raw:.3f} us in "
+        f"{t1 - t0:.3f} s, key_averages() {agg:.3f} us in {t2 - t1:.3f} s")
+    if not raw > 0 or abs(raw - agg) > 1e-9 * agg:
+        raise AssertionError("trace_device_us differs from the key_averages() sum")
+
+
+def device_busy_share(fn) -> tuple:
+    """(wall ms of one `fn()` call, the share of it the card spent in
+    kernels) from a torch.profiler trace of the call (`trace_device_us`);
+    the share is None when the trace holds no device time."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1310,9 +1401,7 @@ def device_busy_share(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # the kernels' own entries: a CPU op's entry counts its kernels' time too
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    busy_us = trace_device_us(prof)
     return wall_ms, (busy_us / 1e3 / wall_ms if busy_us > 0 else None)
 
 
@@ -2422,11 +2511,10 @@ def phase_dbscan_cell(device, name: str, X, eps: float, min_samples: int) -> dic
         lab0 = torch.full((n,), n, dtype=torch.int32, device=device)
         e = torch.tensor(eps, dtype=Xt.dtype, device=device)
         one_pass = lambda: db._reduce(Xt, x2, valid, lab0, e * e, n, r["block"])  # noqa: E731
-        r["pass_ms"] = cuda_ms(one_pass, reps=1)
-        if cap is not None and dtype == np.float32:
-            wall, r["device_busy_share"] = device_busy_share(lambda: model.transform(X))
-        else:
-            wall, r["device_busy_share_one_pass"] = device_busy_share(one_pass)
+        # the transform above ran the pass's code already: one pass timed,
+        # and one under torch.profiler
+        r["pass_ms"] = cuda_ms(one_pass, reps=1, warm=False)
+        wall, r["device_busy_share_one_pass"] = device_busy_share(one_pass)
         del Xt, x2, valid, lab0
         rec["runs"][key] = r
         labels[key] = lab
@@ -2438,8 +2526,7 @@ def phase_dbscan_cell(device, name: str, X, eps: float, min_samples: int) -> dic
             f"{rec['pass_materialised_bound_ms'] / r['pass_ms']:.1%}); {r['clusters']} clusters, "
             f"noise {r['noise_share']:.4f}; memory the transform adds "
             f"{r['max_memory_allocated_GB']:.2f} GB; card busy "
-            f"{r.get('device_busy_share', r.get('device_busy_share_one_pass')) or 0:.1%}"
-            f"{'' if 'device_busy_share' in r else ' (one pass)'}")
+            f"{r['device_busy_share_one_pass'] or 0:.1%} (one pass)")
     a, b, c = labels.values()
     rec["ari_float32_vs_float64"] = adjusted_rand(a, c)
     diff = partition_differences(a, c)
@@ -3186,6 +3273,7 @@ def phase_forest_float64(device, n: int, seed: int) -> dict:
 # (1.6 s a tree), (m) 2 of its 30 (0.9 s a tree), their fits from numpy 1
 # (the same first tree)
 RF_N_ROWS, RF_N_TREES = 100_000_000, 1
+RF_O_ROWS = 100_000  # (o)'s rows, fitted on the card and on the CPU
 RF_L_TREES, RF_M_TREES, RF_NUMPY_TREES = 2, 2, 1
 
 
@@ -3278,7 +3366,7 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
     del Xn, yn, Xn_host, yn_host
     torch.cuda.empty_cache()
 
-    cells.extend(phase_forest_float64(device, 200_000, args.seed + 75)["cells"])
+    cells.extend(phase_forest_float64(device, RF_O_ROWS, args.seed + 75)["cells"])
 
     with tempfile.TemporaryDirectory() as tmp:
         clf_model.save(os.path.join(tmp, "rfc"))
@@ -3301,6 +3389,8 @@ def phase_forest(device, args, wide_X, wide_y) -> dict:
 # (p)'s file holds phase 5's (b) rows with its first columns scaled by these
 # (phase 10's spectral gap)
 PARQUET_SCALE = np.array([16.0, 8.0, 4.0], np.float32)
+# (p)'s file: the first PARQUET_ROWS of phase 5's (b) rows at its full width
+PARQUET_ROWS = 500_000
 
 
 def start_reference_parquet(path: str, X, y):
@@ -3595,7 +3685,7 @@ def _parquet_reference_cells(device, tmp: str, X, y, path: str, written) -> list
     cells.append(rec)
 
     # (q): the streamed route, by the budget and by the flag
-    # a budget of 0.8 x half the rows' bytes (at 1M x 3000: 4.8 GB, below 12 GB)
+    # a budget of 0.8 x half the rows' bytes (at 500k x 3000: 2.4 GB, below 6 GB)
     port_config.set_config(hbm_bytes=n * d * 4 // 2)
     try:
         with capture(streaming, "linreg_streaming_stats", store):
@@ -3902,7 +3992,7 @@ def phase_summarize(device, p_path: str, p_rows: int, wide_X) -> list:
     metrics of the bench cell in one pass, then one pass per metric; the
     moments held against float64 numpy (1e-5), the distinct counts against
     the estimate of the numpy twin's registers.  Then the device metrics of
-    (p)'s 12 GB file twice: the first call decodes and fills the cache, the
+    (p)'s 6 GB file twice: the first call decodes and fills the cache, the
     second replays; the moments held against float64 (1e-5).  The
     quantiles of (p)'s 3000 columns (a host sketch) are left out: a pass of
     the sketch over 3000 columns costs minutes of host time."""
@@ -5954,14 +6044,43 @@ def _hold_outputs(name: str, got: dict, want: dict) -> float:
     return worst
 
 
+def _knn_transform(model, dtype):
+    """A served kNN model's transform: `_search` on the rows in `dtype`;
+    `transform.rows` lists the rows of each call."""
+    def transform(Q):
+        transform.rows.append(len(Q))
+        dist, pos = model._search(np.asarray(Q, dtype), SERVE_K)
+        return {"distances": dist, "indices": pos}
+
+    transform.rows = []
+    return transform
+
+
+def _hold_knn(name: str, got: dict, want: dict, err_limit: float, tie_tol: float) -> float:
+    """Served kNN answers against the model's own search of the same rows:
+    distances within err_limit, and ids equal but at ties (a differing
+    slot's distance equals the reference's within tie_tol, relative and
+    absolute: the kernel's rounding)."""
+    g, w = got["distances"].astype(np.float64), want["distances"].astype(np.float64)
+    err = float(np.abs(g - w).max())
+    diff = got["indices"] != want["indices"]
+    tie = np.isclose(g[diff], w[diff], rtol=tie_tol, atol=tie_tol)
+    if err > err_limit or not tie.all():
+        raise AssertionError(f"(hh) {name}: served differs (d err {err:.3e}, "
+                             f"{int((~tie).sum())} id slots not ties)")
+    return err
+
+
 def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
-    """(hh): bench_serving at full width through the entry points, and the
-    fused kernel's rows at the served batch sizes."""
+    """(hh): bench_serving at full width through the entry points, a
+    float64 kNN model beside the float32 one, and the fused kernel's rows at
+    the served batch sizes in both types."""
     import torch
 
     from spark_rapids_ml_torch import config
     from spark_rapids_ml_torch.classification import LogisticRegression
     from spark_rapids_ml_torch.feature import PCA
+    from spark_rapids_ml_torch.knn import NearestNeighbors
     from spark_rapids_ml_torch.ops import fused_knn as fk
     from spark_rapids_ml_torch.serving import ServingServer
     from spark_rapids_ml_torch.telemetry import utilization
@@ -5973,25 +6092,33 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
     t0 = time.perf_counter()
     pca = PCA(k=3).setInputCol("features").setOutputCol("proj").fit({"features": items})
     t_pca = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    knn64 = NearestNeighbors(k=SERVE_K, float32_inputs=False).fit(
+        {"features": items.astype(np.float64)})
+    t_knn64 = time.perf_counter() - t0
     log(f"  (hh) fits: LogisticRegression {lr_X.shape[0]} x {lr_X.shape[1]} {t_lr:.2f} s, "
-        f"PCA k=3 {items.shape[0]} x {items.shape[1]} {t_pca:.2f} s")
+        f"PCA k=3 {items.shape[0]} x {items.shape[1]} {t_pca:.2f} s, float64 "
+        f"NearestNeighbors k={SERVE_K} on the float64 copy of the items {t_knn64:.2f} s")
 
-    def knn_transform(Q):
-        dist, pos = knn_model._search(np.asarray(Q, np.float32), SERVE_K)
-        return {"distances": dist, "indices": pos}
-
-    models = {"logreg": (lr, None, lr_X.shape[1]), "pca": (pca, None, items.shape[1]),
-              "knn": (knn_model, knn_transform, items.shape[1])}
+    # name: (model, transform, width, request dtype, kNN tolerances: the
+    # distances' absolute error, a tie's; the distances are about 16)
+    models = {"logreg": (lr, None, lr_X.shape[1], np.float32, None),
+              "pca": (pca, None, items.shape[1], np.float32, None),
+              "knn": (knn_model, _knn_transform(knn_model, np.float32), items.shape[1],
+                      np.float32, (1e-4, 1e-5)),
+              "knn64": (knn64, _knn_transform(knn64, np.float64), items.shape[1], np.float64,
+                        (1e-9, 1e-10))}
     config.set_config(serving_max_wait_ms=5.0)  # bench_serving's
     server = ServingServer()
-    for name, (m, fn, d) in models.items():
-        server.register(name, m, n_features=d, transform=fn)
+    for name, (m, fn, d, dt, _) in models.items():
+        server.register(name, m, dtype=dt, n_features=d, transform=fn)
     server.start()
     rng = np.random.default_rng(seed + 160)
-    cells, served_launches = [], None
+    cells, served_launches, served64 = [], None, None
     try:
-        for name, (m, fn, d) in models.items():
-            reqs = [rng.standard_normal((1, d), dtype=np.float32) for _ in range(SERVE_REQUESTS)]
+        for name, (m, fn, d, dt, knn_tol) in models.items():
+            reqs = [rng.standard_normal((1, d), dtype=np.float32).astype(dt)
+                    for _ in range(SERVE_REQUESTS)]
             seq = fn or m._transform_array
             seq(reqs[0])
             server.transform(name, reqs[0], timeout=300)
@@ -6002,12 +6129,16 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
             _settled(server)
             b0 = server.pipeline_info()["batches"]
             utilization.clear()
+            if knn_tol:
+                fn.rows.clear()
             reset_counts()
             t0 = time.perf_counter()
             futs = [server.submit(name, r) for r in reqs]
             outs = [f.result(timeout=300) for f in futs]
             srv_s = time.perf_counter() - t0
+            batch_rows = list(fn.rows) if knn_tol else None  # the served batches' rows
             launches = {"main": fk.LAUNCHES, "smallq": fk.SMALLQ_LAUNCHES,
+                        "main_f64": fk.LAUNCHES_F64, "smallq_f64": fk.SMALLQ_F64_LAUNCHES,
                         "split": fk.SPLIT_LAUNCHES, "merge": fk.MERGE_LAUNCHES}
             _settled(server)
             batches = server.pipeline_info()["batches"] - b0
@@ -6020,20 +6151,20 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
             want = seq(np.concatenate(reqs))
             got = {c: np.concatenate([o[c] for o in outs]) for c in outs[0]}
             if name == "knn":
-                # ids equal but at ties: a differing slot's distance equals
-                # the reference's within the kernel's float32 rounding
-                err = float(np.abs(got["distances"] - want["distances"]).max())
-                diff = got["indices"] != want["indices"]
-                tie = np.isclose(got["distances"][diff], want["distances"][diff],
-                                 rtol=1e-5, atol=1e-5)
-                if err > 1e-4 or not tie.all():
-                    raise AssertionError(f"(hh) knn: served differs (d err {err:.3e}, "
-                                         f"{int((~tie).sum())} id slots not ties)")
+                err = _hold_knn(name, got, want, *knn_tol)
                 if launches["smallq"] < 1 or launches["main"] + launches["smallq"] != batches:
                     raise AssertionError(f"(hh) the served kNN route should launch the small-q "
                                          f"kernel (one main kernel a batch, {batches} "
                                          f"batches): {launches}")
                 served_launches = dict(launches, batches=batches)
+            elif name == "knn64":
+                err = _hold_knn(name, got, want, *knn_tol)
+                if launches["smallq_f64"] < batches or launches["main_f64"]:
+                    raise AssertionError(f"(hh) the served float64 kNN route should launch the "
+                                         f"float64 small-q kernel at least once a batch and "
+                                         f"never the float64 main kernel ({batches} batches): "
+                                         f"{launches}")
+                served64 = dict(launches, batches=batches)
             else:
                 err = _hold_outputs(name, got, want)
             cell = {
@@ -6044,15 +6175,15 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
                 "pipeline_depth": server.pipeline_info()["depth"], **util,
                 "profiled_burst_ms": prof_ms, "kernel_busy_share": busy,
             }
-            if name == "knn":
-                cell["launches"] = launches
+            if knn_tol:
+                cell.update(launches=launches, batch_rows_max=max(batch_rows))
             log(f"  (hh) {name}: sequential {cell['seq_qps']:.1f} q/s, served {cell['qps']:.1f} "
                 f"q/s ({cell['speedup_x']:.2f}x) in {batches} batches, p50 "
                 f"{cell['p50_ms']} ms, p99 {cell['p99_ms']} ms, depth "
                 f"{cell['pipeline_depth']}, idle share {util['idle_share']} (timeline; "
                 f"kernels {busy} of a profiled burst of {prof_ms:.1f} ms), max err "
-                f"{err:.3e}" + (f", launches {launches}" if name == "knn" else "")
-                + f" [{card}]")
+                f"{err:.3e}" + (f", launches {launches}, the largest batch {max(batch_rows)} rows"
+                                if knn_tol else "") + f" [{card}]")
             cells.append(cell)
         totals = server.report()["_totals"]
         log(f"  (hh) pinned bytes {totals['pinned_bytes']}, batches {totals['batches']}")
@@ -6075,7 +6206,6 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
               f"{served_launches['smallq']}, 3xTF32 {served_launches['main']}, split "
               f"{served_launches['split']}, merge {served_launches['merge']})")
     kernels, f64_cells = [], []
-    items64, valid64 = items_t.double(), valid_t.double()
     for q in SERVE_QS:
         Qt = torch.as_tensor(rng.standard_normal((q, dim), dtype=np.float32), device=device)
         q2 = (Qt * Qt).sum(dim=1)
@@ -6131,22 +6261,6 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
             launches_per_batch=per_batch, kernel_device_ms=kernel_ms, merge_device_ms=merge_ms,
             fp32_bound_ms=fp32_ms, splits_sweep=sweep, tf32_route_ms=tf_ms,
             tf32_route_max_abs_err=tf_err, tf32_route_splits=tf_splits))
-        # float64 at the served sizes: recorded only (the served route is float32)
-        Q64 = Qt.double()
-        f64_ms = cuda_ms(lambda: fk.fused_topk_sqdist(items64, valid64, Q64, SERVE_K),
-                         reps=10)
-        f64_lib = cuda_ms(lambda: library_topk(items64, Q64, SERVE_K), reps=10)
-        f64_bound, f64_by = bound(2.0 * q * n * dim, _PEAK_FP64,
-                                  8.0 * (n * dim + q * dim + 2 * n) + 12.0 * q * SERVE_K)
-        log(f"  (hh) float64 fused_topk_sqdist at q={q} over the float64 copy of the items: "
-            f"{f64_ms:.4f} ms (bound {f64_bound:.4f} ms, {f64_by}, share "
-            f"{f64_bound / f64_ms:.1%}); torch.matmul + torch.topk in float64 {f64_lib:.4f} ms "
-            f"[{card}]")
-        f64_cells.append({"cell": f"(hh) float64 function at q={q}", "n": n, "d": dim,
-                          "k": SERVE_K, "ms": f64_ms, "library_ms": f64_lib,
-                          "bound_ms": f64_bound, "bound_by": f64_by})
-    del items64, valid64
-
     # the sweep that set fk._SMALL_Q: both routes by q, called directly
     route_sweep = {}
     for q in SMALLQ_SWEEP:
@@ -6165,7 +6279,103 @@ def serve_hh(device, lr_X, lr_y, knn_model, seed: int, card: str) -> tuple:
     f64_cells.append({"cell": "(hh) routes by q, ms small-q / 3xTF32",
                       "sweep": {str(q): list(t) for q, t in route_sweep.items()},
                       "small_q": fk._SMALL_Q})
-    return cells + f64_cells, kernels
+    rows64, sweep64 = smallq_f64_rows(device, knn64, served64, rng, card)
+    return cells + f64_cells + sweep64, kernels + rows64
+
+
+def smallq_f64_rows(device, knn64, served: dict, rng, card: str) -> tuple:
+    """The float64 function at the served batch sizes, on the float64
+    model's staged items: the route (the float64 small-q kernel, then the
+    merge) against its plain version and the float64 main-kernel route
+    called directly, timed beside its bound, the plain version and
+    torch.matmul + torch.topk in float64; then the sweep that set
+    fk._SMALL_Q_F64.  Returns (kernel entries, cells)."""
+    import torch
+
+    from spark_rapids_ml_torch.ops import fused_knn as fk
+
+    items64, valid64, _ = knn64._device_items[1]
+    n, dim = items64.shape
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_batch = served["smallq_f64"] / max(served["batches"], 1)
+    note = (f"launches are (hh)'s served float64 run ({served['batches']} batches: float64 "
+            f"small-q {served['smallq_f64']}, float64 main {served['main_f64']}, merge "
+            f"{served['merge']})")
+
+    def main_route(Qt, q2, splits):
+        # the float64 main kernel as the route ran it: the norms pass first
+        return fk.merge_partials(*fk.fused_knn_f64(items64, Qt, fk.padded_item_norms(
+            items64, valid64), SERVE_K, splits), q2, SERVE_K)
+
+    entries, cells = [], []
+    for q in SERVE_QS:
+        Qt = torch.as_tensor(rng.standard_normal((q, dim)), device=device)
+        q2 = (Qt * Qt).sum(dim=1)
+        if fk.route(q, SERVE_K, torch.float64) != "fused_knn_smallq_f64":
+            raise AssertionError(f"(hh) float64 q={q}: the route does not take the float64 "
+                                 f"small-q kernel")
+        splits = fk.smallq_splits(n, q, fk.smallq_wave(device, q, torch.float64),
+                                  fk._SQ_QBLOCK_F64)
+        main_splits = fk.auto_splits(n, q, SERVE_K, sms, torch.float64)
+        kd, kp = fk.fused_topk_sqdist(items64, valid64, Qt, SERVE_K)
+        td, tp = fk.fused_topk_sqdist_reference(items64, valid64, Qt, SERVE_K, bq=1024, bn=8192)
+        md, mp = main_route(Qt, q2, main_splits)
+        torch.cuda.synchronize()
+        host_items, host_q = knn64.item_features, Qt.cpu().numpy()
+        err = compare_ties_aside(f"(hh) float64 q={q}: small-q route vs its plain version", kd,
+                                 kp, td, tp, host_items, host_q, exact=False)
+        main_err = compare_ties_aside(f"(hh) float64 q={q}: main-kernel route vs its plain "
+                                      "version", md, mp, td, tp, host_items, host_q, exact=False)
+        ms = cuda_ms(lambda: fk.fused_topk_sqdist(items64, valid64, Qt, SERVE_K), reps=20)
+        kernel_ms = graph_ms(lambda: fk.fused_knn_smallq_f64(items64, valid64, Qt, SERVE_K,
+                                                             splits))
+        part_d, part_i = fk.fused_knn_smallq_f64(items64, valid64, Qt, SERVE_K, splits)
+        merge_ms = graph_ms(lambda: fk.merge_partials(part_d, part_i, q2, SERVE_K))
+        main_ms = cuda_ms(lambda: main_route(Qt, q2, main_splits), reps=10)
+        plain_ms = cuda_ms(lambda: fk.fused_topk_sqdist_reference(
+            items64, valid64, Qt, SERVE_K, bq=1024, bn=8192), reps=2)
+        library_ms = cuda_ms(lambda: library_topk(items64, Qt, SERVE_K), reps=10)
+        # each input read once (items, validity, queries), the (q, k)
+        # distances and int32 positions written once
+        nbytes = 8.0 * (n * dim + n + q * dim) + 12.0 * q * SERVE_K
+        bound_ms, bound_by = bound(2.0 * q * n * dim, _PEAK_FP64, nbytes)
+        log(f"  (hh) float64 fused_topk_sqdist at q={q} over {n} x {dim}, k={SERVE_K}: small-q "
+            f"route {ms:.4f} ms (the kernel {kernel_ms:.4f} ms and the merge {merge_ms:.4f} ms "
+            f"on the card, at S = {splits}) (bound {bound_ms:.4f} ms, {bound_by}, share "
+            f"{bound_ms / ms:.1%}); float64 main-kernel route {main_ms:.4f} ms (S = "
+            f"{main_splits}); plain {plain_ms:.3f} ms; torch.matmul + torch.topk in float64 "
+            f"{library_ms:.4f} ms ({library_ms / ms:.2f}x the route); {per_batch:.2f} float64 "
+            f"small-q launches a served batch [{card}]")
+        entries.append(entry(
+            "fused_knn_smallq_f64_kernel", served["smallq_f64"], err, ms, plain_ms, bound_ms,
+            bound_by, library_ms, f"served: {n}x{dim} float64 items, q={q}, k={SERVE_K}, "
+            f"S={splits}; ms is the whole fused_topk_sqdist call (float64 small-q kernel + "
+            "merge); " + note + "; kernel_device_ms and merge_device_ms are one call in a CUDA "
+            "graph; main_route_ms is the norms pass + float64 main kernel + merge on the same "
+            "queries, called directly (the route no longer takes it at this q)",
+            launches_per_batch=per_batch, kernel_device_ms=kernel_ms, merge_device_ms=merge_ms,
+            main_route_ms=main_ms, main_route_max_abs_err=main_err,
+            main_route_splits=main_splits))
+
+    # the sweep that set fk._SMALL_Q_F64: both float64 routes by q, called directly
+    sweep = {}
+    for q in SMALLQ_SWEEP:
+        Qt = torch.as_tensor(rng.standard_normal((q, dim)), device=device)
+        q2 = (Qt * Qt).sum(dim=1)
+        s_sq = fk.smallq_splits(n, q, fk.smallq_wave(device, q, torch.float64),
+                                fk._SQ_QBLOCK_F64)
+        s_main = fk.auto_splits(n, q, SERVE_K, sms, torch.float64)
+        sweep[q] = (
+            cuda_ms(lambda: fk.merge_partials(*fk.fused_knn_smallq_f64(
+                items64, valid64, Qt, SERVE_K, s_sq), q2, SERVE_K), reps=10),
+            cuda_ms(lambda: main_route(Qt, q2, s_main), reps=10))
+    log(f"  (hh) float64 routes by q at {n} x {dim}, k={SERVE_K}, ms small-q / main kernel "
+        f"(fk._SMALL_Q_F64 = {fk._SMALL_Q_F64}): " + ", ".join(
+            f"{q}: {a:.4f} / {b:.4f}" for q, (a, b) in sweep.items()) + f" [{card}]")
+    cells.append({"cell": "(hh) float64 routes by q, ms small-q / main kernel",
+                  "sweep": {str(q): list(t) for q, t in sweep.items()},
+                  "small_q_f64": fk._SMALL_Q_F64})
+    return entries, cells
 
 
 def _scale_models(seed: int):
@@ -6406,6 +6616,13 @@ def phase_build(args) -> None:
         found = [c[op] for name, c in counts.items() if name.startswith(kernel)]
         if not found or min(found) < 1:
             raise AssertionError(f"{kernel}: an instance's SASS holds no {op}")
+    # the float64 small-q kernel keeps its 32 double accumulators in
+    # registers: no instance may touch local memory
+    local = {name: c["LDL"] + c["STL"] for name, c in counts.items()
+             if name.startswith("fused_knn_smallq_f64_kernel")}
+    if len(local) != 6 or any(local.values()):
+        raise AssertionError(f"fused_knn_smallq_f64_kernel: instances and their LDL + STL "
+                             f"{local} (six instances, none with local memory)")
 
 
 def main() -> int:
@@ -6426,7 +6643,7 @@ def main() -> int:
     ap.add_argument("--h-rows", type=int, default=100_000_000)
     ap.add_argument("--j-rows", type=int, default=300_000)
     ap.add_argument("--k-rows", type=int, default=200_000)
-    ap.add_argument("--k-dbscan-rows", type=int, default=20_000)
+    ap.add_argument("--k-dbscan-rows", type=int, default=10_000)
     ap.add_argument("--r-rows", type=int, default=2_000_000)
     args = ap.parse_args()
 
@@ -6473,6 +6690,7 @@ def main() -> int:
     # runs nvcc in other processes)
     logistic_rows = start_logistic_rows(args)
     phase_build(args)
+    hold_trace_read()
 
     stage("phase 2: kernels vs their plain versions on the card")
     phase_kernels_vs_plain(device, args.seed)
@@ -6500,11 +6718,12 @@ def main() -> int:
     import shutil
 
     wide_X, wide_y = pca_linear.pop("X_f"), logistic.pop("y_wide")
+    p_X, p_y = wide_X[:PARQUET_ROWS], wide_y[:PARQUET_ROWS]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
-    # phase 10's 12 GB file, written on a host thread beside phases 8 and 9
+    # phase 10's 6 GB file, written on a host thread beside phases 8 and 9
     # (which only read the rows)
     parquet_path = os.path.join(tmp, "ref_1m_3k.parquet")
-    parquet_written = start_reference_parquet(parquet_path, wide_X, wide_y)
+    parquet_written = start_reference_parquet(parquet_path, p_X, p_y)
     try:
         stage(f"phase 8: KMeans and DBSCAN: (h) KMeans k=20 at BASELINE.json's 100M x 64, (i) "
               "the reference benchmark's kmeans_k1000_iter30 at 1M x 3000, (j) DBSCAN on "
@@ -6517,17 +6736,18 @@ def main() -> int:
               "(o) float64, card against CPU")
         forest = phase_forest(device, args, wide_X, wide_y)
 
-        stage("phase 10: parquet: (p) the reference benchmark's 1M x 3000 input as parquet "
-              "through the fused and staged routes, (q) the streamed route on it, (r) "
-              "bench.py's 2M x 64 epoch-streaming cell")
-        parquet = phase_parquet(device, args, wide_X, wide_y, tmp, parquet_written)
+        stage(f"phase 10: parquet: (p) {PARQUET_ROWS} rows of the reference benchmark's "
+              "1M x 3000 input as parquet through the fused and staged routes, (q) the "
+              "streamed route on it, (r) bench.py's 2M x 64 epoch-streaming cell")
+        parquet = phase_parquet(device, args, p_X, p_y, tmp, parquet_written)
         stage("phase 11: chunk cache and stats: (s) bench.py's epoch-cache cell, (t) DuHL on "
               "(r)'s file, (u) summarize: bench.py's cell and (p)'s file")
-        cache_stats = phase_cache_stats(device, tmp, parquet["paths"], wide_X.shape[0],
-                                        args.r_rows, wide_X)
+        cache_stats = phase_cache_stats(device, tmp, parquet["paths"], p_X.shape[0],
+                                        args.r_rows, p_X)
     finally:
         parquet_written.exception()  # the writer has stopped before its directory goes
         shutil.rmtree(tmp, ignore_errors=True)
+    del p_X, p_y
     stage("phase 12: the meta layer: (v) bench.py's cv_cached cell, (w) CrossValidator, "
           "fitMultiple and evaluate at the reference benchmark's width")
     meta = phase_meta(device, args, wide_X, wide_y)

@@ -38,7 +38,10 @@
 // float64 runs two: fused_knn_f64_kernel (the distance tile on the FP64
 // tensor cores, mma.sync m16n8k4 .f64, with the same grid, selection and
 // partial lists as the float32 main kernel) and the merge pass.  Its
-// design, and what bounds it, are described above the kernel.
+// design, and what bounds it, are described above the kernel.  float64
+// with few queries (q <= _SMALL_Q_F64, k <= 32) takes
+// fused_knn_smallq_f64_kernel instead: the small-q kernel's body on
+// doubles (IEEE float64 FMAs on the CUDA cores), then the merge pass.
 //
 // What bounds the float32 kernel.  2*q*n*d multiply-adds against
 // (n + q)*d input bytes: at any realistic q it is bound by operations.
@@ -1187,116 +1190,152 @@ fused_knn_f64_kernel(const double* __restrict__ items,    // (n, d)
 }
 
 // ============================================================================
-// float32 at small q: one streaming pass over the raw items (CUDA cores)
+// small q, float32 and float64: one streaming pass over the raw items (CUDA cores)
 // ============================================================================
 //
-// fused_knn_smallq_kernel serves the TPU kernel's function
+// fused_knn_smallq_kernel (float32) and fused_knn_smallq_f64_kernel
+// (float64) serve the TPU kernel's function
 // (spark_rapids_ml_tpu/ops/pallas_knn.py:113 `fused_topk_sqdist`) where a
 // call brings few queries: a served kNN batch, a kneighbors call with a
-// handful of rows.  It leaves the same (q, S, k) sorted partial lists as
-// fused_knn_tf32_kernel, and the merge pass joins them.
+// handful of rows.  They leave the same (q, S, k) sorted partial lists as
+// the main kernels, and the merge pass joins them.  Both are one body,
+// smallq_body<T, QT>, on the element type T.
 //
-// What bounds it.  The float32 items are read once, n * d * 4 bytes
-// (512 MB at 1M x 128: 0.153 ms at 3.35 TB/s), against 2 * q * n * d
-// operations in IEEE float32 FMAs on the CUDA cores (67 TFLOP/s): bound by
-// bytes up to q of about 40, by operations above.  The 3xTF32 route cannot
-// come near that at small q: its blocks carry 128 query rows (127 of them
-// padding at q = 1), its grid is ceil(q / 128) x at most 32 splits, and
-// every call writes the items' TF32 halves (1 GB at 1M x 128) and their
-// norms before the main kernel reads them back.
+// What bounds them.  The items are read once, n * d * sizeof(T) bytes
+// (float32 512 MB at 1M x 128: 0.153 ms at 3.35 TB/s; float64 1 GB: 0.306
+// ms), against 2 * q * n * d operations in IEEE FMAs on the CUDA cores
+// (67 TFLOP/s in float32, 34 in float64): bound by bytes up to q of about
+// 40 in float32 and 20 in float64, by operations above.  The main kernels
+// cannot come near that at small q: their blocks carry 128 query rows (127
+// of them padding at q = 1), their grid is ceil(q / 128) x at most 32
+// splits, and every call reads the items once more before the main kernel
+// (float32: writes their TF32 halves, 1 GB at 1M x 128, and their norms;
+// float64: their norms, 1 GB read).
 //
 // The design:
 //   1. One pass over the raw items.  No split pass and no norms pass: the
-//      kernel reads the row-major (n, d) float32 items as they are staged
-//      and forms ||x||^2 from the same values it multiplies; items whose
-//      item_valid is not > 0, and rows past n, never become candidates.
-//   2. Fill the card.  A block takes up to SQ_QMAX queries (QT, a power of
+//      kernel reads the row-major (n, d) items as they are staged and forms
+//      ||x||^2 from the same values it multiplies; items whose item_valid
+//      is not > 0, and rows past n, never become candidates.
+//   2. Fill the card.  A block takes up to QMAX queries (QT, a power of
 //      two >= q, is a template argument, so q = 1 spends no work on padded
 //      rows) and one contiguous range of SQ_TILE-item tiles; the wrapper
 //      picks the split count S so that the grid is one wave of resident
-//      blocks (`smallq_splits`: not bounded by the 3xTF32 kernel's 32).
+//      blocks (`smallq_splits`: not bounded by the main kernels' 32).
 //      Each block reduces its 256 threads' candidates into one list per
 //      query, so the merge pass walks one list per block.
-//   3. Asynchronous loads.  Each step brings one depth chunk (SQ_DC floats)
-//      of a 256-item tile and of the block's queries into a ring of as many
-//      slots as shared memory holds (`smallq_stages`: 4 at QT = 64, 6 at
-//      QT <= 4, so at q = 1 five 32 KB chunks are in flight on each SM, far
+//   3. Asynchronous loads.  Each step brings one depth chunk (a 128-byte
+//      row: SqType<T>::DC = 32 floats or 16 doubles) of a 256-item tile and
+//      of the block's queries into a ring of as many slots as shared memory
+//      holds (`smallq_stages`: 4 at the largest QT of either type, 6 at
+//      QT <= 4, so at q = 1 five 36 KB chunks are in flight on each SM, far
 //      above what the SM's share of the bandwidth needs to cover the
-//      latency), with cp.async (16-byte copies where d % 4 == 0 and the
-//      arrays are 16-byte aligned, else 4-byte ones; zero-fill past n, q and
-//      d), so any width works and a chunk lands while the one before it is
-//      used.  An item row sits at a stride of SQ_DC + 4 floats: the
-//      float4 reads of 8 neighbouring rows fall in 8 distinct 16-byte bank
-//      groups.
-//   4. Math.  IEEE float32 fmaf in depth order, score = ||x||^2 - 2 q.x as
-//      the plain twin, QT accumulators a thread in registers.  From QT = 8
+//      latency), with cp.async (16-byte copies where d is a multiple of the
+//      16-byte vector and the arrays are 16-byte aligned, else copies of
+//      one element; zero-fill past n, q and d), so any width works and a
+//      chunk lands while the one before it is used.  An item row sits at a
+//      stride of one vector more than the chunk (SqType<T>::XS): the
+//      16-byte reads of 8 neighbouring rows fall in 8 distinct 16-byte
+//      bank groups.
+//   4. Math.  IEEE fma in depth order, score = ||x||^2 - 2 q.x as the
+//      plain version, QT accumulators a thread in registers.  From QT = 8
 //      on, a thread holds 4 items (rows g + 64 r of the tile) and a quarter
 //      of the queries (the same quarter across a warp, so every query read
-//      is a broadcast): each float4 of a query read from shared memory
-//      feeds 16 FMAs, not 4.  One item and every query a thread at QT <= 4,
-//      where the bytes bound it.  Neighbouring lanes read neighbouring
-//      rows, whose float4s fall in distinct bank groups (stride below).
-//   5. Selection.  Each score is compared with its query's k-th (score,
-//      position) key in shared memory; survivors of a warp take consecutive
-//      slots of the query's SQ_CAP-slot buffer from one atomicAdd.  When a
-//      buffer would overflow, the block stops once (a barrier that also
-//      asks whether anyone waits), each warp merges the buffers of its
-//      queries into their sorted lists (merge_row_regs, k <= 32 in one
-//      register a lane), publishes the k-th key through row_kth as the
-//      3xTF32 kernel does, and the waiting values are filed again.  Past the
-//      first tiles almost no score beats the k-th key, and the selection
-//      costs a compare per query and item.
-// No tensor cores: at a few queries their 128-row tiles would be mostly
-// padding.  What is left between the kernel and its bound at q = 64 (27%
-// of the FP32 bound on an H100; PERF.md, PR 18) is, by the instruction
-// mix, the shared-memory data path: a warp's float4 read of a query writes
-// 512 bytes into its registers, 4 cycles of the SM's 128 B a cycle, and 20
-// such reads come with 256 FMAs a warp.  Above 64 queries the grid takes
-// ceil(q / 64) query blocks, each sweeping the items again (the route sends
-// up to 256 queries here: above that the 3xTF32 kernel is faster).
+//      is a broadcast): each 16-byte vector of a query read from shared
+//      memory feeds 4 x VEC FMAs, not VEC.  One item and every query a
+//      thread at QT <= 4, where the bytes bound it.  float64 takes at most
+//      32 queries a block (QMAX): 4 items x 8 queries = 32 double
+//      accumulators, the 64 registers the float32 kernel's 4 x 16 take;
+//      q = 64 is two query blocks that sweep the same split side by side,
+//      so L2 serves the second its items.
+//   5. Selection.  Each score is compared with its query's k-th key in
+//      shared memory; survivors of a warp take consecutive slots of the
+//      query's SQ_CAP-slot buffer from one atomicAdd.  When a buffer would
+//      overflow, the block stops once (a barrier that also asks whether
+//      anyone waits), each warp merges the buffers of its queries into
+//      their sorted lists (merge_row_regs, k <= 32 in one register a lane),
+//      publishes the k-th entry through row_kth as the main kernels do
+//      (float32 the (score, position) key; float64 the score alone, and a
+//      candidate is dropped only when its score is strictly greater, as in
+//      fused_knn_f64_kernel), and the waiting values are filed again.  Past
+//      the first tiles almost no score beats the k-th key, and the
+//      selection costs a compare per query and item.
+// No tensor cores: at a few queries their tiles would be mostly padding.
+// What is left between the float32 kernel and its bound at q = 64 (27% of
+// the FP32 bound on an H100; PERF.md, PR 18) is, by the instruction mix,
+// the shared-memory data path: a warp's 16-byte read of a query writes 512
+// bytes into its registers, 4 cycles of the SM's 128 B a cycle, and 20
+// such reads come with 256 FMAs a warp (float64 at QT = 32: 12 reads with
+// 64 FMAs, each FMA half the float32 rate).  Above QMAX queries the grid
+// takes ceil(q / QMAX) query blocks, each sweeping the items again (the
+// route sends up to _SMALL_Q / _SMALL_Q_F64 queries here: above that the
+// main kernels are faster).  The float64 instance at 1M x 128 reads the
+// items at about 80% of the bytes bound at q = 1 (the kernel alone), and
+// at q = 32 the call takes about 3.6x its FP64 FMA time at 34 TFLOP/s
+// (PERF.md, PR 19): by the same count, the shared-memory data path.
 
 constexpr int SQ_THREADS = 256;
 constexpr int SQ_TILE = SQ_THREADS;   // items per tile
 constexpr int SQ_WARPS = SQ_THREADS / 32;
-constexpr int SQ_QMAX = 64;           // queries per block
-constexpr int SQ_DC = 32;             // floats per depth chunk
-constexpr int SQ_XS = SQ_DC + 4;      // an item row's stride in a chunk (floats)
 constexpr int SQ_MAX_STAGES = 6;      // ring slots, as many as shared memory holds
 constexpr int SQ_CAP = 64;            // candidate slots per query
 
-struct SmemSQ {
-  uint32_t qchunk, stage_bytes, list_d, list_i, cand_d, cand_i, cnt, thr_d, thr_i, total;
+// What the element type fixes: the 16-byte vector V of VEC elements, the
+// elements of a 128-byte depth chunk (DC), an item row's stride in a chunk
+// (XS, one vector more) and the queries a block takes (QMAX).
+template <typename T>
+struct SqType;
+template <>
+struct SqType<float> {
+  using V = float4;
+  static constexpr int VEC = 4, DC = 32, XS = DC + VEC, QMAX = 64;
+};
+template <>
+struct SqType<double> {
+  using V = double2;
+  static constexpr int VEC = 2, DC = 16, XS = DC + VEC, QMAX = 32;
 };
 
-// Ring slots of the small-q kernel with query block qt: as many as the
-// block's shared memory holds beside the per-query state, at most
-// SQ_MAX_STAGES.
+struct SmemSQ {
+  uint32_t qchunk, stage_bytes, list_d, cand_d, thr_d, list_i, cand_i, cnt, thr_i, total;
+};
+
+// Ring slots of the small-q kernel of type T with query block qt: as many
+// as the block's shared memory holds beside the per-query state (a list
+// of 32, SQ_CAP candidates and a threshold, each a T and an int, and a
+// count), at most SQ_MAX_STAGES.
+template <typename T>
 __host__ __device__ constexpr int smallq_stages(int qt) {
-  const uint32_t rows = (uint32_t)qt * (2 * 32 * 4 + 2 * SQ_CAP * 4 + 12);
-  const uint32_t stage = SQ_TILE * SQ_XS * 4 + (uint32_t)qt * SQ_DC * 4;
+  const uint32_t rows = (uint32_t)qt * ((32 + SQ_CAP + 1) * ((uint32_t)sizeof(T) + 4) + 4);
+  const uint32_t stage =
+      (SQ_TILE * SqType<T>::XS + (uint32_t)qt * SqType<T>::DC) * (uint32_t)sizeof(T);
   const uint32_t fit = (SMEM_LIMIT - rows) / stage;
   return fit < (uint32_t)SQ_MAX_STAGES ? (int)fit : SQ_MAX_STAGES;
 }
-static_assert(smallq_stages(SQ_QMAX) >= 3, "small-q ring too shallow at SQ_QMAX");
+static_assert(smallq_stages<float>(SqType<float>::QMAX) >= 3, "small-q ring too shallow");
+static_assert(smallq_stages<double>(SqType<double>::QMAX) >= 3, "small-q ring too shallow");
 
 // Query groups of the small-q kernel with query block qt: 4 from qt = 8
 // on (each thread then holds 4 items and qt / 4 queries), else 1 (one item
 // and every query).
 __host__ __device__ constexpr int smallq_groups(int qt) { return qt >= 8 ? 4 : 1; }
 
-// The ring (each slot a chunk of 256 item rows, then QT query rows), the
-// running lists, the candidate buffers and the thresholds of QT queries.
+// The ring (each slot a chunk of 256 item rows, then QT query rows), then
+// the T arrays of QT queries (running lists, candidate buffers,
+// thresholds; 8-byte aligned for double), then their int arrays.
+template <typename T>
 __host__ __device__ inline SmemSQ smemsq_layout(int qt) {
+  constexpr uint32_t E = sizeof(T);
   SmemSQ s;
-  s.qchunk = SQ_TILE * SQ_XS * 4;
-  s.stage_bytes = s.qchunk + (uint32_t)qt * SQ_DC * 4;
-  s.list_d = smallq_stages(qt) * s.stage_bytes;
-  s.list_i = s.list_d + qt * 32 * 4;
-  s.cand_d = s.list_i + qt * 32 * 4;
-  s.cand_i = s.cand_d + qt * SQ_CAP * 4;
+  s.qchunk = SQ_TILE * SqType<T>::XS * E;
+  s.stage_bytes = s.qchunk + (uint32_t)qt * SqType<T>::DC * E;
+  s.list_d = smallq_stages<T>(qt) * s.stage_bytes;
+  s.cand_d = s.list_d + qt * 32 * E;
+  s.thr_d = s.cand_d + qt * SQ_CAP * E;
+  s.list_i = s.thr_d + qt * E;
+  s.cand_i = s.list_i + qt * 32 * 4;
   s.cnt = s.cand_i + qt * SQ_CAP * 4;
-  s.thr_d = s.cnt + qt * 4;
-  s.thr_i = s.thr_d + qt * 4;
+  s.thr_i = s.cnt + qt * 4;
   s.total = s.thr_i + qt * 4;
   return s;
 }
@@ -1305,54 +1344,75 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src), "r"(bytes)
                : "memory");
 }
+// One element's copy: 4 bytes of a float, 8 of a double.
+__device__ __forceinline__ void cp_async_elem(uint32_t dst, const float* src, uint32_t bytes) {
+  cp_async4(dst, src, bytes);
+}
+__device__ __forceinline__ void cp_async_elem(uint32_t dst, const double* src, uint32_t bytes) {
+  cp_async8(dst, src, bytes);
+}
 
-// Rows row0 .. row0 + ROWS - 1 of a row-major (limit, d) float32 array,
-// columns col0 .. col0 + SQ_DC - 1, into shared memory at dst, `stride`
-// floats a row; rows past limit and columns past d read as zeros.  ROLLED:
-// the 4-byte copies in a rolled loop.  ptxas allocates for both paths; with
-// the 4-byte loop unrolled the instances of 32 and 64 queries spill their
-// accumulators, rolled the instances of 4 and fewer spill instead (H100,
-// CUDA 12.8, `-Xptxas -v`).
-template <int ROWS, bool ROLLED>
-__device__ __forceinline__ void load_chunk_sq(uint32_t dst, int stride,
-                                              const float* __restrict__ src, long long row0,
-                                              long long limit, int d, int col0, bool vec16,
-                                              int tid) {
-  if (vec16) {  // d % 4 == 0: a unit inside the row is whole
-    constexpr int UNITS = ROWS * (SQ_DC / 4);
+// s + a . b over one 16-byte vector, in depth order.
+__device__ __forceinline__ float dot_acc(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+__device__ __forceinline__ double dot_acc(double2 a, double2 b, double s) {
+  s = fma(a.x, b.x, s);
+  return fma(a.y, b.y, s);
+}
+
+// Rows row0 .. row0 + ROWS - 1 of a row-major (limit, d) array of T,
+// columns col0 .. col0 + DC - 1, into shared memory at dst, `stride`
+// elements a row; rows past limit and columns past d read as zeros.
+// ROLLED: the one-element copies in a rolled loop.  ptxas allocates for
+// both paths; with the 4-byte loop unrolled the float32 instances of 32
+// and 64 queries spill their accumulators, rolled the instances of 4 and
+// fewer spill instead (H100, CUDA 12.8, `-Xptxas -v`).
+template <typename T, int ROWS, bool ROLLED>
+__device__ __forceinline__ void load_chunk_sq(uint32_t dst, int stride, const T* __restrict__ src,
+                                              long long row0, long long limit, int d, int col0,
+                                              bool vec16, int tid) {
+  constexpr int DC = SqType<T>::DC, VEC = SqType<T>::VEC;
+  constexpr uint32_t E = sizeof(T);
+  if (vec16) {  // d % VEC == 0: a vector inside the row is whole
+    constexpr int UNITS = ROWS * (DC / VEC);
 #pragma unroll
     for (int it = 0; it < (UNITS + SQ_THREADS - 1) / SQ_THREADS; ++it) {
       const int u = tid + it * SQ_THREADS;
       if (UNITS % SQ_THREADS != 0 && u >= UNITS) break;
-      const int r = u / (SQ_DC / 4), cu = u % (SQ_DC / 4), c = col0 + 4 * cu;
+      const int r = u / (DC / VEC), cu = u % (DC / VEC), c = col0 + VEC * cu;
       const long long row = row0 + r;
       const bool ok = row < limit && c < d;
-      cp_async16(dst + (uint32_t)(r * stride + 4 * cu) * 4u, ok ? src + row * d + c : src,
+      cp_async16(dst + (uint32_t)(r * stride + VEC * cu) * E, ok ? src + row * d + c : src,
                  ok ? 16u : 0u);
     }
   } else {
-    constexpr int UNITS = ROWS * SQ_DC;
+    constexpr int UNITS = ROWS * DC;
 #pragma unroll(ROLLED ? 1 : (UNITS + SQ_THREADS - 1) / SQ_THREADS)
     for (int it = 0; it < (UNITS + SQ_THREADS - 1) / SQ_THREADS; ++it) {
       const int u = tid + it * SQ_THREADS;
       if (UNITS % SQ_THREADS != 0 && u >= UNITS) break;
-      const int r = u / SQ_DC, cc = u % SQ_DC, c = col0 + cc;
+      const int r = u / DC, cc = u % DC, c = col0 + cc;
       const long long row = row0 + r;
       const bool ok = row < limit && c < d;
-      cp_async4(dst + (uint32_t)(r * stride + cc) * 4u, ok ? src + row * d + c : src,
-                ok ? 4u : 0u);
+      cp_async_elem(dst + (uint32_t)(r * stride + cc) * E, ok ? src + row * d + c : src,
+                    ok ? E : 0u);
     }
   }
 }
 
 // The state of a block's QT queries in shared memory.
+template <typename T>
 struct SmallQRows {
-  float* list_d;  // (QT, 32) sorted running lists, (+inf, -1) past their entries
+  T* list_d;      // (QT, 32) sorted running lists, (+inf, -1) past their entries
   int* list_i;
-  float* cand_d;  // (QT, SQ_CAP) candidate buffers
+  T* cand_d;      // (QT, SQ_CAP) candidate buffers
   int* cand_i;
   int* cnt;       // (QT,) values filed (past SQ_CAP: some wait)
-  float* thr_d;   // (QT,) the k-th key each score must beat
+  T* thr_d;       // (QT,) the k-th key each score must beat
   int* thr_i;
   unsigned long long* row_kth;  // (q,) k-th keys shared across splits
   int q0, qn, k, warp, lane;
@@ -1360,7 +1420,7 @@ struct SmallQRows {
   // File (s, pos) for query j when `want`: the warp's values take
   // consecutive slots from one atomicAdd.  False when the slot is past the
   // buffer: the value waits for the next flush.
-  __device__ __forceinline__ bool file(int j, float s, int pos, bool want) {
+  __device__ __forceinline__ bool file(int j, T s, int pos, bool want) {
     const unsigned mask = __ballot_sync(0xffffffffu, want);
     if (mask == 0) return true;
     const int leader = __ffs(mask) - 1;
@@ -1376,24 +1436,24 @@ struct SmallQRows {
   }
 
   // Between two block barriers: each warp merges the buffers of its
-  // queries into their lists, publishes the k-th keys and reloads the
-  // thresholds.
+  // queries into their lists, publishes the k-th entries and reloads the
+  // thresholds (row_bound: the float32 key, or the float64 score alone).
   __device__ __forceinline__ void flush() {
-    const float INF = CUDART_INF_F;
+    const T INF = pos_inf<T>();
     for (int j = warp; j < qn; j += SQ_WARPS) {
       const int m = min(cnt[j], SQ_CAP);
       if (m == 0) continue;  // the same for the whole warp
-      float ld = list_d[j * 32 + lane];
+      T ld = list_d[j * 32 + lane];
       int li = list_i[j * 32 + lane];
       for (int b = 0; b < m; b += 32) {
         const bool has = b + lane < m;
-        const float v = has ? cand_d[j * SQ_CAP + b + lane] : INF;
+        const T v = has ? cand_d[j * SQ_CAP + b + lane] : INF;
         const int vi = has ? cand_i[j * SQ_CAP + b + lane] : -1;
         merge_row_regs(ld, li, k, v, vi, lane);
       }
       list_d[j * 32 + lane] = ld;
       list_i[j * 32 + lane] = li;
-      const float kth = __shfl_sync(0xffffffffu, ld, k - 1);
+      const T kth = __shfl_sync(0xffffffffu, ld, k - 1);
       const int kth_i = __shfl_sync(0xffffffffu, li, k - 1);
       if (lane == 0) {
         row_bound(&row_kth[q0 + j], kth, kth_i, thr_d[j], thr_i[j]);
@@ -1403,31 +1463,36 @@ struct SmallQRows {
   }
 };
 
-template <int QT>
-__global__ void __launch_bounds__(SQ_THREADS)
-fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
-                        const float* __restrict__ item_valid,  // (n,) > 0 for a real item
-                        const float* __restrict__ queries,     // (q, d)
-                        int n, int q, int d, int k, int kc_count, int tiles_per_split,
-                        int n_tiles, int splits, int vec16,
-                        float* __restrict__ part_d,  // (q, splits, k)
-                        int* __restrict__ part_i,
-                        unsigned long long* __restrict__ row_kth) {  // (q,) NO_KEY at launch
-  constexpr int STAGES = smallq_stages(QT);
+// The body of both small-q kernels, on items, validity and queries of type
+// T, in the dynamic shared memory sq_raw.
+template <typename T, int QT>
+__device__ __forceinline__ void smallq_body(unsigned char* sq_raw,
+                                            const T* __restrict__ items,       // (n, d)
+                                            const T* __restrict__ item_valid,  // (n,) > 0 real
+                                            const T* __restrict__ queries,     // (q, d)
+                                            int n, int q, int d, int k, int kc_count,
+                                            int tiles_per_split, int n_tiles, int splits,
+                                            int vec16,
+                                            T* __restrict__ part_d,  // (q, splits, k)
+                                            int* __restrict__ part_i,
+                                            unsigned long long* __restrict__ row_kth) {
+  using V = typename SqType<T>::V;
+  constexpr int DC = SqType<T>::DC, VEC = SqType<T>::VEC, XS = SqType<T>::XS;
+  constexpr int STAGES = smallq_stages<T>(QT);
   constexpr int H = smallq_groups(QT);  // query groups of C queries
   constexpr int C = QT / H, R = H, GT = SQ_THREADS / H;
-  extern __shared__ __align__(16) unsigned char sq_raw[];
-  const SmemSQ L = smemsq_layout(QT);
+  static_assert(QT <= SqType<T>::QMAX && R * C <= 64, "small-q instance out of range");
+  const SmemSQ L = smemsq_layout<T>(QT);
   const uint32_t base = smem_u32(sq_raw);
   const int tid = threadIdx.x;
-  const float INF = CUDART_INF_F;
-  SmallQRows rows;
-  rows.list_d = reinterpret_cast<float*>(sq_raw + L.list_d);
+  const T INF = pos_inf<T>();
+  SmallQRows<T> rows;
+  rows.list_d = reinterpret_cast<T*>(sq_raw + L.list_d);
   rows.list_i = reinterpret_cast<int*>(sq_raw + L.list_i);
-  rows.cand_d = reinterpret_cast<float*>(sq_raw + L.cand_d);
+  rows.cand_d = reinterpret_cast<T*>(sq_raw + L.cand_d);
   rows.cand_i = reinterpret_cast<int*>(sq_raw + L.cand_i);
   rows.cnt = reinterpret_cast<int*>(sq_raw + L.cnt);
-  rows.thr_d = reinterpret_cast<float*>(sq_raw + L.thr_d);
+  rows.thr_d = reinterpret_cast<T*>(sq_raw + L.thr_d);
   rows.thr_i = reinterpret_cast<int*>(sq_raw + L.thr_i);
   rows.row_kth = row_kth;
   rows.q0 = blockIdx.x * QT;
@@ -1458,11 +1523,11 @@ fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
     if (st < steps) {
       const int kc = st % kc_count;
       const uint32_t slot = base + (st % STAGES) * L.stage_bytes;
-      load_chunk_sq<SQ_TILE, (QT >= 8)>(slot, SQ_XS, items,
-                                        (long long)(t_begin + st / kc_count) * SQ_TILE, n, d,
-                                        kc * SQ_DC, vec16 != 0, tid);
-      load_chunk_sq<QT, (QT >= 8)>(slot + L.qchunk, SQ_DC, queries, rows.q0, q, d, kc * SQ_DC,
-                                   vec16 != 0, tid);
+      load_chunk_sq<T, SQ_TILE, (QT >= 8)>(slot, XS, items,
+                                           (long long)(t_begin + st / kc_count) * SQ_TILE, n, d,
+                                           kc * DC, vec16 != 0, tid);
+      load_chunk_sq<T, QT, (QT >= 8)>(slot + L.qchunk, DC, queries, rows.q0, q, d, kc * DC,
+                                      vec16 != 0, tid);
     }
     cp_async_commit();
   };
@@ -1471,41 +1536,33 @@ fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
   // Thread tid holds items g + GT * r (r < R) of each tile and queries
   // h * C .. h * C + C - 1 of the block: R * C = QT accumulators.
   const int h = tid / GT, g = tid % GT;  // h is the same across a warp
-  float acc[R][C], x2[R];
+  T acc[R][C], x2[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    x2[r] = 0.0f;
+    x2[r] = T(0);
 #pragma unroll
-    for (int jj = 0; jj < C; ++jj) acc[r][jj] = 0.0f;
+    for (int jj = 0; jj < C; ++jj) acc[r][jj] = T(0);
   }
   for (int st = 0; st < steps; ++st) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // step st has landed for every thread; slot (st - 1) is free
     load_step(st + STAGES - 1);
     const unsigned char* slot = sq_raw + (st % STAGES) * L.stage_bytes;
-    const float* xr = reinterpret_cast<const float*>(slot) + g * SQ_XS;
-    const float* qc = reinterpret_cast<const float*>(slot + L.qchunk) + h * C * SQ_DC;
+    const T* xr = reinterpret_cast<const T*>(slot) + g * XS;
+    const T* qc = reinterpret_cast<const T*>(slot + L.qchunk) + h * C * DC;
 #pragma unroll 1
-    for (int c = 0; c < SQ_DC; c += 4) {
-      float4 xv[R];
+    for (int c = 0; c < DC; c += VEC) {
+      V xv[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        xv[r] = *reinterpret_cast<const float4*>(xr + r * GT * SQ_XS + c);
-        x2[r] = fmaf(xv[r].x, xv[r].x, x2[r]);
-        x2[r] = fmaf(xv[r].y, xv[r].y, x2[r]);
-        x2[r] = fmaf(xv[r].z, xv[r].z, x2[r]);
-        x2[r] = fmaf(xv[r].w, xv[r].w, x2[r]);
+        xv[r] = *reinterpret_cast<const V*>(xr + r * GT * XS + c);
+        x2[r] = dot_acc(xv[r], xv[r], x2[r]);
       }
 #pragma unroll
       for (int jj = 0; jj < C; ++jj) {
-        const float4 qv = *reinterpret_cast<const float4*>(qc + jj * SQ_DC + c);
+        const V qv = *reinterpret_cast<const V*>(qc + jj * DC + c);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[r][jj] = fmaf(xv[r].x, qv.x, acc[r][jj]);
-          acc[r][jj] = fmaf(xv[r].y, qv.y, acc[r][jj]);
-          acc[r][jj] = fmaf(xv[r].z, qv.z, acc[r][jj]);
-          acc[r][jj] = fmaf(xv[r].w, qv.w, acc[r][jj]);
-        }
+        for (int r = 0; r < R; ++r) acc[r][jj] = dot_acc(xv[r], qv, acc[r][jj]);
       }
     }
     if (st % kc_count == kc_count - 1) {  // the tile is done: scores, then selection
@@ -1514,11 +1571,11 @@ fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int pos = tile0 + g + GT * r;
-        const bool live = pos < n && item_valid[pos] > 0.0f;
+        const bool live = pos < n && item_valid[pos] > T(0);
 #pragma unroll
         for (int jj = 0; jj < C; ++jj) {
           const int j = h * C + jj;
-          acc[r][jj] = x2[r] - 2.0f * acc[r][jj];
+          acc[r][jj] = x2[r] - T(2) * acc[r][jj];
           const bool want = live && j < rows.qn && acc[r][jj] < INF &&
                             key_less(acc[r][jj], pos, rows.thr_d[j], rows.thr_i[j]);
           if (!rows.file(j, acc[r][jj], pos, want)) wait |= 1ull << (r * C + jj);
@@ -1543,9 +1600,9 @@ fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        x2[r] = 0.0f;
+        x2[r] = T(0);
 #pragma unroll
-        for (int jj = 0; jj < C; ++jj) acc[r][jj] = 0.0f;
+        for (int jj = 0; jj < C; ++jj) acc[r][jj] = T(0);
       }
     }
   }
@@ -1560,6 +1617,40 @@ fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
       part_i[at] = rows.list_i[j * 32 + rows.lane];
     }
   }
+}
+
+template <int QT>
+__global__ void __launch_bounds__(SQ_THREADS)
+fused_knn_smallq_kernel(const float* __restrict__ items,       // (n, d)
+                        const float* __restrict__ item_valid,  // (n,) > 0 for a real item
+                        const float* __restrict__ queries,     // (q, d)
+                        int n, int q, int d, int k, int kc_count, int tiles_per_split,
+                        int n_tiles, int splits, int vec16,
+                        float* __restrict__ part_d,  // (q, splits, k)
+                        int* __restrict__ part_i,
+                        unsigned long long* __restrict__ row_kth) {  // (q,) NO_KEY at launch
+  extern __shared__ __align__(16) unsigned char sq_raw[];
+  smallq_body<float, QT>(sq_raw, items, item_valid, queries, n, q, d, k, kc_count,
+                         tiles_per_split, n_tiles, splits, vec16, part_d, part_i, row_kth);
+}
+
+// The minimum of one block an SM (all that shared memory holds anyway)
+// lets ptxas keep the double accumulators in registers: without it ptxas
+// held the instances of 1, 2, 4 and 16 queries to 128 registers and
+// spilled (H100, CUDA 12.8, `-Xptxas -v`).
+template <int QT>
+__global__ void __launch_bounds__(SQ_THREADS, 1)
+fused_knn_smallq_f64_kernel(const double* __restrict__ items,       // (n, d)
+                            const double* __restrict__ item_valid,  // (n,) > 0 for a real item
+                            const double* __restrict__ queries,     // (q, d)
+                            int n, int q, int d, int k, int kc_count, int tiles_per_split,
+                            int n_tiles, int splits, int vec16,
+                            double* __restrict__ part_d,  // (q, splits, k)
+                            int* __restrict__ part_i,
+                            unsigned long long* __restrict__ row_kth) {  // (q,) NO_KEY at launch
+  extern __shared__ __align__(16) unsigned char sq_raw[];
+  smallq_body<double, QT>(sq_raw, items, item_valid, queries, n, q, d, k, kc_count,
+                          tiles_per_split, n_tiles, splits, vec16, part_d, part_i, row_kth);
 }
 
 // ============================================================================
@@ -1640,11 +1731,11 @@ int launch_merge(const void* part_d, const void* part_i, const void* q2, long lo
 int kc_count64(long long d) { return d > 0 ? (int)((d + BKD - 1) / BKD) : 1; }
 
 // fn(std::integral_constant<int, QT>) for the small-q kernel's query block
-// QT at q queries: the least power of two >= q, at most SQ_QMAX.
-template <typename R, typename F>
+// QT at q queries: the least power of two >= q, at most SqType<T>::QMAX.
+template <typename T, typename R, typename F>
 R by_smallq_width(long long q, R none, F fn) {
   int qt = 1;
-  while (qt < q && qt < SQ_QMAX) qt <<= 1;
+  while (qt < q && qt < SqType<T>::QMAX) qt <<= 1;
   switch (qt) {
     case 1: return fn(std::integral_constant<int, 1>{});
     case 2: return fn(std::integral_constant<int, 2>{});
@@ -1652,47 +1743,77 @@ R by_smallq_width(long long q, R none, F fn) {
     case 8: return fn(std::integral_constant<int, 8>{});
     case 16: return fn(std::integral_constant<int, 16>{});
     case 32: return fn(std::integral_constant<int, 32>{});
-    case 64: return fn(std::integral_constant<int, 64>{});
+  }
+  if constexpr (SqType<T>::QMAX >= 64) {
+    if (qt == 64) return fn(std::integral_constant<int, 64>{});
   }
   return none;
 }
 
-template <int QT>
+// The small-q kernel of type T and query block QT.
+template <typename T, int QT>
+auto smallq_kernel() {
+  if constexpr (std::is_same<T, double>::value)
+    return fused_knn_smallq_f64_kernel<QT>;
+  else
+    return fused_knn_smallq_kernel<QT>;
+}
+
+template <typename T, int QT>
 int launch_smallq(const void* items, const void* item_valid, const void* queries, long long n,
                   long long q, long long d, long long k, long long tiles_per_split,
                   long long splits, void* part_d, void* part_i, void* row_kth, void* stream) {
-  const SmemSQ L = smemsq_layout(QT);
-  const cudaError_t cerr = cudaFuncSetAttribute(
-      fused_knn_smallq_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  const SmemSQ L = smemsq_layout<T>(QT);
+  const auto kernel = smallq_kernel<T, QT>();
+  const cudaError_t cerr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (cerr != cudaSuccess) return (int)cerr;
-  const int kc_count = d > 0 ? (int)((d + SQ_DC - 1) / SQ_DC) : 1;
+  constexpr int DC = SqType<T>::DC, VEC = SqType<T>::VEC;
+  const int kc_count = d > 0 ? (int)((d + DC - 1) / DC) : 1;
   const int n_tiles = (int)((n + SQ_TILE - 1) / SQ_TILE);
-  const bool vec16 = d % 4 == 0 && reinterpret_cast<uintptr_t>(items) % 16 == 0 &&
+  const bool vec16 = d % VEC == 0 && reinterpret_cast<uintptr_t>(items) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(queries) % 16 == 0;
   const dim3 grid((unsigned)((q + QT - 1) / QT), (unsigned)splits);
-  fused_knn_smallq_kernel<QT><<<grid, SQ_THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(items), static_cast<const float*>(item_valid),
-      static_cast<const float*>(queries), (int)n, (int)q, (int)d, (int)k, kc_count,
-      (int)tiles_per_split, n_tiles, (int)splits, vec16 ? 1 : 0, static_cast<float*>(part_d),
+  kernel<<<grid, SQ_THREADS, L.total, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(items), static_cast<const T*>(item_valid),
+      static_cast<const T*>(queries), (int)n, (int)q, (int)d, (int)k, kc_count,
+      (int)tiles_per_split, n_tiles, (int)splits, vec16 ? 1 : 0, static_cast<T*>(part_d),
       static_cast<int*>(part_i), static_cast<unsigned long long*>(row_kth));
   return (int)cudaGetLastError();
 }
 
-// Blocks of the small-q kernel's instance of query block qt that the card
-// holds at once (a wave), or -1 - cudaError_t.
-template <int QT>
+// Blocks of the small-q kernel's instance of type T and query block QT
+// that the card holds at once (a wave), or -1 - cudaError_t.
+template <typename T, int QT>
 long long smallq_wave() {
-  const SmemSQ L = smemsq_layout(QT);
+  const SmemSQ L = smemsq_layout<T>(QT);
+  const auto kernel = smallq_kernel<T, QT>();
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(fused_knn_smallq_kernel<QT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_knn_smallq_kernel<QT>,
-                                                        SQ_THREADS, L.total);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SQ_THREADS, L.total);
   return err == cudaSuccess ? (long long)sms * per_sm : -1 - (long long)err;
+}
+
+template <typename T>
+int launch_smallq_any(const void* items, const void* item_valid, const void* queries,
+                      long long n, long long q, long long d, long long k,
+                      long long tiles_per_split, long long splits, void* part_d, void* part_i,
+                      void* row_kth, void* stream) {
+  return by_smallq_width<T>(q, (int)cudaErrorInvalidValue, [&](auto qt) {
+    return launch_smallq<T, decltype(qt)::value>(items, item_valid, queries, n, q, d, k,
+                                                 tiles_per_split, splits, part_d, part_i,
+                                                 row_kth, stream);
+  });
+}
+
+template <typename T>
+long long smallq_wave_any(long long q) {
+  return by_smallq_width<T>(q, -1 - (long long)cudaErrorInvalidValue,
+                            [](auto qt) { return smallq_wave<T, decltype(qt)::value>(); });
 }
 
 }  // namespace
@@ -1775,27 +1896,29 @@ int fused_knn_f64(const void* items, const void* queries, const void* xs, long l
   return (int)cudaGetLastError();
 }
 
-// items (n, d), item_valid (n,) and queries (q, d) row-major float32;
-// part_d/part_i (q, splits, k) scratch, k <= 32; row_kth (q,) 64-bit keys,
-// all ones at launch; splits * tiles_per_split covers the tiles of
-// SQ_TILE items.
+// items (n, d), item_valid (n,) and queries (q, d) row-major float32
+// (fused_knn_smallq) or float64 (fused_knn_smallq_f64); part_d/part_i
+// (q, splits, k) scratch, k <= 32; row_kth (q,) 64-bit keys, all ones at
+// launch; splits * tiles_per_split covers the tiles of SQ_TILE items.
 int fused_knn_smallq(const void* items, const void* item_valid, const void* queries,
                      long long n, long long q, long long d, long long k,
                      long long tiles_per_split, long long splits, void* part_d, void* part_i,
                      void* row_kth, void* stream) {
-  return by_smallq_width(q, (int)cudaErrorInvalidValue, [&](auto qt) {
-    return launch_smallq<decltype(qt)::value>(items, item_valid, queries, n, q, d, k,
-                                              tiles_per_split, splits, part_d, part_i, row_kth,
-                                              stream);
-  });
+  return launch_smallq_any<float>(items, item_valid, queries, n, q, d, k, tiles_per_split,
+                                  splits, part_d, part_i, row_kth, stream);
+}
+int fused_knn_smallq_f64(const void* items, const void* item_valid, const void* queries,
+                         long long n, long long q, long long d, long long k,
+                         long long tiles_per_split, long long splits, void* part_d,
+                         void* part_i, void* row_kth, void* stream) {
+  return launch_smallq_any<double>(items, item_valid, queries, n, q, d, k, tiles_per_split,
+                                   splits, part_d, part_i, row_kth, stream);
 }
 
-// Blocks of the small-q kernel for q queries that the current card holds
-// at once, or -1 - a cudaError_t.
-long long fused_knn_smallq_wave(long long q) {
-  return by_smallq_width(q, -1 - (long long)cudaErrorInvalidValue,
-                         [](auto qt) { return smallq_wave<decltype(qt)::value>(); });
-}
+// Blocks of the small-q kernel (float32, float64) for q queries that the
+// current card holds at once, or -1 - a cudaError_t.
+long long fused_knn_smallq_wave(long long q) { return smallq_wave_any<float>(q); }
+long long fused_knn_smallq_f64_wave(long long q) { return smallq_wave_any<double>(q); }
 
 // Dynamic shared memory the float32 kernel asks for, and its ring's
 // stages, at this width; and the float64 kernel's at width d (for reports).

@@ -17,6 +17,8 @@
 #   fused_knn_smallq             the float32 kernel for few queries, with its
 #                                plain version `fused_knn_smallq_reference`;
 #                                `route` says which kernel a call takes.
+#   fused_knn_smallq_f64         its float64 instance (the same plain
+#                                version).
 #   fused_knn_f64                the float64 main kernel, with its plain
 #                                version `fused_knn_f64_reference`; the merge
 #                                pass takes float64 too.
@@ -33,8 +35,10 @@
 # float64 on the card runs two: the main kernel (products on the FP64
 # tensor cores, the same split sweep and selection) and the merge pass, so
 # `float32_inputs=False` keeps float64 inside the kernels (the JAX package
-# sends float64 to XLA instead, and bounds d at 4096).  Neither has a width
-# bound.
+# sends float64 to XLA instead, and bounds d at 4096).  float64 with
+# q <= _SMALL_Q_F64 queries and k <= 32 runs the small-q kernel's float64
+# instance (IEEE float64 FMAs on the CUDA cores) and the merge pass.  None
+# has a width bound.
 #
 from __future__ import annotations
 
@@ -63,10 +67,12 @@ _MAX_SPLITS = 32
 _MIN_SPLIT_TILES = 16
 _BLOCK_COST = 0.03
 _SPLIT_SCRATCH_BYTES = 256 << 20
-# the small-q kernel (csrc SQ_TILE, SQ_QMAX): items per tile, queries per
-# block, and the largest k it takes (a row's list is one register a lane)
+# the small-q kernel (csrc SQ_TILE, SqType<T>::QMAX): items per tile,
+# queries per block (float32, float64), and the largest k it takes (a
+# row's list is one register a lane)
 _SQ_TILE = 256
 _SQ_QBLOCK = 64
+_SQ_QBLOCK_F64 = 32
 _SQ_MAX_K = 32
 # float32 calls with at most this many queries (and k <= _SQ_MAX_K) take the
 # small-q kernel: the largest q of chip_smoke.py's sweep (phase 16, both
@@ -75,16 +81,26 @@ _SQ_MAX_K = 32
 # 2.354, 8 0.334 / 2.559, 64 0.899 / 3.214, 128 1.534 / 3.536, 256 2.793 /
 # 3.559, 512 5.469 / 3.581, 1024 10.735 / 5.189 (PERF.md, PR 18).
 _SMALL_Q = 256
+# float64 calls with at most this many queries (and k <= _SQ_MAX_K) take the
+# small-q kernel's float64 instance: the largest q of chip_smoke.py's float64
+# sweep (phase 16, both float64 routes called directly, 1M x 128 items,
+# k = 32) at which it is the faster route.  ms small-q / main kernel (norms
+# pass + DMMA kernel + merge) on an H100 80GB HBM3 at 700 W: q = 1 0.454 /
+# 4.641, 8 0.528 / 4.917, 64 1.603 / 5.619, 128 3.038 / 6.056, 256 6.081 /
+# 6.032, 512 11.996 / 6.017, 1024 23.751 / 9.973 (PERF.md, PR 19).
+_SMALL_Q_F64 = 128
 
 # Launches since the last reset (chip_smoke.py resets them before the main
 # path and reads them after), each counted by the wrapper that launches the
 # kernel: the float32 main kernel (3xTF32), the float32 small-q kernel (one
-# of the two per float32 fused_topk_sqdist call), the float64 main kernel,
-# the split pass and the merge pass (either type).  The plain versions
-# never count.
+# of the two per float32 fused_topk_sqdist call), the float64 main kernel
+# and the float64 small-q kernel (one of the two per float64 call), the
+# split pass and the merge pass (either type).  The plain versions never
+# count.
 LAUNCHES = 0
 SMALLQ_LAUNCHES = 0
 LAUNCHES_F64 = 0
+SMALLQ_F64_LAUNCHES = 0
 SPLIT_LAUNCHES = 0
 MERGE_LAUNCHES = 0
 
@@ -134,20 +150,25 @@ def auto_splits(n: int, q: int, k: int, sms: int, dtype=torch.float32) -> int:
     return min(range(1, top + 1), key=cost)
 
 
-def smallq_splits(n: int, q: int, wave: int) -> int:
+def smallq_splits(n: int, q: int, wave: int, qblock: int = _SQ_QBLOCK) -> int:
     """Splits of the small-q kernel's item sweep: one wave of `wave`
-    resident blocks (`fused_knn_smallq_wave`) over the ceil(q / 64) query
-    blocks, at most one split per 256-item tile."""
-    per_block = max(1, wave // -(-q // _SQ_QBLOCK))
+    resident blocks (`smallq_wave`) over the ceil(q / qblock) query blocks
+    (64 queries a block in float32, `_SQ_QBLOCK_F64` in float64), at most
+    one split per 256-item tile."""
+    per_block = max(1, wave // -(-q // qblock))
     return max(1, min(per_block, -(-n // _SQ_TILE)))
 
 
 def route(q: int, k: int, dtype) -> str:
     """The kernel `fused_topk_sqdist` runs on the card, from the call's
-    shape and dtype alone: float64 takes the float64 main kernel; float32
-    with q <= _SMALL_Q and k <= 32 the small-q kernel; other float32 calls
-    the 3xTF32 main kernel.  Each is followed by the merge pass."""
+    shape and dtype alone: float32 with q <= _SMALL_Q and k <= 32 the
+    small-q kernel, other float32 calls the 3xTF32 main kernel; float64
+    with q <= _SMALL_Q_F64 and k <= 32 the small-q kernel's float64
+    instance, other float64 calls the float64 main kernel.  Each is
+    followed by the merge pass."""
     if dtype == torch.float64:
+        if q <= _SMALL_Q_F64 and k <= _SQ_MAX_K:
+            return "fused_knn_smallq_f64"
         return "fused_knn_f64"
     if q <= _SMALL_Q and k <= _SQ_MAX_K:
         return "fused_knn_smallq"
@@ -292,9 +313,10 @@ def _ieee_score_tile(items, item_valid, queries):
 
 def fused_knn_smallq_reference(items, item_valid, queries, k: int, splits: int,
                                bq: int = 256, bn: int = 512):
-    """Plain version of the small-q kernel: the twin's IEEE float32 scores
-    (`_ieee_score_tile`), then the (q, S, k) sorted partial lists of
-    `_split_topk` over the item ranges of `split_plan(n, splits, 256)`."""
+    """Plain version of the small-q kernel in either type: the twin's IEEE
+    scores in the inputs' type (`_ieee_score_tile`), then the (q, S, k)
+    sorted partial lists of `_split_topk` over the item ranges of
+    `split_plan(n, splits, 256)`."""
     return _split_topk(_ieee_score_tile(items, item_valid, queries), items.shape[0],
                        queries.shape[0], k, splits, bq, bn, queries.dtype, queries.device,
                        tile=_SQ_TILE)
@@ -341,6 +363,7 @@ def _lib() -> ctypes.CDLL:
             "merge_partials": [ptr] * 3 + [i64] * 4 + [ptr] * 3,
             "fused_knn_f64": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
             "fused_knn_smallq": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
+            "fused_knn_smallq_f64": [ptr] * 3 + [i64] * 6 + [ptr] * 4,
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -349,7 +372,8 @@ def _lib() -> ctypes.CDLL:
         for name, argtypes in (("fused_knn_tf32_smem_bytes", [i64]),
                                ("fused_knn_tf32_stages", [i64]),
                                ("fused_knn_f64_smem_bytes", [i64]),
-                               ("fused_knn_smallq_wave", [i64])):
+                               ("fused_knn_smallq_wave", [i64]),
+                               ("fused_knn_smallq_f64_wave", [i64])):
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = i64
         lib.fused_knn_error_string.argtypes = [ctypes.c_int]
@@ -487,19 +511,50 @@ def fused_knn_f64(items, queries, xs, k: int, splits: int):
 _SMALLQ_WAVE = {}
 
 
-def smallq_wave(device: torch.device, q: int) -> int:
-    """Blocks of the small-q kernel for q queries that the card holds at
-    once (the CUDA occupancy of its instance), cached per card and instance."""
-    qt = min(_SQ_QBLOCK, 1 << max(0, q - 1).bit_length())
-    key = (torch.device(device).index, qt)
+def smallq_wave(device: torch.device, q: int, dtype=torch.float32) -> int:
+    """Blocks of the small-q kernel of `dtype` for q queries that the card
+    holds at once (the CUDA occupancy of its instance), cached per card,
+    type and instance."""
+    f64 = dtype == torch.float64
+    qt = min(_SQ_QBLOCK_F64 if f64 else _SQ_QBLOCK, 1 << max(0, q - 1).bit_length())
+    key = (torch.device(device).index, f64, qt)
     if key not in _SMALLQ_WAVE:
+        lib = _lib()
         with torch.cuda.device(device):
-            wave = _lib().fused_knn_smallq_wave(qt)
+            wave = (lib.fused_knn_smallq_f64_wave if f64 else lib.fused_knn_smallq_wave)(qt)
         if wave < 1:
-            raise RuntimeError(f"fused_knn_smallq_wave failed: "
-                               f"{_lib().fused_knn_error_string(int(-1 - wave)).decode()}")
+            raise RuntimeError(f"small-q wave query failed: "
+                               f"{lib.fused_knn_error_string(int(-1 - wave)).decode()}")
         _SMALLQ_WAVE[key] = wave
     return _SMALLQ_WAVE[key]
+
+
+def _smallq_check(name: str, dtype, items, item_valid, queries, k: int, splits: int) -> None:
+    """Raise ValueError on what the small-q kernel of `dtype` does not take."""
+    if not all(t.dtype == dtype and t.is_contiguous() for t in (items, item_valid, queries)) \
+            or items.dim() != 2 or queries.dim() != 2 or queries.shape[1] != items.shape[1] \
+            or item_valid.shape != (items.shape[0],):
+        raise ValueError(f"{name} takes contiguous {str(dtype)[6:]} items (n, d), item_valid "
+                         "(n,) and queries (q, d)")
+    (n, d), q = items.shape, queries.shape[0]
+    if not 1 <= k <= _SQ_MAX_K or n < 1 or q < 1 or splits < 1:
+        raise ValueError(f"{name} takes 1 <= k <= {_SQ_MAX_K}, n >= 1, q >= 1 and "
+                         f"splits >= 1; got k={k}, n={n}, q={q}, splits={splits}")
+    if max(n, d, q) > _INT32_MAX:
+        raise ValueError(f"{name} indexes with int32; got n={n}, d={d}, q={q}")
+
+
+def _smallq_launch(name: str, items, item_valid, queries, k: int, splits: int):
+    """Launch the small-q kernel `name` (C entry of the same name): the
+    (q, S, k) partial lists in the items' dtype."""
+    (n, d), q = items.shape, queries.shape[0]
+    tps, s = split_plan(n, splits, _SQ_TILE)
+    part_d = torch.empty((q, s, k), dtype=items.dtype, device=queries.device)
+    part_i = torch.empty((q, s, k), dtype=torch.int32, device=queries.device)
+    row_kth = torch.full((q,), -1, dtype=torch.int64, device=queries.device)  # all ones
+    _run(name, queries.device, items.data_ptr(), item_valid.data_ptr(), queries.data_ptr(), n, q,
+         d, k, tps, s, part_d.data_ptr(), part_i.data_ptr(), row_kth.data_ptr())
+    return part_d, part_i
 
 
 def fused_knn_smallq(items, item_valid, queries, k: int, splits: int):
@@ -512,29 +567,30 @@ def fused_knn_smallq(items, item_valid, queries, k: int, splits: int):
     list may end early; the lists merged (`merge_partials`) give the same
     top-k."""
     global SMALLQ_LAUNCHES
-    tensors = (items, item_valid, queries)
-    if not all(t.dtype == torch.float32 and t.is_contiguous() for t in tensors) \
-            or items.dim() != 2 or queries.dim() != 2 or queries.shape[1] != items.shape[1] \
-            or item_valid.shape != (items.shape[0],):
-        raise ValueError("fused_knn_smallq takes contiguous float32 items (n, d), item_valid "
-                         "(n,) and queries (q, d)")
-    (n, d), q = items.shape, queries.shape[0]
-    if not 1 <= k <= _SQ_MAX_K or n < 1 or q < 1 or splits < 1:
-        raise ValueError(f"fused_knn_smallq takes 1 <= k <= {_SQ_MAX_K}, n >= 1, q >= 1 and "
-                         f"splits >= 1; got k={k}, n={n}, q={q}, splits={splits}")
-    if max(n, d, q) > _INT32_MAX:
-        raise ValueError(f"fused_knn_smallq indexes with int32; got n={n}, d={d}, q={q}")
+    _smallq_check("fused_knn_smallq", torch.float32, items, item_valid, queries, k, splits)
     if not _on_cuda(queries):
         return fused_knn_smallq_reference(items, item_valid, queries, k, splits)
-    tps, s = split_plan(n, splits, _SQ_TILE)
-    part_d = torch.empty((q, s, k), dtype=torch.float32, device=queries.device)
-    part_i = torch.empty((q, s, k), dtype=torch.int32, device=queries.device)
-    row_kth = torch.full((q,), -1, dtype=torch.int64, device=queries.device)  # all ones
-    _run("fused_knn_smallq", queries.device, items.data_ptr(), item_valid.data_ptr(),
-         queries.data_ptr(), n, q, d, k, tps, s, part_d.data_ptr(), part_i.data_ptr(),
-         row_kth.data_ptr())
+    out = _smallq_launch("fused_knn_smallq", items, item_valid, queries, k, splits)
     SMALLQ_LAUNCHES += 1
-    return part_d, part_i
+    return out
+
+
+def fused_knn_smallq_f64(items, item_valid, queries, k: int, splits: int):
+    """The small-q kernel's float64 instance on contiguous float64 items
+    (n, d), item_valid (n,) and queries (q, d), k <= 32: the (q, S, k)
+    sorted partial (score, position) lists, S = `split_plan(n, splits,
+    256)[1]`.  CUDA tensors launch the kernel; CPU tensors run
+    `fused_knn_smallq_reference`.  On the card a split keeps only
+    entries whose score does not exceed the k-th score other splits of the
+    row have reached (as the float64 main kernel), so its list may end
+    early; the lists merged (`merge_partials`) give the same top-k."""
+    global SMALLQ_F64_LAUNCHES
+    _smallq_check("fused_knn_smallq_f64", torch.float64, items, item_valid, queries, k, splits)
+    if not _on_cuda(queries):
+        return fused_knn_smallq_reference(items, item_valid, queries, k, splits)
+    out = _smallq_launch("fused_knn_smallq_f64", items, item_valid, queries, k, splits)
+    SMALLQ_F64_LAUNCHES += 1
+    return out
 
 
 def topk_partials(items, item_valid, queries, k: int, splits: int):
@@ -605,6 +661,10 @@ def fused_topk_sqdist(
         part_d, part_i = fused_knn_smallq(
             items, item_valid.to(torch.float32).contiguous(), queries, k,
             splits or smallq_splits(n, q, smallq_wave(dev, q)))
+    elif kernel == "fused_knn_smallq_f64":
+        part_d, part_i = fused_knn_smallq_f64(
+            items, item_valid.to(torch.float64).contiguous(), queries, k,
+            splits or smallq_splits(n, q, smallq_wave(dev, q, dt), _SQ_QBLOCK_F64))
     else:
         if splits is None:
             sms = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -9,6 +9,7 @@
 import os
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -17,11 +18,13 @@ import jax.numpy as jnp
 
 from spark_rapids_ml_torch import set_default_device
 from spark_rapids_ml_torch.config import reset_config, set_config
+from spark_rapids_ml_torch.knn import NearestNeighbors
 from spark_rapids_ml_torch.ops import _build
 from spark_rapids_ml_torch.ops import fused_knn as fk
 from spark_rapids_ml_torch.ops import knn as ko
 from spark_rapids_ml_torch.ops.precision import distance_precision, matmul_precision
 from spark_rapids_ml_tpu.config import reset_config as jax_reset_config
+from spark_rapids_ml_tpu.knn import NearestNeighbors as JaxNearestNeighbors
 from spark_rapids_ml_tpu.ops.knn import knn_topk_blocked as jax_blocked
 from spark_rapids_ml_tpu.ops.knn import knn_topk_coltiled as jax_coltiled
 from spark_rapids_ml_tpu.ops.pallas_knn import fused_topk_sqdist as jax_fused
@@ -646,14 +649,14 @@ def test_merge_slot_rule_matches_plain_version(dtype, splits, k):
 # ---- the small-q kernel's plain version and the route ---------------------------
 
 
-def _smallq_data(seed, n, d, q):
+def _smallq_data(seed, n, d, q, dtype=np.float32):
     """Ragged n (no whole tile of 256 items), invalid items inside the set
     and at the tail, and 40 rows repeated (exact ties)."""
     rng = np.random.default_rng(seed)
-    X = rng.normal(size=(n, d)).astype(np.float32)
+    X = rng.normal(size=(n, d)).astype(dtype)
     X[n // 2 : n // 2 + 40] = X[:40]
-    Q = rng.normal(size=(q, d)).astype(np.float32)
-    valid = np.ones(n, np.float32)
+    Q = rng.normal(size=(q, d)).astype(dtype)
+    valid = np.ones(n, dtype)
     valid[::11] = 0.0
     valid[-30:] = 0.0
     return X, Q, valid
@@ -727,8 +730,14 @@ def test_route_is_a_function_of_the_shape_and_dtype():
     assert fk.route(fk._SMALL_Q + 1, 32, f32) == "fused_knn_tf32"
     assert fk.route(1, 33, f32) == "fused_knn_tf32"  # k > 32: the register lists end at 32
     assert fk.route(10_000, 32, f32) == "fused_knn_tf32"
-    for q, k in ((1, 1), (8, 32), (10_000, 1000)):
-        assert fk.route(q, k, f64) == "fused_knn_f64"
+    # float64: the small-q kernel's float64 instance up to _SMALL_Q_F64
+    # queries and k = 32, the float64 main kernel above either
+    assert fk.route(1, 1, f64) == "fused_knn_smallq_f64"
+    assert fk.route(8, 32, f64) == "fused_knn_smallq_f64"
+    assert fk.route(fk._SMALL_Q_F64, 32, f64) == "fused_knn_smallq_f64"
+    assert fk.route(fk._SMALL_Q_F64 + 1, 32, f64) == "fused_knn_f64"
+    assert fk.route(1, 33, f64) == "fused_knn_f64"
+    assert fk.route(10_000, 1000, f64) == "fused_knn_f64"
 
 
 def test_smallq_splits_fill_one_wave():
@@ -780,3 +789,123 @@ def test_smallq_route_on_cpu_is_the_twin_and_never_counts():
     assert torch.equal(ia, ib) and torch.equal(d2a, d2b)
     fk.fused_knn_smallq(_t(X), _t(valid), _t(Q), 6, 2)
     assert (fk.LAUNCHES, fk.SMALLQ_LAUNCHES, fk.SPLIT_LAUNCHES, fk.MERGE_LAUNCHES) == before
+
+
+# ---- the float64 small-q kernel's plain version and the route -------------------
+
+
+@pytest.mark.parametrize("d", [6, 17, 33])
+@pytest.mark.parametrize("q", [1, 3, 8, 64])
+def test_smallq_f64_plain_version_matches_jax_blocked(q, d):
+    """The float64 small-q kernel's plain version, its lists merged by the
+    plain merge, against the JAX package's float64 XLA kNN under x64
+    (`knn_topk_blocked`, the path the JAX package sends float64 to), for
+    k = 1, 5, 32 over three item splits.  Tolerance: d^2 within 1e-10
+    relative (the two sum q.x in other orders), ids equal except at ties;
+    the repeated rows tie exactly in both and go to the lower position."""
+    n = 400 + 23 * d + q
+    X, Q, valid = _smallq_data(q * 100 + d + 7, n, d, q, dtype=np.float64)
+    ids = np.arange(n, dtype=np.int32)
+    before = (fk.SMALLQ_F64_LAUNCHES, fk.MERGE_LAUNCHES)
+    for k in (1, 5, 32):
+        part_d, part_i = fk.fused_knn_smallq_f64(_t(X), _t(valid), _t(Q), k, 3)
+        assert part_d.shape == (q, fk.split_plan(n, 3, 256)[1], k)
+        assert part_d.dtype == torch.float64
+        d2, pos = fk.merge_partials(part_d, part_i, (_t(Q) * _t(Q)).sum(dim=1), k)
+        with jax.enable_x64(True):
+            d2j, ij = jax_blocked(jnp.asarray(X), jnp.asarray(valid), jnp.asarray(ids),
+                                  jnp.asarray(Q), k=k)
+            d2j, ij = np.asarray(d2j), np.asarray(ij)
+        assert d2j.dtype == np.float64
+        _held_ties_aside(d2.numpy(), pos.numpy(), d2j, ij, X, Q, 1e-10)
+    assert (fk.SMALLQ_F64_LAUNCHES, fk.MERGE_LAUNCHES) == before  # the CPU never counts
+
+
+@pytest.mark.parametrize("data,splits", [("normal", 1), ("integers", 3), ("integers", 7)])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_smallq_f64_plain_version_is_the_twin_bit_for_bit(data, splits, q):
+    """float64 as the float32 test above: one split runs the twin's own
+    tiles; on integer rows every product and sum is exact, so any split
+    count gives the twin's result, ties across the splits going to the
+    lower position."""
+    rng = np.random.default_rng(q + splits + 19)
+    if data == "normal":
+        X, Q, valid = _smallq_data(q + 19, 1500, 24, q, dtype=np.float64)
+    else:
+        X = np.tile(rng.integers(-3, 4, size=(256, 17)), (6, 1)).astype(np.float64)
+        Q = rng.integers(-3, 4, size=(q, 17)).astype(np.float64)
+        valid = np.ones(X.shape[0])
+        valid[::13] = 0.0
+    for k in (1, 5, 32):
+        part_d, part_i = fk.fused_knn_smallq_reference(_t(X), _t(valid), _t(Q), k, splits)
+        d2, ids = fk.merge_partials_reference(part_d, part_i, (_t(Q) * _t(Q)).sum(dim=1), k)
+        d2t, it = fk.fused_topk_sqdist_reference(_t(X), _t(valid), _t(Q), k)
+        assert torch.equal(ids, it) and torch.equal(d2, d2t)
+
+
+@pytest.mark.parametrize("q", [1, 8])
+def test_float64_kneighbors_at_small_q_matches_jax(q):
+    """NearestNeighbors(float32_inputs=False).kneighbors at the batch sizes
+    the route sends to the float64 small-q kernel on the card, against the
+    JAX package's estimator (float64 under x64) on the same rows: the same
+    ids, distances within 1e-6 relative."""
+    rng = np.random.default_rng(190 + q)
+    X, Q = rng.normal(size=(900, 24)), rng.normal(size=(q, 24))
+    assert fk.route(q, 32, torch.float64) == "fused_knn_smallq_f64"
+    items, queries = pd.DataFrame({"features": list(X)}), pd.DataFrame({"features": list(Q)})
+    _, _, a = NearestNeighbors(k=32, float32_inputs=False).fit(items).kneighbors(queries)
+    with jax.enable_x64(True):
+        ref = JaxNearestNeighbors(k=32, float32_inputs=False, num_workers=1).fit(items)
+        _, _, b = ref.kneighbors(queries)
+    ia, ib = np.stack(a["indices"]), np.stack(b["indices"])
+    da, db = np.stack(a["distances"]), np.stack(b["distances"])
+    assert ia.shape == ib.shape == (q, 32)
+    np.testing.assert_array_equal(ia, ib)
+    np.testing.assert_allclose(da, db, rtol=1e-6)
+
+
+def test_smallq_splits_of_the_float64_instance():
+    """The float64 instance takes 32 queries a block: one wave over
+    ceil(q / 32) query blocks."""
+    assert fk._SQ_QBLOCK_F64 == 32
+    assert fk.smallq_splits(1_000_000, 32, 132, fk._SQ_QBLOCK_F64) == 132
+    assert fk.smallq_splits(1_000_000, 33, 132, fk._SQ_QBLOCK_F64) == 66
+    assert fk.smallq_splits(1_000_000, 64, 132, fk._SQ_QBLOCK_F64) == 66
+    assert fk.smallq_splits(1_000_000, 256, 132, fk._SQ_QBLOCK_F64) == 16
+    assert fk.smallq_splits(1000, 1, 132, fk._SQ_QBLOCK_F64) == 4  # 4 tiles
+
+
+@pytest.mark.parametrize("bad", ["float32", "valid_dtype", "k", "width", "noncontig", "empty",
+                                 "splits"])
+def test_smallq_f64_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    X, Q, valid = _smallq_data(1, 300, 8, 4, dtype=np.float64)
+    items, v, queries, k, splits = _t(X), _t(valid), _t(Q), 5, 2
+    if bad == "float32":
+        items, v, queries = items.float(), v.float(), queries.float()
+    elif bad == "valid_dtype":
+        v = v.float()
+    elif bad == "k":
+        k = 33
+    elif bad == "width":
+        queries = queries[:, :4].contiguous()
+    elif bad == "noncontig":
+        items = torch.from_numpy(np.asfortranarray(X))
+    elif bad == "empty":
+        queries = queries[:0]
+    else:
+        splits = 0
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq_f64(items, v, queries, k, splits)
+
+
+def test_smallq_f64_route_on_cpu_is_the_twin_and_never_counts():
+    """A float64 CPU tensor never launches: the fused function runs the
+    twin, and the float64 small-q wrapper its plain version."""
+    X, Q, valid = _smallq_data(2, 700, 12, 8, dtype=np.float64)
+    before = (fk.LAUNCHES_F64, fk.SMALLQ_F64_LAUNCHES, fk.MERGE_LAUNCHES)
+    d2a, ia = fk.fused_topk_sqdist(_t(X), _t(valid), _t(Q), 6)
+    d2b, ib = fk.fused_topk_sqdist_reference(_t(X), _t(valid), _t(Q), 6)
+    assert d2a.dtype == torch.float64
+    assert torch.equal(ia, ib) and torch.equal(d2a, d2b)
+    fk.fused_knn_smallq_f64(_t(X), _t(valid), _t(Q), 6, 2)
+    assert (fk.LAUNCHES_F64, fk.SMALLQ_F64_LAUNCHES, fk.MERGE_LAUNCHES) == before

@@ -58,9 +58,21 @@ def _assert_ties_where_ids_differ(items, queries, d2t, ik, it):
 
 
 def _launches(dtype):
-    """Main-kernel launches of the dtype: float32 takes the 3xTF32 or the
-    small-q kernel by `fk.route`."""
-    return fk.LAUNCHES_F64 if dtype == torch.float64 else fk.LAUNCHES + fk.SMALLQ_LAUNCHES
+    """Main-kernel launches of the dtype: each type takes its main kernel
+    or its small-q kernel by `fk.route`."""
+    if dtype == torch.float64:
+        return fk.LAUNCHES_F64 + fk.SMALLQ_F64_LAUNCHES
+    return fk.LAUNCHES + fk.SMALLQ_LAUNCHES
+
+
+def _f64_main_route(items, v, queries, k, splits=None):
+    """The float64 main-kernel route called directly (the norms pass, the
+    DMMA kernel, the merge), whatever `fk.route` takes at this q."""
+    if splits is None:
+        sms = torch.cuda.get_device_properties(items.device).multi_processor_count
+        splits = fk.auto_splits(items.shape[0], queries.shape[0], k, sms, torch.float64)
+    parts = fk.fused_knn_f64(items, queries, fk.padded_item_norms(items, v), k, splits)
+    return fk.merge_partials(*parts, (queries * queries).sum(dim=1), k)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -219,7 +231,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
 
 
 @pytest.mark.parametrize("dtype,kernel", [(np.float32, "fused_knn_smallq"),
-                                          (np.float64, "fused_knn_f64")])
+                                          (np.float64, "fused_knn_smallq_f64")])
 def test_nearest_neighbors_on_the_card(cuda_device, dtype, kernel):
     rng = np.random.default_rng(1)
     X = rng.normal(size=(2000, 32)).astype(dtype)
@@ -250,7 +262,7 @@ def test_float64_kernel_at_ragged_shapes(cuda_device, q, d, k):
     items, queries, v = _on(cuda_device, torch.float64, rng.normal(size=(1500, d)),
                             rng.normal(size=(q, d)), valid)
     before = (fk.LAUNCHES_F64, fk.MERGE_LAUNCHES)
-    d2k, ik = fk.fused_topk_sqdist(items, v, queries, k)
+    d2k, ik = _f64_main_route(items, v, queries, k)
     d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k, bq=2048, bn=1500)
     torch.cuda.synchronize()
     assert (fk.LAUNCHES_F64, fk.MERGE_LAUNCHES) == (before[0] + 1, before[1] + 1)
@@ -266,7 +278,7 @@ def test_float64_kernel_split_sweep_at_small_q(cuda_device, splits):
                             rng.normal(size=(20, 33)), valid)
     assert fk.split_plan(2000, splits)[1] == splits
     for k in (8, 300):
-        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        d2k, ik = _f64_main_route(items, v, queries, k, splits)
         d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k, splits=splits)
         _assert_matches_twin(d2k, ik, d2t, it)
 
@@ -281,7 +293,7 @@ def test_float64_kernel_ties_across_split_boundaries(cuda_device, splits):
     Q = rng.integers(-3, 4, size=(40, 17))
     items, queries, v = _on(cuda_device, torch.float64, X, Q, np.ones(1024))
     for k in (1, 32, 700):
-        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        d2k, ik = _f64_main_route(items, v, queries, k, splits)
         d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
         assert torch.equal(ik, it) and torch.equal(d2k, d2t)
 
@@ -331,12 +343,19 @@ def test_merge_kernel_is_bit_exact_in_both_types(cuda_device, dtype, splits, k):
 
 
 def test_float64_route_has_no_fallback(cuda_device):
-    """A float64 CUDA tensor the kernel does not take raises; nothing gives
-    way to the plain version."""
+    """A float64 CUDA tensor a float64 kernel does not take raises; nothing
+    gives way to the plain version."""
     items = torch.zeros((10, 4), dtype=torch.float64, device=cuda_device)
-    xs = fk.padded_item_norms(items, torch.ones(10, dtype=torch.float64, device=cuda_device))
+    v = torch.ones(10, dtype=torch.float64, device=cuda_device)
+    xs = fk.padded_item_norms(items, v)
     with pytest.raises(ValueError):
         fk.fused_knn_f64(items, items[:, :3].contiguous(), xs, 3, 1)
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq_f64(items, v, items[:2, :3].contiguous(), 3, 1)
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq_f64(items, v, items[:2], 33, 1)
+    with pytest.raises(ValueError):
+        fk.fused_knn_smallq_f64(items, v.float(), items[:2], 3, 1)
     with pytest.raises(TypeError):
         fk.merge_partials(torch.zeros((2, 1, 3), dtype=torch.float64, device=cuda_device),
                           torch.zeros((2, 1, 3), dtype=torch.int32, device=cuda_device),
@@ -459,3 +478,124 @@ def test_smallq_kernel_rejects_what_it_does_not_take(cuda_device):
         fk.fused_knn_smallq(items, v, items[:2], 33, 1)
     with pytest.raises(ValueError):
         fk.fused_knn_smallq(items, v, items[:2, :4], 3, 1)
+
+
+# ---- the float64 small-q kernel -------------------------------------------------
+
+
+@pytest.mark.parametrize("case", range(len(_smallq_cases())))
+def test_smallq_f64_kernel_matches_its_plain_version(cuda_device, case):
+    """chip_smoke.py's phase 2 cases in float64: ragged n, invalid items,
+    d = 6, 17, 33, 130 (odd widths take 8-byte copies), q = 1, 7, 64 and
+    100 (several 32-query blocks), k = 1, 5, 32, forced splits, exact ties,
+    signed zeros and tails.  Each side's lists merged: every finite d^2
+    within 1e-10 * max(1, d^2) and every differing id a tie (exact cases
+    bit for bit)."""
+    import chip_smoke
+
+    name, X, v, Q, k, exact, splits = _smallq_cases()[case]
+    items, valid, queries = _on(cuda_device, torch.float64, X, v, Q)
+    s = splits or fk.smallq_splits(len(X), len(Q),
+                                   fk.smallq_wave(cuda_device, len(Q), torch.float64),
+                                   fk._SQ_QBLOCK_F64)
+    before = fk.SMALLQ_F64_LAUNCHES
+    part_d, part_i = fk.fused_knn_smallq_f64(items, valid, queries, k, s)
+    assert fk.SMALLQ_F64_LAUNCHES == before + 1
+    pd, pi = fk.fused_knn_smallq_reference(items, valid, queries, k, s)
+    assert part_d.shape == pd.shape and part_d.dtype == torch.float64
+    q2 = (queries * queries).sum(dim=1)
+    chip_smoke.compare_ties_aside(name, *fk.merge_partials(part_d, part_i, q2, k),
+                                  *fk.merge_partials_reference(pd, pi, q2, k), X, Q, exact)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 11, 40])
+def test_smallq_f64_kernel_split_sweep(cuda_device, splits):
+    """Every split count gives the plain version's merged result (ragged
+    n, invalid items; 40 splits of a single 256-item tile each)."""
+    rng = np.random.default_rng(splits + 190)
+    valid = np.ones(10_000)
+    valid[::5] = 0.0
+    items, queries, v = _on(cuda_device, torch.float64, rng.normal(size=(10_000, 33)),
+                            rng.normal(size=(20, 33)), valid)
+    q2 = (queries * queries).sum(dim=1)
+    for k in (1, 8, 32):
+        part_d, part_i = fk.fused_knn_smallq_f64(items, v, queries, k, splits)
+        assert part_d.shape[1] == fk.split_plan(10_000, splits, 256)[1]
+        pd, pi = fk.fused_knn_smallq_reference(items, v, queries, k, splits)
+        _assert_matches_twin(*fk.merge_partials(part_d, part_i, q2, k),
+                             *fk.merge_partials_reference(pd, pi, q2, k))
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4, 7])
+def test_smallq_f64_kernel_ties_across_split_boundaries(cuda_device, splits):
+    """Integer rows repeated at 256-item strides tie exactly across the
+    item splits, and the splits share only k-th SCORES: a tie with the
+    shared bound must be kept, so the route equals the twin slot for slot."""
+    rng = np.random.default_rng(9)
+    X = np.tile(rng.integers(-3, 4, size=(256, 17)), (4, 1))
+    Q = rng.integers(-3, 4, size=(40, 17))
+    items, queries, v = _on(cuda_device, torch.float64, X, Q, np.ones(1024))
+    for k in (1, 5, 32):
+        assert fk.route(40, k, torch.float64) == "fused_knn_smallq_f64"
+        before = fk.SMALLQ_F64_LAUNCHES
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k, splits=splits)
+        assert fk.SMALLQ_F64_LAUNCHES == before + 1
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
+        assert torch.equal(ik, it) and torch.equal(d2k, d2t)
+
+
+@pytest.mark.parametrize("d", [64, 130])
+@pytest.mark.parametrize("q", [1, 8, 64])
+def test_smallq_f64_route_matches_the_main_kernel_route(cuda_device, q, d):
+    """The float64 route (small-q kernel + merge) against the float64 main
+    kernel's route on the same queries: ids equal except at ties, d^2
+    within 1e-10; the route launches the small-q kernel and not the main
+    one."""
+    import chip_smoke
+
+    rng = np.random.default_rng(q + d + 190)
+    X, Q = rng.normal(size=(20_000, d)), rng.normal(size=(q, d))
+    items, queries, v = _on(cuda_device, torch.float64, X, Q, np.ones(20_000))
+    for k in (1, 32):
+        assert fk.route(q, k, torch.float64) == "fused_knn_smallq_f64"
+        before = (fk.SMALLQ_F64_LAUNCHES, fk.LAUNCHES_F64)
+        kd, ki = fk.fused_topk_sqdist(items, v, queries, k)
+        assert (fk.SMALLQ_F64_LAUNCHES, fk.LAUNCHES_F64) == (before[0] + 1, before[1])
+        td, ti = _f64_main_route(items, v, queries, k, 4)
+        chip_smoke.compare_ties_aside(f"q={q} d={d} k={k}", kd, ki, td, ti, X, Q, exact=False)
+
+
+def test_smallq_f64_kernel_repeats(cuda_device):
+    """One launch repeated: with one split the partial lists are bit-equal;
+    with the wrapper's splits the merged lists are bit-equal."""
+    rng = np.random.default_rng(12)
+    items, queries, v = _on(cuda_device, torch.float64, rng.normal(size=(50_000, 96)),
+                            rng.normal(size=(8, 96)), np.ones(50_000))
+    q2 = (queries * queries).sum(dim=1)
+    a = fk.fused_knn_smallq_f64(items, v, queries, 32, 1)
+    b = fk.fused_knn_smallq_f64(items, v, queries, 32, 1)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    s = fk.smallq_splits(50_000, 8, fk.smallq_wave(cuda_device, 8, torch.float64),
+                         fk._SQ_QBLOCK_F64)
+    ma = fk.merge_partials(*fk.fused_knn_smallq_f64(items, v, queries, 32, s), q2, 32)
+    mb = fk.merge_partials(*fk.fused_knn_smallq_f64(items, v, queries, 32, s), q2, 32)
+    assert torch.equal(ma[0], mb[0]) and torch.equal(ma[1], mb[1])
+
+
+def test_float64_route_takes_the_kernel_its_rule_names(cuda_device):
+    """q <= _SMALL_Q_F64 and k <= 32 launch the float64 small-q kernel, one
+    query more or k = 33 the float64 main kernel; the results agree with
+    the twin."""
+    rng = np.random.default_rng(6)
+    items, v = _on(cuda_device, torch.float64, rng.normal(size=(3000, 20)), np.ones(3000))
+    for q, k, kernel in ((fk._SMALL_Q_F64, 32, "fused_knn_smallq_f64"),
+                         (fk._SMALL_Q_F64 + 1, 32, "fused_knn_f64"), (5, 33, "fused_knn_f64")):
+        (queries,) = _on(cuda_device, torch.float64, rng.normal(size=(q, 20)))
+        before = (fk.SMALLQ_F64_LAUNCHES, fk.LAUNCHES_F64)
+        d2k, ik = fk.fused_topk_sqdist(items, v, queries, k)
+        small = kernel == "fused_knn_smallq_f64"
+        assert (fk.SMALLQ_F64_LAUNCHES, fk.LAUNCHES_F64) == (before[0] + small,
+                                                             before[1] + (not small))
+        assert fk.route(q, k, torch.float64) == kernel
+        d2t, it = fk.fused_topk_sqdist_reference(items, v, queries, k)
+        _assert_matches_twin(d2k, ik, d2t, it)
